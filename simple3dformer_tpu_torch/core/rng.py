@@ -1,0 +1,18 @@
+"""Deterministic RNG plumbing (port of simple3dformer_tpu/core/rng.py).
+
+The reference pins ``manualSeed = 9`` (its train_cls_voxel.py:383).
+Init draws from an explicit CPU ``torch.Generator``, so one integer gives the
+same weights on any device. torch and jax give different numbers from one
+seed: tests that compare the two make their inputs with numpy.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_SEED = 9
+
+
+def generator(seed: int = DEFAULT_SEED) -> torch.Generator:
+    """A CPU generator seeded with ``seed``, for parameter init."""
+    return torch.Generator().manual_seed(seed)
