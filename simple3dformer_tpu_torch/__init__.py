@@ -10,8 +10,11 @@ Layout (mirrors simple3dformer_tpu):
   kernels/   hand-written CUDA kernels for Hopper, each beside its plain
              PyTorch version; build.py compiles csrc/ with nvcc at first use
   csrc/      CUDA C++ sources
-  models/    VoxelViT
+  models/    VoxelViT, frozen_mask
+  train/     Adam and LR schedules, train/eval steps, metrics, health check
+  cli/       the trainer (train_cls_voxel)
   serve/     fixed-batch Predictor and the stdlib HTTP server
   utils/     JAX parameter trees -> the port's state dicts
-  data/      synthetic inputs
+  data/      synthetic inputs, binvox and voxel dataset readers, class maps,
+             the device-resident dataset
 """

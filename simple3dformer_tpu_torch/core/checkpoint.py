@@ -4,7 +4,9 @@ The same API as the JAX package's orbax Checkpointer: ``save(step, state,
 metrics)``, ``latest_step()``, ``restore()`` and ``max_to_keep``. A state is
 whatever ``torch.save`` stores and ``torch.load(weights_only=True)`` reads
 back: nested dicts and lists of tensors and plain numbers, such as
-``{"params": model.state_dict(), "step": 3}``. Each step is a directory
+``{"params": model.state_dict(), "step": 3}``, or a train state's
+``state_dict()`` (parameters, optimizer moments and step), which
+``restore_into`` loads back into a live train state. Each step is a directory
 ``<directory>/<step>/`` holding ``state.pt`` and ``metrics.json``, written
 under a temporary name and renamed into place, so a reader never sees half
 a checkpoint.
@@ -57,6 +59,16 @@ class Checkpointer:
         with open(os.path.join(path, "metrics.json")) as f:
             metrics = json.load(f)
         return state, metrics
+
+    def restore_into(self, target, step: int | None = None):
+        """Load a saved step into ``target`` (anything with ``load_state_dict``,
+        such as train.loop.TrainState); returns (target, metrics), or
+        (None, None) if nothing is saved."""
+        state, metrics = self.restore(step)
+        if state is None:
+            return None, None
+        target.load_state_dict(state)
+        return target, metrics
 
 
 def save_params(path: str, params: dict) -> None:

@@ -1,0 +1,55 @@
+"""Device-resident datasets (port of DeviceResidentDataset from
+simple3dformer_tpu/data/pipeline.py).
+
+The voxel corpora are small next to the card's memory (ModelNet40: 12k x 30^3
+uint8, about 332 MB), so a whole split goes to the device once and each
+batch is an on-device gather by an index tensor. Per step the host sends
+nothing; an epoch's index matrix goes over once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class DeviceResidentDataset:
+    """Named arrays held on ``device`` as [n, prod(rest)] rows; batches by gather."""
+
+    def __init__(self, arrays: dict[str, np.ndarray], device="cuda"):
+        self.device = torch.device(device)
+        self.n = len(next(iter(arrays.values())))
+        self.shapes: dict[str, tuple] = {}
+        self.arrays: dict[str, torch.Tensor] = {}
+        for k, v in arrays.items():
+            if len(v) != self.n:
+                raise ValueError(f"array {k!r} length {len(v)} != {self.n}")
+            v = np.ascontiguousarray(v)
+            self.shapes[k] = v.shape[1:]
+            flat = v.reshape(self.n, -1) if v.ndim > 1 else v
+            self.arrays[k] = torch.from_numpy(flat).to(self.device)
+
+    def __len__(self):
+        return self.n
+
+    def gather(self, idx: torch.Tensor) -> dict[str, torch.Tensor]:
+        """idx [B] (or [S, B]) on the device -> batch dict, arrays in their own dtypes."""
+        flat = idx.reshape(-1)
+        return {k: v.index_select(0, flat).reshape(*idx.shape, *self.shapes[k])
+                for k, v in self.arrays.items()}
+
+    def put_indices(self, idx: np.ndarray) -> torch.Tensor:
+        """An index matrix on the device, sent once."""
+        return torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
+
+    def epoch_indices(self, batch_size: int, rng: np.random.RandomState, shuffle: bool = True,
+                      drop_last: bool = True) -> np.ndarray:
+        """[num_batches, batch_size] int32 index matrix for one epoch."""
+        order = rng.permutation(self.n) if shuffle else np.arange(self.n)
+        if drop_last:
+            nb = self.n // batch_size
+            order = order[: nb * batch_size]
+        else:
+            pad = (-len(order)) % batch_size
+            order = np.concatenate([order, order[:pad]])
+        return order.reshape(-1, batch_size).astype(np.int32)

@@ -77,3 +77,15 @@ class VoxelViT(ViTCore):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.voxel_head(self.forward_features(x))
+
+
+# Parameters frozen when 2D-pretrained weights are loaded (the reference's
+# vit_3d_2d_pretrain.py:428-432): the 2D head, 2D pos embed, 2D patch embed.
+FROZEN_2D_PREFIXES = ("head", "pos_embed", "patch_embed")
+
+
+def frozen_mask(model: nn.Module, pretrained: bool) -> dict[str, bool]:
+    """Parameter name -> trainable. Mirrors requires_grad=False on the 2D-side
+    parameters when the backbone is 2D-pretrained; all trainable otherwise."""
+    return {name: not (pretrained and name.split(".")[0] in FROZEN_2D_PREFIXES)
+            for name, _ in model.named_parameters()}

@@ -5,8 +5,9 @@ timm or reference state dict loads as it is. Parameters are f32. Every module
 takes an optional ``torch.Generator`` (init draws on the CPU from it, so one
 seed gives the same weights on any device) and a ``device``.
 
-``Block`` on a CUDA tensor runs the whole block as the port's CUDA kernel
-(kernels/vit_block.py); on a CPU tensor it runs the plain modules below.
+``Block`` on a CUDA tensor runs the whole block as the port's CUDA kernels
+(kernels/vit_block.py), forward and backward; on a CPU tensor it runs the
+plain modules below.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.vit_block import fused_vit_block, unsupported
+from ..kernels.vit_block import (fused_vit_block, fused_vit_block_train, records_grad,
+                                 unsupported)
 
 
 def trunc_normal(shape, std: float = 0.02, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -102,10 +104,15 @@ class DropPath(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block: x + attn(ln(x)); x + mlp(ln(x)).
 
-    On a CUDA tensor the block is one call of the fused kernel. The kernel
-    computes the eval-mode forward only, so on CUDA a block with live dropout
-    or drop-path, a ``seg_len`` mask, a gradient to record, or a shape beyond
-    the kernel's limits raises instead of falling back.
+    On a CUDA tensor the block is one call of the fused kernels, dispatched
+    as the JAX package's Block dispatches (simple3dformer_tpu/nn/layers.py:307):
+    a gradient to record in train mode runs ``fused_vit_block_train`` (the
+    residual-saving forward and the residual backward), in eval mode
+    ``fused_vit_block`` (its backward recomputes the forward); with nothing
+    to record (``torch.inference_mode()``, serving) the forward kernel alone
+    runs. The kernels take no dropout, so on CUDA a block with live dropout
+    or drop-path, a ``seg_len`` mask, or a shape beyond the kernels' limits
+    raises instead of falling back.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -148,9 +155,6 @@ class Block(nn.Module):
             return "dropout or drop-path is live (training mode with a nonzero rate)"
         if seg_len is not None:
             return "the kernel takes no seg_len mask"
-        if torch.is_grad_enabled() and (x.requires_grad or any(
-                p.requires_grad for p in self.parameters())):
-            return "the kernel has no backward yet; run under torch.inference_mode()"
         return unsupported(x.shape[1], x.shape[2], self.num_heads)
 
     def forward(self, x, seg_len: int | None = None):
@@ -158,7 +162,10 @@ class Block(nn.Module):
             why = self.fused_unsupported(x, seg_len)
             if why:
                 raise NotImplementedError(f"Block on CUDA runs the fused kernel: {why}")
-            return fused_vit_block(x, self.fused_weights(), self.num_heads)
+            weights = self.fused_weights()
+            if self.training and records_grad(x, weights):
+                return fused_vit_block_train(x, weights, self.num_heads)
+            return fused_vit_block(x, weights, self.num_heads)
         x = x + self.drop_path(self.attn(self.norm1(x), seg_len=seg_len))
         return x + self.drop_path(self.mlp(self.norm2(x)))
 

@@ -25,7 +25,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 31
     assert bad.strip() == "[]", bad
 
 

@@ -126,7 +126,9 @@ def test_block_fused_guard_names_each_reason():
         assert "seg_len" in blk.fused_unsupported(x, seg_len=13)
         assert "sequence length" in blk.fused_unsupported(torch.zeros(1, 513, 128))
         assert "head_dim" in tl.Block(96 * 2, 2).eval().fused_unsupported(torch.zeros(1, 4, 192))
-    assert "backward" in blk.fused_unsupported(x)  # grad mode, parameters require grad
+    # grad mode with parameters that require grad: the kernels have backwards now
+    assert blk.eval().fused_unsupported(x) is None
+    assert "dropout" in blk.train().fused_unsupported(x)
     assert "LayerNorm eps" in tl.Block(128, 2, norm_eps=1e-5).eval().fused_unsupported(x)
 
 
