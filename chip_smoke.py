@@ -24,6 +24,15 @@ Phases, one line each (and a line per kernel shape):
               weights and batches; the CLI on a synthetic corpus held on the card
               (loss falls over 40 steps, launch counts from the counters); an
               eval-mode gradient (the recompute backward); samples/s over 50 steps
+  7. point kernels  FPS, kNN and the gather forward and backward against their
+              plain versions at the partseg shapes (and FPS at B=1 and at the S3DIS
+              shape, kNN with duplicated points, the backward twice bit-equal);
+              times of kernel, plain version and a library call where one exists
+  8. partseg  the 3DViT part-segmentation model (deit_tiny, N=1024, 50 parts,
+              B=16, f32, SGD): 3 steps on the card against the CPU's plain path;
+              the partseg CLI on a synthetic corpus (loss falls, launch counts of
+              every kernel of the path from the counters); ms per step, samples/s
+              and a per-kernel profile
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -55,6 +64,7 @@ KERNEL_SHAPES = [
     ("N=197", 4, 197, 768, 12, "float32"),
     ("B=1", 1, 26, 384, 6, "float32"),
     ("B=33", 33, 26, 384, 6, "float32"),
+    ("partseg N=257", 16, 257, 192, 3, "float32"),
 ]
 # f32: the same f32 products summed in another order.
 # bf16: the same bf16-rounded operands, but a last-bit difference in an f32 sum
@@ -251,7 +261,7 @@ def phase_serving(torch):
 # the backwards' shapes: (label, B, N, D, heads, dtype name)
 TRAIN_SHAPES = [s for s in KERNEL_SHAPES
                 if s[0] in ("flagship f32", "flagship bf16", "deit_base 3 heads", "N=197",
-                            "B=1", "B=33")]
+                            "B=1", "B=33", "partseg N=257")]
 # gradients: an error relative to the largest reference value. f32: sums of
 # up to B*N products in another order; bf16: as TOL, a last-bit difference can
 # round an intermediate to the neighbouring bf16 value.
@@ -525,10 +535,11 @@ def phase_training(torch):
 
 KERNEL_GROUPS = ("grad_gemm_kernel", "gemm_kernel", "attention_kernel", "attn_bwd_rows_kernel",
                  "attn_bwd_cols_kernel", "colsum_kernel", "ln_bwd_kernel", "row_stats_kernel",
-                 "adam_kernel")
+                 "adam_kernel", "fps_kernel", "knn_kernel", "gather_fwd_kernel",
+                 "gather_bwd_kernel")
 
 
-def profile_steps(torch, run, idx, ms_step):
+def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
     """Where a train step's device time goes: torch.profiler over len(idx) steps;
     the busy share is against ``ms_step``, the step time without the profiler.
     Informational: a profiler that records no device time is reported, not fatal."""
@@ -537,25 +548,267 @@ def profile_steps(torch, run, idx, ms_step):
     steps = idx.shape[0]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(run(idx, 1e-4)["loss"][-1])
+        float(run(idx, lr)["loss"][-1])
         wall = time.perf_counter() - t0
     groups: dict[str, float] = {}
+    others: dict[str, float] = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if us <= 0 or str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
             continue
         name = next((g for g in KERNEL_GROUPS if g in e.key), "other (PyTorch's own kernels, copies)")
         groups[name] = groups.get(name, 0.0) + us
+        if name not in KERNEL_GROUPS:
+            others[e.key[:60]] = others.get(e.key[:60], 0.0) + us
     total = sum(groups.values())
     if not total:
-        print("training profile: the profiler recorded no device time")
+        print(f"{label} profile: the profiler recorded no device time")
         return
     parts = ", ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
     device_ms = total / steps / 1e3
-    print(f"training profile over {steps} steps: device {device_ms:.3f} ms per step, "
+    print(f"{label} profile over {steps} steps: device {device_ms:.3f} ms per step, "
           f"{device_ms / ms_step:.1%} of the {ms_step:.3f} ms step without the profiler "
           f"({wall / steps * 1e3:.3f} ms with it); ms per step by kernel: {parts}")
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{label} profile, PyTorch's own kernels, ms per step: "
+          + "; ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in top))
+
+
+# the point kernels at the partseg shapes (B=16, N=1024, deit_tiny, f32)
+PB, PN = 16, 1024
+FPS_SHAPES = [("partseg TD1", PB, PN, PN // 4), ("B=1", 1, PN, PN // 4),
+              ("S3DIS 4096 -> 1024", 4, 4096, 1024)]
+# (label, B, S queries, N points, k, duplicated points)
+KNN_SHAPES = [("TD0 k=16", PB, PN, PN, 16, False), ("TD1 k=16", PB, PN // 4, PN, 16, False),
+              ("TU0 3-NN", PB, PN, PN // 4, 3, False), ("TU1 3-NN", PB, PN, PN, 3, False),
+              ("ties k=16", 4, 512, PN, 16, True)]
+# (label, B, N, R, C, dtype name)
+GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32"),
+                 ("TD0 points C=48", PB, PN, PN * 16, 48, "float32"),
+                 ("TD1 points C=96", PB, PN, PN // 4 * 16, 96, "float32"),
+                 ("TU0 C=96", PB, PN // 4, PN * 3, 96, "float32"),
+                 ("TU1 C=48", PB, PN, PN * 3, 48, "float32"),
+                 ("bf16 C=96", PB, PN, PN * 16, 96, "bfloat16")]
+KNN_DIST_TOL = 1e-5  # distances: the same sums, q.p in another order on the plain side
+GATHER_BWD_REL = 1e-6  # f32 sums in source order on both sides (index_add_ may not be)
+
+
+def timed(torch, kernel, plain, library=None):
+    """(kernel ms, plain ms, library ms or None): in turns, 50 calls each."""
+    ms, plain_ms = in_turns(torch, kernel, plain)
+    return ms, plain_ms, (time_ms(torch, library) if library is not None else None)
+
+
+def point_report(name, err, times, moved, ops, note):
+    ms, plain_ms, library_ms = times
+    bound_ms, bound_by = bound(moved, ops)
+    lib = f", {library_ms:.4f} ms library ({note})" if library_ms is not None else ""
+    print(f"kernel {name} time: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain{lib}; bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP), "
+          f"mean of 50 calls each, in turns")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def phase_point_kernels(torch):
+    """FPS, kNN and the gather forward and backward against their plain
+    versions at the partseg path's shapes; times at the largest."""
+    from simple3dformer_tpu_torch.kernels.fps import fps, fps_reference
+    from simple3dformer_tpu_torch.kernels.gather import (gather_bwd, gather_bwd_reference,
+                                                         gather_fwd, gather_fwd_reference)
+    from simple3dformer_tpu_torch.kernels.knn import knn, knn_reference, near_ties
+
+    rs = np.random.RandomState(11)
+    report = {}
+
+    def cloud(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).cuda()
+
+    def xyz_cloud(b, n):  # centred on the unit sphere, as pc_normalize leaves a shape
+        x = cloud(b, n, 3)
+        return x / x.norm(dim=-1).amax(-1)[:, None, None]
+
+    for label, b, n, npoint in FPS_SHAPES:
+        xyz = xyz_cloud(b, n)
+        got, want = fps(xyz, npoint), fps_reference(xyz, npoint)
+        start = torch.from_numpy(rs.randint(0, n, b).astype(np.int32)).cuda()
+        got_s, want_s = fps(xyz, npoint, start), fps_reference(xyz, npoint, start)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) and torch.equal(got_s, want_s)
+        print(f"kernel fps {label} B={b} N={n} npoint={npoint}: indices equal to the plain "
+              f"version {same} (start 0 and random starts)")
+        if not same:
+            raise AssertionError(f"fps {label}: indices differ from the plain version")
+        if label == "partseg TD1":
+            report["fps"] = point_report(
+                "fps", 0.0, timed(torch, lambda: fps(xyz, npoint),
+                                  lambda: fps_reference(xyz, npoint)),
+                nbytes(xyz, got), 9 * b * n * (npoint - 1), "")
+
+    for label, b, s, n, k, dup in KNN_SHAPES:
+        p = xyz_cloud(b, n // 2).repeat(1, 2, 1) if dup else xyz_cloud(b, n)
+        q = p[:, :s].contiguous() if s <= n else xyz_cloud(b, s)
+        idx, dist = knn(q, p, k)
+        ridx, rdist = knn_reference(q, p, k)
+        torch.cuda.synchronize()
+        n_diff, n_near = near_ties(idx, dist, ridx, rdist)
+        derr = float((dist - rdist).abs().max())
+        disorder = int(((dist[..., 1:] == dist[..., :-1]) & (idx[..., 1:] < idx[..., :-1])).sum())
+        print(f"kernel knn {label} B={b} S={s} N={n} k={k}: {n_diff} of {idx.numel()} ranks "
+              f"differ from the plain version, {n_near} of them near-ties (distances within "
+              f"1e-6); distance max abs err {derr:.3e} (tolerance {KNN_DIST_TOL}); equal "
+              f"distances out of index order: {disorder}")
+        if n_diff != n_near or derr > KNN_DIST_TOL or disorder:
+            raise AssertionError(f"knn {label}: {n_diff - n_near} ranks differ beyond a near-tie,"
+                                 f" distance error {derr}, {disorder} ties out of order")
+        if label == "TD0 k=16":
+            report["knn"] = point_report(
+                "knn", derr, timed(torch, lambda: knn(q, p, k), lambda: knn_reference(q, p, k)),
+                nbytes(q, p, idx, dist), 9 * b * s * n, "")
+
+    for label, b, n, r, c, dtype in GATHER_SHAPES:
+        pts = cloud(b, n, c).to(getattr(torch, dtype))
+        idx = torch.from_numpy(rs.randint(0, n, (b, r)).astype(np.int32)).cuda()
+        idx[0, :3] = torch.tensor([-5, n, n + 7], dtype=torch.int32)  # out of range: clamped
+        g = cloud(b, r, c).to(pts.dtype)
+        out, want = gather_fwd(pts, idx), gather_fwd_reference(pts, idx)
+        gp, gp2 = gather_bwd(idx, g, n), gather_bwd(idx, g, n)
+        gwant = gather_bwd_reference(idx, g, n)
+        torch.cuda.synchronize()
+        same_fwd = torch.equal(out, want)
+        rel = float((gp - gwant).abs().max()) / float(gwant.abs().max())
+        bits = torch.equal(gp, gp2)
+        print(f"kernel gather {label} B={b} N={n} R={r} C={c} {dtype}: forward equal {same_fwd}; "
+              f"backward error relative to the largest value {rel:.3e} (tolerance "
+              f"{GATHER_BWD_REL}), two runs bit-equal {bits}")
+        if not same_fwd or rel > GATHER_BWD_REL or not bits:
+            raise AssertionError(f"gather {label}: forward equal {same_fwd}, backward {rel}, "
+                                 f"bit-equal {bits}")
+        if label == "TD0 points C=48":
+            idx_lib = idx.long().clamp(0, n - 1)
+            expanded = idx_lib[..., None].expand(-1, -1, c)
+            report["gather_fwd"] = point_report(
+                "gather_fwd", 0.0,
+                timed(torch, lambda: gather_fwd(pts, idx), lambda: gather_fwd_reference(pts, idx),
+                      lambda: torch.gather(pts, 1, expanded)),
+                nbytes(pts, idx, out), 0, "torch.gather, int64 index expanded beforehand")
+            flat = (idx_lib + torch.arange(b, device="cuda")[:, None] * n).reshape(-1)
+            g2 = g.reshape(-1, c)
+            report["gather_bwd"] = point_report(
+                "gather_bwd", float((gp - gwant).abs().max()),
+                timed(torch, lambda: gather_bwd(idx, g, n),
+                      lambda: gather_bwd_reference(idx, g, n),
+                      lambda: torch.zeros(b * n, c, device="cuda").index_add_(0, flat, g2)),
+                nbytes(idx, g, gp), b * r * c, "zeros + index_add_, float atomics")
+    torch.cuda.synchronize()
+    return report
+
+
+# partseg training: the slice's main path
+PARTSEG_LR = 0.05  # base lr of the CLI run (configs/partseg.yaml's), checked on the CPU
+PARTSEG_SAMPLES, PARTSEG_EPOCHS = 64, 15  # 4 steps per epoch at B=16: 60 steps
+
+
+def partseg_model(torch, device):
+    from simple3dformer_tpu_torch.cli.train_partseg import NUM_CATEGORY, NUM_PART
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.models.point_vit import PointViT
+
+    return PointViT("3DViT", "seg", PN, NUM_PART, input_dim=6 + NUM_CATEGORY, nneighbor=16,
+                    transformer_backbone="deit_tiny_patch16_224",
+                    generator=generator(DEFAULT_SEED)).to(device)
+
+
+def point_counters():
+    from simple3dformer_tpu_torch.kernels import fps, gather, knn
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    return {"fps": fps.fps, "knn": knn.knn, "gather_fwd": gather.gather_fwd,
+            "gather_bwd": gather.gather_bwd, "fused_vit_block": vb.fused_vit_block,
+            "fused_vit_block_train_fwd": vb.fused_vit_block_train_fwd,
+            "fused_vit_block_train_bwd": vb.fused_vit_block_train_bwd}
+
+
+def phase_partseg(torch):
+    """The 3DViT partseg model (deit_tiny, N=1024, B=16, f32, SGD) through the
+    port's trainer; returns the launch counts of the CLI run and the step time."""
+    import contextlib
+    import io
+    import tempfile
+
+    from simple3dformer_tpu_torch.cli import train_partseg as tp
+    from simple3dformer_tpu_torch.core.config import Config
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.train.loop import (TrainState, make_scanned_train_steps,
+                                                     make_train_step, seg_cross_entropy)
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    def trainer(device):
+        model = partseg_model(torch, device)
+        return TrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"))
+
+    cfg = Config(num_point=PN, normal=True, synthetic=64 * PB, seed=9)
+    (xs, cats, segs), _ = tp.load_arrays(cfg)
+    prepare = tp.make_prepare_fn()
+
+    def batch(i, device):
+        sl = slice(i * PB, (i + 1) * PB)
+        return {k: torch.from_numpy(v[sl]).to(device)
+                for k, v in (("x", xs), ("cls", cats), ("y", segs))}
+
+    # 3 steps on the card and on the CPU's plain path, same weights and batches
+    losses = {}
+    for device in ("cuda", "cpu"):
+        step = make_train_step(trainer(device), seg_cross_entropy, prepare_fn=prepare)
+        losses[device] = [float(step(batch(i, device), PARTSEG_LR)["loss"]) for i in range(3)]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    print(f"partseg training: 3 steps at B={PB}, N={PN}, lr {PARTSEG_LR}: losses on the card "
+          f"{losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol 1e-3)")
+
+    # the CLI on a synthetic corpus held on the card: the slice's main path
+    counters = point_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as out_dir, contextlib.redirect_stdout(log):
+        tp.main(["model=3DViT", f"synthetic={PARTSEG_SAMPLES}", f"epoch={PARTSEG_EPOCHS}",
+                 f"batch_size={PB}", f"learning_rate={PARTSEG_LR}", f"out_dir={out_dir}"])
+    launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
+    lines = log.getvalue().splitlines()
+    epoch_losses = [float(line.split()[6]) for line in lines
+                    if line.startswith("Epoch ") and "train loss" in line]
+    ious = [line for line in lines if "Inctance avg mIOU" in line]
+    steps = PARTSEG_EPOCHS * (PARTSEG_SAMPLES // PB)
+    evals = PARTSEG_EPOCHS * -(-max(PARTSEG_SAMPLES // 5, 32) // PB)
+    want = {"fps": steps + evals, "knn": 4 * (steps + evals), "gather_fwd": 8 * (steps + evals),
+            "gather_bwd": 4 * steps, "fused_vit_block_train_fwd": 12 * steps,
+            "fused_vit_block_train_bwd": 12 * steps, "fused_vit_block": 12 * evals}
+    print(f"partseg CLI: {steps} train steps, {evals} eval batches; epoch losses "
+          f"{epoch_losses[0]:.4f} -> {epoch_losses[-1]:.4f}; {ious[-1].strip()}; launches "
+          f"{launches} (want {want})")
+    if len(epoch_losses) != PARTSEG_EPOCHS or not epoch_losses[-1] < 0.75 * epoch_losses[0]:
+        raise AssertionError(f"partseg training loss did not fall: {epoch_losses}")
+    if launches != want:
+        raise AssertionError(f"partseg launch counts {launches}, want {want}")
+
+    # train throughput: 20 steps at B=16 from a corpus on the card, host clock
+    state = trainer("cuda")
+    n_steps = 20
+    ds = DeviceResidentDataset({"x": xs[:(n_steps + 1) * PB], "cls": cats[:(n_steps + 1) * PB],
+                                "y": segs[:(n_steps + 1) * PB]}, "cuda")
+    run = make_scanned_train_steps(state, ds, seg_cross_entropy, prepare_fn=prepare)
+    idx = ds.put_indices(np.arange((n_steps + 1) * PB).reshape(n_steps + 1, PB))
+    run(idx[:1], PARTSEG_LR)  # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(run(idx[1:], PARTSEG_LR)["loss"][-1])
+    dt = time.perf_counter() - t0
+    ms_step = dt / n_steps * 1e3
+    print(f"partseg training throughput: {ms_step:.3f} ms per step, {n_steps * PB / dt:.1f} "
+          f"samples/s at B={PB} f32 (host clock over {n_steps} steps, corpus on the card)")
+    profile_steps(torch, run, idx[1:11], ms_step, "partseg training", PARTSEG_LR)
+    return launches, {"ms_per_step": ms_step, "samples_per_s": n_steps * PB / dt}
 
 
 def main() -> int:
@@ -584,6 +837,8 @@ def main() -> int:
         launches = phase_serving(torch)
         train_report = phase_train_kernels(torch)
         train_launches, _ = phase_training(torch)
+        point_report = phase_point_kernels(torch)
+        partseg_launches, _ = phase_partseg(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -609,6 +864,14 @@ def main() -> int:
              "simple3dformer_tpu_torch/csrc/adam.cu")]:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=train_launches[name], **train_report[name]))
+    for name, replaces, source in [
+            ("fps", "simple3dformer_tpu/kernels/fps.py:79", "fps.cu"),
+            ("knn", "simple3dformer_tpu/kernels/knn.py:74", "knn.cu"),
+            ("gather_fwd", "simple3dformer_tpu/kernels/gather.py:82", "gather.cu"),
+            ("gather_bwd", "simple3dformer_tpu/kernels/gather.py:109", "gather.cu")]:
+        kernels.append(dict(name=name, route="cuda",
+                            source=f"simple3dformer_tpu_torch/csrc/{source}", replaces=replaces,
+                            launches=partseg_launches[name], **point_report[name]))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

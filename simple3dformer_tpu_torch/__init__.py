@@ -5,16 +5,18 @@ counterpart at the same path there, and the tests hold the two against each
 other. This package imports torch and never jax.
 
 Layout (mirrors simple3dformer_tpu):
-  core/      rng (seed 9) and checkpointing over torch.save
-  nn/        ViT layers, backbone tables, voxel tokenizers
+  core/      rng (seed 9), checkpointing over torch.save, task configs
+  nn/        ViT layers, BatchNorm, backbone tables, voxel tokenizers,
+             set abstraction and feature propagation
   kernels/   hand-written CUDA kernels for Hopper, each beside its plain
              PyTorch version; build.py compiles csrc/ with nvcc at first use
   csrc/      CUDA C++ sources
-  models/    VoxelViT, frozen_mask
-  train/     Adam and LR schedules, train/eval steps, metrics, health check
-  cli/       the trainer (train_cls_voxel)
+  ops/       point-cloud primitives (FPS, kNN, gathers, grouping)
+  models/    VoxelViT, PointViT (3DViT family), Hengshuang transitions
+  train/     Adam, SGD and LR schedules, train/eval steps, metrics, health check
+  cli/       the trainers (train_cls_voxel, train_partseg)
   serve/     fixed-batch Predictor and the stdlib HTTP server
   utils/     JAX parameter trees -> the port's state dicts
-  data/      synthetic inputs, binvox and voxel dataset readers, class maps,
-             the device-resident dataset
+  data/      synthetic inputs, binvox, voxel and ShapeNetPart readers, class
+             maps, point augmentations, the device-resident dataset
 """

@@ -1,9 +1,10 @@
-"""Dataset class taxonomies (port of simple3dformer_tpu/data/classmaps.py, the
-maps the voxel classifier reads; the reference's global_var.py).
+"""Dataset class taxonomies (port of simple3dformer_tpu/data/classmaps.py; the
+reference's global_var.py).
 
-The standard public label maps for ModelNet10/40 and the ShapeNet synset IDs,
-stored as ordered name lists, with the reference's idx->name / name->idx
-dict views derived from them.
+The standard public label maps for ModelNet10/40, the ShapeNet synset IDs,
+S3DIS and ScanObjectNN, stored as ordered name lists, with the reference's
+idx->name / name->idx dict views derived from them, and the ImageNet-1k names
+(``imagenet_classes.json``, package data beside this module).
 """
 
 from __future__ import annotations
@@ -35,6 +36,19 @@ SHAPENET_V2_SYNSETS = [
     "04554684",
 ]
 
+# v1 adds two extra synsets at the end (global_var.py:68-98)
+SHAPENET_V1_SYNSETS = SHAPENET_V2_SYNSETS + ["02834778", "02858304"]
+
+S3DIS_NAMES = [
+    "ceiling", "floor", "wall", "beam", "column", "window", "door", "table",
+    "chair", "sofa", "bookcase", "board", "clutter",
+]
+
+SCANOBJECTNN_NAMES = [
+    "bag", "bin", "box", "cabinet", "chair", "desk", "display", "door",
+    "shelf", "table", "bed", "pillow", "sink", "sofa", "toilet",
+]
+
 
 def idx2name(names: list[str]) -> dict[int, str]:
     return dict(enumerate(names))
@@ -44,6 +58,21 @@ def name2idx(names: list[str]) -> dict[str, int]:
     return {n: i for i, n in enumerate(names)}
 
 
+def imagenet_class_names() -> dict[int, str]:
+    """ImageNet-1k index -> human-readable name (the reference's
+    data/class_names_imagenet.py lab_dict), read from the JSON beside this
+    module."""
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "imagenet_classes.json")
+    with open(path) as f:
+        return {int(k): v for k, v in json.load(f).items()}
+
+
 CLASSES_ModelNet10 = idx2name(MODELNET10_NAMES)
 CLASSES_ModelNet40 = idx2name(MODELNET40_NAMES)
 CLASSES_SHAPENET = idx2name(SHAPENET_V2_SYNSETS)
+CLASSES_SHAPENET_NUMBER = name2idx(SHAPENET_V2_SYNSETS)
+CLASSES_SHAPENET_V1 = idx2name(SHAPENET_V1_SYNSETS)
+CLASSES_SHAPENET_NUMBER_V1 = name2idx(SHAPENET_V1_SYNSETS)

@@ -1,5 +1,5 @@
-"""Voxel dataset readers (port of ModelNetVoxelDataset and ShapeNetV2VoxelDataset
-from simple3dformer_tpu/data/datasets.py, numpy path).
+"""Dataset readers (port of ModelNetVoxelDataset, ShapeNetV2VoxelDataset and
+PartNormalDataset from simple3dformer_tpu/data/datasets.py, numpy path).
 
 Python classes with __len__/__getitem__ mirroring the reference's torch
 Datasets (data/modelnet40.py, modelnet10.py, shapenet_v2.py); samples come
@@ -11,6 +11,7 @@ on the device once.
 from __future__ import annotations
 
 import glob
+import json
 import os
 import re
 
@@ -107,3 +108,73 @@ class ShapeNetV2VoxelDataset:
         idx = np.random.RandomState(seed).permutation(len(self.samples))
         cut = int(frac * len(self.samples))
         return idx[:cut], idx[cut:]
+
+
+def _pc_normalize_np(pc: np.ndarray) -> np.ndarray:
+    centroid = np.mean(pc, axis=0)
+    pc = pc - centroid
+    m = np.max(np.sqrt(np.sum(pc ** 2, axis=1)))
+    return pc / m
+
+
+class PartNormalDataset:
+    """ShapeNetPart with a random resample per item (the reference's
+    shapenet_part_seg.py:14-114; port of the JAX package's reader).
+
+    root holds ``synsetoffset2category.txt``, ``train_test_split/`` and one
+    directory per synset of ``<id>.txt`` files (x y z nx ny nz part).
+    """
+
+    def __init__(self, root: str, npoints: int = 2500, split: str = "train",
+                 class_choice=None, normal_channel: bool = False,
+                 rng: np.random.RandomState | None = None):
+        self.npoints = npoints
+        self.root = root
+        self.normal_channel = normal_channel
+        self.rng = rng if rng is not None else np.random.RandomState()
+
+        self.cat: dict[str, str] = {}
+        with open(os.path.join(root, "synsetoffset2category.txt")) as f:
+            for line in f:
+                name, synset = line.strip().split()
+                self.cat[name] = synset
+        self.classes_original = {n: i for i, n in enumerate(self.cat)}
+        if class_choice is not None:
+            self.cat = {k: v for k, v in self.cat.items() if k in class_choice}
+
+        def ids(fname):
+            with open(os.path.join(root, "train_test_split", fname)) as f:
+                return set(str(d.split("/")[2]) for d in json.load(f))
+
+        train_ids = ids("shuffled_train_file_list.json")
+        val_ids = ids("shuffled_val_file_list.json")
+        test_ids = ids("shuffled_test_file_list.json")
+        want = {"train": train_ids, "val": val_ids, "test": test_ids,
+                "trainval": train_ids | val_ids}[split]
+
+        self.datapath: list[tuple[str, str]] = []
+        for item, synset in self.cat.items():
+            d = os.path.join(root, synset)
+            for fn in sorted(os.listdir(d)):
+                if fn[0:-4] in want:
+                    self.datapath.append((item, os.path.join(d, fn)))
+        self.classes = {k: self.classes_original[k] for k in self.cat}
+        self.cache: dict[int, tuple] = {}
+
+    def __len__(self):
+        return len(self.datapath)
+
+    def __getitem__(self, index: int):
+        if index in self.cache:
+            pts, cls, seg = self.cache[index]
+        else:
+            cat, path = self.datapath[index]
+            cls = np.array([self.classes[cat]], dtype=np.int32)
+            data = np.loadtxt(path).astype(np.float32)
+            pts = data[:, 0:6] if self.normal_channel else data[:, 0:3]
+            seg = data[:, -1].astype(np.int32)
+            self.cache[index] = (pts, cls, seg)
+        pts = pts.copy()
+        pts[:, 0:3] = _pc_normalize_np(pts[:, 0:3])
+        choice = self.rng.choice(len(seg), self.npoints, replace=True)
+        return pts[choice], cls, seg[choice]

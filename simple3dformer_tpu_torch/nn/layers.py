@@ -209,3 +209,46 @@ class AMSoftmaxLayer(nn.Module):
         x_norm = x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         w_norm = self.W.norm(dim=0, keepdim=True).clamp_min(1e-12)
         return (x / x_norm) @ (self.W / w_norm) * self.s
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis, channel-last input [..., C].
+
+    Not torch's BatchNorm: the batch variance is flax's fast form
+    max(E[x^2] - E[x]^2, 0), biased, and the running statistics move as
+    ``ra = momentum * ra + (1 - momentum) * batch`` with flax's momentum (0.9
+    is torch's 0.1), the running variance taking that same biased variance.
+    Statistics run over every axis but the last, in f32; eps 1e-5. In train
+    mode the batch statistics normalise and the running ones are updated; in
+    eval mode the running ones normalise. The state-dict
+    names are torch's (``weight``, ``bias``, ``running_mean``,
+    ``running_var``, ``num_batches_tracked``), so a reference BatchNorm's
+    state dict loads as it is.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 device=None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("running_var", torch.ones(num_features, device=device))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long,
+                                                                device=device))
+
+    def forward(self, x):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            xf = x.float()
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+                self.num_batches_tracked += 1
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)

@@ -24,8 +24,8 @@ from .predictor import Predictor, topk_labels
 
 def default_class_names(n_classes: int) -> dict | None:
     """Built-in label maps by head width: ModelNet10/40, S3DIS, ScanObjectNN,
-    ImageNet-1k (the JAX package's numpy-only data/classmaps.py)."""
-    from simple3dformer_tpu.data import classmaps
+    ImageNet-1k (the port's data/classmaps.py)."""
+    from ..data import classmaps
 
     table = {
         10: classmaps.CLASSES_ModelNet10,

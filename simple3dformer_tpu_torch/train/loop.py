@@ -4,14 +4,23 @@ The JAX package jits (state, batch, lr) -> (state, metrics) and scans whole
 epochs in one dispatch. Here the state is the model's parameters and the
 optimizer (moments and step count), updated in place. A train step runs the
 model in train mode (every ViT block one call of the training kernels on the
-card), takes the gradients with autograd, and applies one Adam update (one
-kernel launch). ``make_scanned_train_steps`` is a Python loop over an epoch's
+card), takes the gradients with autograd, and applies one optimizer update
+(Adam: one kernel launch; SGD with momentum: plain PyTorch). BatchNorm
+running statistics are buffers of the model, updated by its train-mode
+forward, and part of the state a checkpoint holds. ``make_scanned_train_steps`` is a Python loop over an epoch's
 index matrix that is already on the device: each batch is an on-device
 gather, and the per-step metrics stay on the device and are fetched once per
 epoch, as the JAX loop fetches its scan's, so no step waits for the host.
 
 Losses: classification cross-entropy, optionally class-weighted like torch
-F.cross_entropy(weight=...) (the reference's train_cls_voxel.py:253-256).
+F.cross_entropy(weight=...) (the reference's train_cls_voxel.py:253-256), and
+per-point segmentation cross-entropy (train_partseg.py:165).
+
+``prepare_fn(batch) -> (x, y)`` builds the model's input from a gathered
+batch (partseg concatenates the category one-hot), and ``augment_fn(x)``
+augments it inside the step, as the JAX loop's hooks do (loop.py:189-200);
+an augmentation draws from its own ``torch.Generator``, so its numbers are
+not the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,15 +32,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .optim import Adam
+from .optim import SGD, Adam
 
 
 @dataclass
 class TrainState:
-    """What a checkpoint holds: the model's parameters, the optimizer, the step."""
+    """What a checkpoint holds: the model's parameters and buffers (BatchNorm
+    statistics), the optimizer, the step."""
 
     model: nn.Module
-    optimizer: Adam
+    optimizer: Adam | SGD
 
     @property
     def step(self) -> int:
@@ -56,10 +66,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (w * ce).sum() / w.sum()
 
 
-def make_train_step(state: TrainState, loss_fn: Callable = cross_entropy,
-                    class_weights: torch.Tensor | None = None):
-    """(batch, lr) -> metrics: one optimizer step on batch {'x', 'y'}, in place.
+def seg_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-point CE over [B, N, C] logits and [B, N] labels, mean in f32."""
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           labels.long().reshape(-1))
 
+
+def make_train_step(state: TrainState, loss_fn: Callable = cross_entropy,
+                    class_weights: torch.Tensor | None = None,
+                    prepare_fn: Callable | None = None, augment_fn: Callable | None = None,
+                    x_dtype: torch.dtype = torch.float32):
+    """(batch, lr) -> metrics: one optimizer step, in place.
+
+    ``batch`` is {'x', 'y'}, or whatever ``prepare_fn`` turns into (x, y).
     The model runs in train mode. Metrics are 0-dim device tensors (loss,
     accuracy); reading them is the caller's choice.
     """
@@ -69,7 +88,10 @@ def make_train_step(state: TrainState, loss_fn: Callable = cross_entropy,
 
     def step(batch: dict, lr: float) -> dict:
         model.train()
-        x, y = batch["x"], batch["y"]
+        x, y = prepare_fn(batch) if prepare_fn is not None else (batch["x"], batch["y"])
+        x = x.to(x_dtype)
+        if augment_fn is not None:
+            x = augment_fn(x)
         logits = model(x)
         loss = loss_fn(logits, y) if class_weights is None else loss_fn(logits, y, class_weights)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -81,21 +103,25 @@ def make_train_step(state: TrainState, loss_fn: Callable = cross_entropy,
 
 
 def make_scanned_train_steps(state: TrainState, dataset, loss_fn: Callable = cross_entropy,
-                             class_weights: torch.Tensor | None = None, x_key: str = "x",
+                             class_weights: torch.Tensor | None = None,
+                             augment_fn: Callable | None = None,
+                             prepare_fn: Callable | None = None, x_key: str = "x",
                              y_key: str = "y", x_dtype: torch.dtype = torch.float32):
     """(idx [S, B] on the device, lr) -> metrics {name: [S] device tensor}.
 
     One train step per row of ``idx``, each batch gathered on the device from
     ``dataset`` (data/pipeline.DeviceResidentDataset).
     """
-    step = make_train_step(state, loss_fn, class_weights)
+    if prepare_fn is None:
+        def prepare_fn(batch):
+            return batch[x_key], batch[y_key]
+    step = make_train_step(state, loss_fn, class_weights, prepare_fn, augment_fn, x_dtype)
 
     def run(idx_matrix: torch.Tensor, lr: float) -> dict:
         s = idx_matrix.shape[0]
         metrics = {k: torch.empty(s, device=idx_matrix.device) for k in ("loss", "accuracy")}
         for i in range(s):
-            batch = dataset.gather(idx_matrix[i])
-            out = step({"x": batch[x_key].to(x_dtype), "y": batch[y_key]}, lr)
+            out = step(dataset.gather(idx_matrix[i]), lr)
             for k, v in out.items():
                 metrics[k][i] = v
         return metrics
@@ -103,16 +129,20 @@ def make_scanned_train_steps(state: TrainState, dataset, loss_fn: Callable = cro
     return run
 
 
-def make_scanned_eval(model: nn.Module, dataset, x_key: str = "x",
-                      x_dtype: torch.dtype = torch.float32):
+def make_scanned_eval(model: nn.Module, dataset, prepare_fn: Callable | None = None,
+                      x_key: str = "x", x_dtype: torch.dtype = torch.float32):
     """(idx [S, B] on the device) -> logits [S, B, ...]: the model in eval mode
-    over every row, under inference mode (the serving kernels on the card)."""
+    over every row, under inference mode (the serving kernels on the card).
+    ``prepare_fn(batch) -> (x, y)`` builds the input, as in training."""
+
+    def inputs(batch):
+        x = prepare_fn(batch)[0] if prepare_fn is not None else batch[x_key]
+        return x.to(x_dtype)
 
     def run(idx_matrix: torch.Tensor) -> torch.Tensor:
         model.eval()
         with torch.inference_mode():
-            return torch.stack([model(dataset.gather(idx)[x_key].to(x_dtype))
-                                for idx in idx_matrix])
+            return torch.stack([model(inputs(dataset.gather(idx))) for idx in idx_matrix])
 
     return run
 

@@ -7,6 +7,9 @@ Recipes replicated:
     factor min(1, (epoch + 1) / period).
   * torch.optim.Adam(weight_decay) semantics: L2 added to the gradient before
     Adam (not AdamW), as the JAX package chains add_decayed_weights first.
+  * SGD with momentum 0.9 = optax.trace(decay=0.9, nesterov=False): the
+    buffer t' = g + 0.9 t, the parameter p' = p + (-lr) t' (plain PyTorch:
+    there is no TPU kernel for it), without weight decay as the recipes run it.
   * Frozen parameters (the 2D pathway when 2D-pretrained weights are loaded)
     get no update and carry no optimizer state.
 
@@ -20,6 +23,7 @@ import torch
 
 from ..kernels.adam import B1, B2, EPS, bias_corrections, fused_adam
 
+MOMENTUM = 0.9  # SGD's, as the partseg and semseg recipes set it
 
 def steplr(base_lr: float, step_size: float, gamma: float, epoch: int) -> float:
     """torch StepLR: lr * gamma ** floor(epoch / step_size)."""
@@ -113,11 +117,52 @@ class Adam:
             self.nu[k].copy_(state["nu"][k])
 
 
+class SGD:
+    """SGD with (heavy-ball) momentum ``MOMENTUM`` over named parameters, with
+    a trainable mask; the interface of ``Adam``.
+
+    Each f32 operation is one rounding, in optax's order (the buffer
+    g + momentum t, then p + (-lr) t), so the updates equal the JAX
+    package's. ``step`` runs PyTorch's multi-tensor ops over all leaves.
+    """
+
+    def __init__(self, params: dict[str, torch.Tensor], trainable: dict[str, bool] | None = None):
+        self.params = dict(params)
+        trainable = trainable or {}
+        self.names = [k for k in self.params if trainable.get(k, True)]
+        self.count = 0
+        self.trace = {k: torch.zeros_like(self.params[k]) for k in self.names}
+
+    @torch.no_grad()
+    def step(self, grads: dict[str, torch.Tensor | None], lr: float) -> None:
+        self.count += 1
+        params = [self.params[k] for k in self.names]
+        bufs = [self.trace[k] for k in self.names]
+        torch._foreach_mul_(bufs, MOMENTUM)
+        # a parameter the loss does not reach has a zero gradient
+        reached = [(self.trace[k], grads[k]) for k in self.names if grads.get(k) is not None]
+        if reached:
+            torch._foreach_add_([b for b, _ in reached], [g for _, g in reached])
+        torch._foreach_add_(params, torch._foreach_mul(bufs, -lr))
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "trace": dict(self.trace)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if set(state["trace"]) != set(self.names):
+            raise KeyError("optimizer state holds other leaves than the trainable ones")
+        self.count = int(state["count"])
+        for k in self.names:
+            self.trace[k].copy_(state["trace"][k])
+
+
 def make_optimizer(params: dict[str, torch.Tensor], optimizer: str = "Adam",
                    weight_decay: float = 0.0, trainable_mask: dict[str, bool] | None = None,
-                   bf16_nu: bool = False) -> Adam:
+                   bf16_nu: bool = False) -> Adam | SGD:
     """The optimizer of the recipes. ``trainable_mask``: name -> bool (True =
     trainable); False leaves receive no update and carry no optimizer state.
+    SGD runs without weight decay, as every recipe that uses it does.
 
     ``bf16_nu``: store Adam's second moment in bfloat16 (off by default: the
     contract is torch.optim.Adam's f32 state).
@@ -126,6 +171,7 @@ def make_optimizer(params: dict[str, torch.Tensor], optimizer: str = "Adam",
     if name == "adam":
         return Adam(params, trainable_mask, weight_decay, bf16_nu=bf16_nu)
     if name == "sgd":
-        raise NotImplementedError("SGD (momentum 0.9) is not ported yet: it comes with the "
-                                  "point-cloud classification slice (train_cls)")
+        if weight_decay:
+            raise NotImplementedError("SGD with weight decay: no recipe of the port uses it")
+        return SGD(params, trainable_mask)
     raise ValueError(f"Unknown optimizer {optimizer!r}")

@@ -6,6 +6,13 @@ The port names its parameters as timm and the reference do, the names
 ``scripts/refbridge.export_voxelvit_state_dict`` produces: Linear ``weight``
 [out, in], ``blocks.{i}.attn.qkv.weight``, ``norm.weight``,
 ``voxel_embed.proj.conv3d_1.weight`` [D, 1, c, c, c], ``voxel_head.weight``.
+Point models take the reference's names as well (the ones
+``simple3dformer_tpu/utils/torch_convert.reference_pointvit_to_jax_tree``
+reads): ``fc1.0`` / ``fc1.2``, ``transition_downs.{i}.sa.mlp_convs.{j}.weight``
+[out, in, 1, 1] and ``mlp_bns.{j}``, ``transition_ups.{i}.fc1.0`` (Linear) and
+``fc1.2`` (BatchNorm), the point head ``head`` or ``new_head``. flax BatchNorm
+``scale`` / ``bias`` become ``weight`` / ``bias``, and the ``batch_stats``
+tree's ``mean`` / ``var`` the ``running_mean`` / ``running_var`` buffers.
 Leaves may be numpy or jax arrays; nothing here imports jax.
 """
 
@@ -31,11 +38,35 @@ def _leaves(tree: Mapping, prefix: tuple = ()):
             yield prefix + (k,), np.array(v, dtype=np.float32)  # a writable copy
 
 
+def _point_parts(parts: list[str], like: Mapping[str, torch.Tensor]) -> list[str]:
+    """The point models' module names, JAX -> the reference's."""
+    out = []
+    for i, p in enumerate(parts):
+        prev = parts[i - 1] if i else ""
+        nxt = parts[i + 1] if i + 1 < len(parts) else ""
+        p = re.sub(r"^(transition_downs|transition_ups)_(\d+)$", r"\1.\2", p)
+        m = re.match(r"^mlp_(\d+)$", p)
+        if m and nxt in ("conv", "bn"):  # a shared MLP layer: the conv and BN lists
+            p = f"mlp_{'convs' if nxt == 'conv' else 'bns'}.{m.group(1)}"
+        elif p in ("conv", "bn") and prev.startswith("mlp_"):
+            continue
+        elif p in ("fc", "bn") and prev in ("fc1", "fc2"):  # LinearBNReLU: Sequential 0, 2
+            p = "0" if p == "fc" else "2"
+        elif p in ("fc1", "fc2") and prev in ("fc1", "fc_pos_embed"):  # StemMLP
+            p = "0" if p == "fc1" else "2"
+        elif i == 0 and p == "new_head" and not any(k.startswith("new_head.") for k in like):
+            p = "head"  # the plain 3DViT's point head
+        out.append(p)
+    leaf = {"mean": "running_mean", "var": "running_var"}.get(out[-1])
+    return out[:-1] + [leaf] if leaf else out
+
+
 def _name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.Tensor]):
     """One JAX leaf -> (state-dict key, array in the port's layout)."""
     if path[0] == "core":
         path = path[1:]
     parts = [re.sub(r"^blocks_(\d+)$", r"blocks.\1", p) for p in path]
+    parts = _point_parts(parts, like)
     leaf = parts[-1]
     if parts[0] == "voxel_embed":
         conv = next(c for c in ("conv3d_1", "conv2d_1")
@@ -50,18 +81,21 @@ def _name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.Tensor]
         key = "patch_embed.proj.weight"
         d, c, p, _ = like[key].shape  # [(P P C), D] -> [D, C, P, P]
         return key, v.reshape(p, p, c, d).transpose(3, 2, 0, 1)
-    if leaf == "kernel":
-        return ".".join(parts[:-1] + ["weight"]), v.T
+    if leaf == "kernel":  # [in, out] -> [out, in] (a 1x1 conv's [out, in, 1, ...])
+        key = ".".join(parts[:-1] + ["weight"])
+        return key, v.T.reshape(like[key].shape) if key in like else v.T
     if leaf == "scale":
         return ".".join(parts[:-1] + ["weight"]), v
     return ".".join(parts), v
 
 
-def jax_to_state_dict(params: Mapping, like: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """Convert a JAX parameter tree to state-dict entries of the model whose
-    state dict is ``like``; every key and shape is checked against it."""
+def jax_to_state_dict(params: Mapping, like: Mapping[str, torch.Tensor],
+                      batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
+    """Convert a JAX parameter tree (and its ``batch_stats`` tree) to state-dict
+    entries of the model whose state dict is ``like``; every key and shape is
+    checked against it."""
     out = {}
-    for path, v in _leaves(params):
+    for path, v in [*_leaves(params), *_leaves(batch_stats or {})]:
         key, v = _name_and_value(path, v, like)
         if key not in like:
             raise KeyError(f"JAX parameter {'/'.join(path)} -> {key}: no such parameter")
@@ -72,12 +106,15 @@ def jax_to_state_dict(params: Mapping, like: Mapping[str, torch.Tensor]) -> dict
     return out
 
 
-def load_jax_params(model: nn.Module, params: Mapping) -> list[str]:
-    """Load a JAX parameter tree into ``model``; returns the keys left as they
-    were, which may only be the 2D pathway's (a ``model.init`` tree has none)."""
-    sd = jax_to_state_dict(params, model.state_dict())
+def load_jax_params(model: nn.Module, params: Mapping,
+                    batch_stats: Mapping | None = None) -> list[str]:
+    """Load a JAX parameter tree (and its ``batch_stats``) into ``model``;
+    returns the keys left as they were, which may only be the 2D pathway's (a
+    ``model.init`` tree has none) and BatchNorm step counters."""
+    sd = jax_to_state_dict(params, model.state_dict(), batch_stats)
     missing = model.load_state_dict(sd, strict=False).missing_keys
-    stray = [k for k in missing if not k.startswith(TWO_D_PREFIXES)]
+    stray = [k for k in missing
+             if not k.startswith(TWO_D_PREFIXES) and not k.endswith("num_batches_tracked")]
     if stray:
         raise KeyError(f"JAX tree lacks parameters of the model: {stray}")
     return missing

@@ -13,9 +13,14 @@ two checks cannot drift apart.
 import pytest
 import torch
 
-from chip_smoke import GRAD_REL, KERNEL_SHAPES, TOL, TRAIN_SHAPES, block_inputs, errors
+from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
+                        KNN_DIST_TOL, KNN_SHAPES, TOL, TRAIN_SHAPES, block_inputs, errors)
 from simple3dformer_tpu_torch.kernels import vit_block as vb
 from simple3dformer_tpu_torch.kernels.adam import adam_reference, fused_adam
+from simple3dformer_tpu_torch.kernels.fps import fps, fps_reference
+from simple3dformer_tpu_torch.kernels.gather import (gather_bwd, gather_bwd_reference, gather_fwd,
+                                                     gather_fwd_reference, gather_rows)
+from simple3dformer_tpu_torch.kernels.knn import knn, knn_reference, near_ties
 from simple3dformer_tpu_torch.kernels.vit_block import WNAMES, fused_vit_block, vit_block_reference
 
 pytestmark = pytest.mark.cuda
@@ -57,8 +62,11 @@ def test_fused_vit_block_rejects_what_it_cannot_take(device):
     assert set(w) == set(WNAMES)
 
 
-@pytest.mark.parametrize("label,b,n,d,heads,dtype", TRAIN_SHAPES[:2],
-                         ids=[s[0] for s in TRAIN_SHAPES[:2]])
+BLOCK_TRAIN_SHAPES = TRAIN_SHAPES[:2] + [s for s in TRAIN_SHAPES if s[0] == "partseg N=257"]
+
+
+@pytest.mark.parametrize("label,b,n,d,heads,dtype", BLOCK_TRAIN_SHAPES,
+                         ids=[s[0] for s in BLOCK_TRAIN_SHAPES])
 def test_training_block_kernels_match_plain(device, label, b, n, d, heads, dtype):
     x, w = block_inputs(torch, b, n, d, getattr(torch, dtype), seed=b * 1000 + n + d,
                         device=device)
@@ -119,3 +127,72 @@ def test_adam_kernel_matches_plain(device):
     for leaf, ref in zip(leaves, want):
         for a, b in zip(leaf[:3], ref):
             assert torch.equal(a, b)
+
+
+def unit_cloud(rs, b, n, device):
+    x = torch.from_numpy(rs.randn(b, n, 3).astype("float32")).to(device)
+    return x / x.norm(dim=-1).amax(-1)[:, None, None]
+
+
+@pytest.mark.parametrize("label,b,n,npoint", FPS_SHAPES, ids=[s[0] for s in FPS_SHAPES])
+def test_fps_kernel_matches_plain(device, label, b, n, npoint):
+    import numpy as np
+
+    rs = np.random.RandomState(b + n)
+    xyz = unit_cloud(rs, b, n, device)
+    start = torch.from_numpy(rs.randint(0, n, b).astype("int32")).to(device)
+    before = fps.launches
+    got, got_s = fps(xyz, npoint), fps(xyz, npoint, start)
+    assert fps.launches == before + 2
+    assert torch.equal(got, fps_reference(xyz, npoint))
+    assert torch.equal(got_s, fps_reference(xyz, npoint, start))
+    assert torch.equal(got_s[:, 0], start)
+
+
+@pytest.mark.parametrize("label,b,s,n,k,dup", KNN_SHAPES, ids=[s[0] for s in KNN_SHAPES])
+def test_knn_kernel_matches_plain(device, label, b, s, n, k, dup):
+    import numpy as np
+
+    rs = np.random.RandomState(s + n + k)
+    p = unit_cloud(rs, b, n // 2, device).repeat(1, 2, 1) if dup else unit_cloud(rs, b, n, device)
+    q = p[:, :s].contiguous() if s <= n else unit_cloud(rs, b, s, device)
+    before = knn.launches
+    idx, dist = knn(q, p, k)
+    ridx, rdist = knn_reference(q, p, k)
+    assert knn.launches == before + 1
+    n_diff, n_near = near_ties(idx, dist, ridx, rdist)
+    assert n_diff == n_near
+    assert float((dist - rdist).abs().max()) <= KNN_DIST_TOL
+    tied = dist[..., 1:] == dist[..., :-1]
+    assert not bool((tied & (idx[..., 1:] < idx[..., :-1])).any())
+    if dup:
+        assert bool(tied.any())
+
+
+@pytest.mark.parametrize("label,b,n,r,c,dtype", GATHER_SHAPES, ids=[s[0] for s in GATHER_SHAPES])
+def test_gather_kernels_match_plain_and_repeat_bit_for_bit(device, label, b, n, r, c, dtype):
+    import numpy as np
+
+    rs = np.random.RandomState(r + c)
+    pts = torch.from_numpy(rs.randn(b, n, c).astype("float32")).to(device, getattr(torch, dtype))
+    idx = torch.from_numpy(rs.randint(-2, n + 2, (b, r)).astype("int32")).to(device)
+    g = torch.from_numpy(rs.randn(b, r, c).astype("float32")).to(device, pts.dtype)
+    before = (gather_fwd.launches, gather_bwd.launches)
+    out = gather_fwd(pts, idx)
+    gp, gp2 = gather_bwd(idx, g, n), gather_bwd(idx, g, n)
+    assert (gather_fwd.launches, gather_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(out, gather_fwd_reference(pts, idx))
+    want = gather_bwd_reference(idx, g, n)
+    assert float((gp - want).abs().max()) <= GATHER_BWD_REL * float(want.abs().max())
+    assert torch.equal(gp, gp2)
+
+
+def test_gather_rows_through_autograd(device):
+    pts = torch.randn(2, 50, 8, device=device, requires_grad=True)
+    idx = torch.randint(0, 50, (2, 70), device=device, dtype=torch.int32)
+    before = gather_bwd.launches
+    (grad,) = torch.autograd.grad(gather_rows(pts, idx).square().sum(), pts)
+    assert gather_bwd.launches == before + 1
+    cpu = pts.detach().cpu().requires_grad_()
+    (want,) = torch.autograd.grad(gather_rows(cpu, idx.cpu()).square().sum(), cpu)
+    torch.testing.assert_close(grad.cpu(), want, rtol=1e-6, atol=1e-6)

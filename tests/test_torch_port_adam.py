@@ -146,7 +146,13 @@ def test_optimizer_state_roundtrip_and_refusals():
     other = make_optimizer(tp, trainable_mask={"a": True, "b": False})
     other.load_state_dict(opt.state_dict())
     assert other.count == 1 and torch.equal(other.mu["a"], opt.mu["a"])
-    with pytest.raises(NotImplementedError, match="SGD"):
-        make_optimizer(tp, "SGD")
+    sgd = make_optimizer(tp, "SGD", trainable_mask={"a": True, "b": False})
+    sgd.step({"a": torch.ones(4)}, 1e-3)
+    other_sgd = make_optimizer(tp, "SGD", trainable_mask={"a": True, "b": False})
+    other_sgd.load_state_dict(sgd.state_dict())
+    assert other_sgd.count == 1 and set(other_sgd.trace) == {"a"}
+    assert torch.equal(other_sgd.trace["a"], sgd.trace["a"])
+    with pytest.raises(KeyError):
+        other.load_state_dict(sgd.state_dict())
     with pytest.raises(ValueError):
         make_optimizer(tp, "Lion")

@@ -1,6 +1,8 @@
-"""The port stands apart from JAX: its modules import none of it, and its
-chip check refuses to run without a card."""
+"""The port stands apart from JAX: its modules import none of it, not even
+when the server builds its label maps, and its chip check refuses to run
+without a card."""
 
+import json
 import os
 import pathlib
 import subprocess
@@ -14,19 +16,29 @@ import simple3dformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+from simple3dformer_tpu_torch.serve.server import default_class_names
+maps = {n: default_class_names(n) for n in WIDTHS}
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "simple3dformer_tpu"))
-print(len(names), bad)
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
+                                    "simple3dformer_tpu"))
+print(json.dumps([len(names), bad, maps]))
 """
+WIDTHS = (10, 13, 15, 40, 1000)
 
 
 def test_port_imports_no_jax():
-    out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
+    code = f"import json\nWIDTHS = {WIDTHS}\n" + IMPORT_ALL
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 31
-    assert bad.strip() == "[]", bad
+    n_modules, bad, maps = json.loads(out.stdout.strip().splitlines()[-1])
+    assert n_modules >= 44
+    assert bad == [], bad
+    from simple3dformer_tpu.serve.server import default_class_names as jax_default_class_names
+
+    for n in WIDTHS:
+        want = jax_default_class_names(n)
+        assert want and {int(k): v for k, v in maps[str(n)].items()} == want, n
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -19,6 +19,17 @@ from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT
 from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbed
 from simple3dformer_tpu_torch.utils.convert import jax_to_state_dict, load_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread: beside other test processes, its
+    spinning thread pool makes these tests many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 V, CELL, PATCH, B = 12, 4, 3, 4
 BACKBONE = "deit_tiny_patch16_224"
 IMG = 32  # the 2D pathway's image size: 4 patches keep init_all cheap

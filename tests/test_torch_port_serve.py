@@ -21,6 +21,17 @@ from simple3dformer_tpu_torch.serve.predictor import Predictor, topk_labels
 from simple3dformer_tpu_torch.serve.server import ModelServer, default_class_names
 from simple3dformer_tpu_torch.utils.convert import load_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread: beside other test processes, its
+    spinning thread pool makes these tests many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 V, N_CLS = 12, 7
 
 

@@ -36,6 +36,17 @@ from simple3dformer_tpu_torch.train.loop import (TrainState, cross_entropy, make
                                                  make_train_step)
 from simple3dformer_tpu_torch.utils import convert
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread: beside other test processes, its
+    spinning thread pool makes these tests many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 V, CELL, PATCH, B, IMG = 12, 4, 3, 4, 32
 BACKBONE = "deit_tiny_patch16_224"
 
