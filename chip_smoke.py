@@ -33,6 +33,17 @@ Phases, one line each (and a line per kernel shape):
               the partseg CLI on a synthetic corpus (loss falls, launch counts of
               every kernel of the path from the counters); ms per step, samples/s
               and a per-kernel profile
+  9. mhsa     the attention forward and backward against their plain versions
+              (the S3DIS shape in f32 and bf16, N=256 and 2048, head_dim 64, 128
+              and 192, B=1, N off the tile), the backward twice bit-equal; times of
+              kernel, plain version and scaled_dot_product_attention
+ 10. S3DIS    the 3DViT_s3dis semantic-segmentation model (deit_base, 3 heads,
+              N=4096 points -> 1025 tokens, 13 classes, B=4, f32, SGD): the block
+              routes; 3 steps on the card against the CPU's plain path; the S3DIS
+              CLI on its synthetic stream (finite losses, epoch and eval lines,
+              launch counts of every kernel of the path, no fused block); a
+              learnability run (labels a function of the points); ms per step,
+              samples/s and a per-kernel profile
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -536,7 +547,7 @@ def phase_training(torch):
 KERNEL_GROUPS = ("grad_gemm_kernel", "gemm_kernel", "attention_kernel", "attn_bwd_rows_kernel",
                  "attn_bwd_cols_kernel", "colsum_kernel", "ln_bwd_kernel", "row_stats_kernel",
                  "adam_kernel", "fps_kernel", "knn_kernel", "gather_fwd_kernel",
-                 "gather_bwd_kernel")
+                 "gather_bwd_kernel", "mhsa_fwd_kernel", "mhsa_dq_kernel", "mhsa_dkdv_kernel")
 
 
 def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
@@ -705,6 +716,89 @@ def phase_point_kernels(torch):
     return report
 
 
+# the mhsa kernels: (label, B, N, H, dh, dtype name); q, k, v are views of one
+# packed [B, N, 3, H, dh] tensor, as Attention makes them
+MHSA_SHAPES = [("S3DIS f32", 4, 1025, 3, 256, "float32"),
+               ("S3DIS bf16", 4, 1025, 3, 256, "bfloat16"),
+               ("N=256", 4, 256, 3, 256, "float32"),
+               ("N=2048", 2, 2048, 3, 256, "float32"),
+               ("head_dim 64", 16, 257, 3, 64, "float32"),
+               ("B=1", 1, 1025, 3, 256, "float32"),
+               ("N=77 head_dim 128", 2, 77, 4, 128, "float32"),
+               ("head_dim 192 bf16", 2, 300, 2, 192, "bfloat16")]
+# error relative to the largest value of each output. f32: sums of up to N
+# products in another order and one exp; bf16: as TOL, a last-bit difference
+# in an f32 value can round p or ds to the neighbouring bf16 value.
+MHSA_REL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def mhsa_inputs(torch, b, n, h, dh, dtype, seed, device):
+    """q, k, v (views of one packed qkv) and g, standard normal: q.k * dh**-0.5 has unit scale."""
+    rs = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rs.randn(b, n, 3, h, dh).astype(np.float32))
+    g = torch.from_numpy(rs.randn(b, n, h, dh).astype(np.float32))
+    qkv, g = qkv.to(device=device, dtype=dtype), g.to(device=device, dtype=dtype)
+    return (*qkv.unbind(2), g)
+
+
+def rel_err(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+               for a, b in zip(got, want))
+
+
+def phase_mhsa_kernels(torch):
+    """The mhsa forward and backward against their plain versions; the backward
+    twice, bit-equal; times of kernel, plain and scaled_dot_product_attention
+    at the S3DIS shape."""
+    import torch.nn.functional as F
+
+    from simple3dformer_tpu_torch.kernels.mhsa import (mhsa_backward_reference, mhsa_bwd,
+                                                       mhsa_fwd, mhsa_reference)
+
+    report = {}
+    for label, b, n, h, dh, dtype in MHSA_SHAPES:
+        q, k, v, g = mhsa_inputs(torch, b, n, h, dh, getattr(torch, dtype), b * n + dh, "cuda")
+        scale = dh ** -0.5
+        o, stats = mhsa_fwd(q, k, v, scale)
+        grads = mhsa_bwd(q, k, v, g, scale, stats)
+        again = mhsa_bwd(q, k, v, g, scale, stats)
+        o_ref = mhsa_reference(q, k, v, scale)
+        grads_ref = mhsa_backward_reference(q, k, v, g, scale)
+        torch.cuda.synchronize()
+        fwd_err, bwd_err = rel_err([o], [o_ref]), rel_err(grads, grads_ref)
+        same = all(torch.equal(a, c) for a, c in zip(grads, again))
+        ok = all(bool(torch.isfinite(t).all()) and t.shape == q.shape and t.dtype == q.dtype
+                 for t in (o, *grads))
+        print(f"kernel mhsa {label} B={b} N={n} H={h} dh={dh} {dtype}: error relative to the "
+              f"largest value: forward {fwd_err:.3e}, backward {bwd_err:.3e} (tolerance "
+              f"{MHSA_REL[dtype]}); two backward runs bit-equal {same}; finite/shape/dtype {ok}")
+        if max(fwd_err, bwd_err) > MHSA_REL[dtype] or not same or not ok:
+            raise AssertionError(f"mhsa {label}: errors {fwd_err}, {bwd_err}, bit-equal {same}, "
+                                 f"finite/shape/dtype {ok}")
+        if label != "S3DIS f32":
+            continue
+        flops = 4 * b * h * n * n * dh  # q k^T and p v, 2 operations a multiply-add
+        qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+        times = timed(torch, lambda: mhsa_fwd(q, k, v, scale),
+                      lambda: mhsa_reference(q, k, v, scale),
+                      lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        report["mhsa_fwd"] = point_report(
+            "mhsa_fwd", float((o.float() - o_ref.float()).abs().max()), times,
+            nbytes(q, k, v, o), flops, "scaled_dot_product_attention forward, [B, H, N, dh]")
+        leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        times = timed(torch, lambda: mhsa_bwd(q, k, v, g, scale, stats),
+                      lambda: mhsa_backward_reference(q, k, v, g, scale),
+                      lambda: torch.autograd.grad(out, leaves, gh, retain_graph=True))
+        report["mhsa_bwd"] = point_report(
+            "mhsa_bwd", max(float((a.float() - c.float()).abs().max())
+                            for a, c in zip(grads, grads_ref)), times,
+            nbytes(q, k, v, g, *grads), 10 * flops // 4,
+            "scaled_dot_product_attention backward alone, autograd.grad")
+    torch.cuda.synchronize()
+    return report
+
+
 # partseg training: the slice's main path
 PARTSEG_LR = 0.05  # base lr of the CLI run (configs/partseg.yaml's), checked on the CPU
 PARTSEG_SAMPLES, PARTSEG_EPOCHS = 64, 15  # 4 steps per epoch at B=16: 60 steps
@@ -811,6 +905,137 @@ def phase_partseg(torch):
     return launches, {"ms_per_step": ms_step, "samples_per_s": n_steps * PB / dt}
 
 
+# S3DIS semantic segmentation: the slice's main path (configs/semseg.yaml: 3DViT_s3dis on
+# deit_base with 3 heads, 4096 points of 9 features, 13 classes, batch 4, SGD at lr 0.5)
+SB, SN = 4, 4096
+S3DIS_SAMPLES, S3DIS_EPOCHS = 16, 2  # 4 train steps and 4 eval batches an epoch
+# learnability: labels a function of the points (13 height bins of feature 2),
+# SGD at this lr (not the config's 0.5; see PERF.md)
+LEARN_LR, LEARN_STEPS = 0.05, 40
+
+
+def s3dis_config(**overrides):
+    from simple3dformer_tpu_torch.cli.train_s3dis_semseg import INPUT_DIM, NUM_CLASS
+    from simple3dformer_tpu_torch.core.config import load_task_config
+
+    cfg = load_task_config("semseg", [f"{k}={v}" for k, v in overrides.items()])
+    cfg.num_class, cfg.input_dim, cfg.seed = NUM_CLASS, INPUT_DIM, 9
+    cfg.setdefault("synthetic", 0)
+    return cfg
+
+
+def s3dis_trainer(torch, device):
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.models.registry import make_point_model
+    from simple3dformer_tpu_torch.train.loop import TrainState
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    model = make_point_model(s3dis_config(), "seg", generator=generator(DEFAULT_SEED)).to(device)
+    return TrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"))
+
+
+def s3dis_counters():
+    from simple3dformer_tpu_torch.kernels import mhsa
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    return {**point_counters(), "fused_vit_block_bwd": vb.fused_vit_block_bwd,
+            "mhsa_fwd": mhsa.mhsa_fwd, "mhsa_bwd": mhsa.mhsa_bwd}
+
+
+def phase_s3dis(torch):
+    """The S3DIS model (3DViT_s3dis, deit_base, N=4096 -> 1025 tokens, B=4, f32,
+    SGD) through the port's trainer; returns the launch counts of the CLI run."""
+    import contextlib
+    import io
+    import tempfile
+
+    from simple3dformer_tpu_torch.cli import train_s3dis_semseg as ts
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.nn.layers import Block
+    from simple3dformer_tpu_torch.train.loop import (make_scanned_train_steps, make_train_step,
+                                                     seg_cross_entropy)
+
+    lr = float(s3dis_config().learning_rate)
+    routes = {label: Block(d, heads).route(torch.zeros(1, n, d))
+              for label, d, heads, n in (("flagship", 384, 6, 26), ("partseg", 192, 3, 257),
+                                         ("S3DIS", 768, 3, 1025))}
+    print(f"S3DIS block routes on the card: {routes}")
+    if routes != {"flagship": "fused", "partseg": "fused", "S3DIS": "layered"}:
+        raise AssertionError(f"block routes {routes}")
+
+    # 3 steps on the card and on the CPU's plain path, same weights and batches
+    (xs, ys), _ = ts.load_arrays(s3dis_config(synthetic=3 * SB))
+    losses, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        step = make_train_step(s3dis_trainer(torch, device), seg_cross_entropy)
+        t0 = time.perf_counter()
+        losses[device] = [float(step({"x": torch.from_numpy(xs[i * SB:(i + 1) * SB]).to(device),
+                                      "y": torch.from_numpy(ys[i * SB:(i + 1) * SB]).to(device)},
+                                     lr)["loss"]) for i in range(3)]
+        seconds[device] = time.perf_counter() - t0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    print(f"S3DIS training: 3 steps at B={SB}, N={SN}, deit_base, lr {lr}: losses on the card "
+          f"{losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol 1e-3); "
+          f"{seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
+
+    # the CLI on its synthetic stream: the slice's main path
+    counters = s3dis_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as out_dir, contextlib.redirect_stdout(log):
+        ts.main([f"synthetic={S3DIS_SAMPLES}", f"epoch={S3DIS_EPOCHS}", f"out_dir={out_dir}"])
+    launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
+    lines = log.getvalue().splitlines()
+    epoch_losses = [float(line.split()[5]) for line in lines if line.startswith("Epoch ")]
+    evals_lines = [line for line in lines if line.startswith("eval accuracy:")]
+    steps = S3DIS_EPOCHS * (S3DIS_SAMPLES // SB)
+    evals = S3DIS_EPOCHS * -(-max(S3DIS_SAMPLES // 5, 16) // SB)
+    want = {"fps": steps + evals, "knn": 4 * (steps + evals), "gather_fwd": 8 * (steps + evals),
+            "gather_bwd": 4 * steps, "fused_vit_block": 0, "fused_vit_block_bwd": 0,
+            "fused_vit_block_train_fwd": 0, "fused_vit_block_train_bwd": 0,
+            "mhsa_fwd": 12 * (steps + evals), "mhsa_bwd": 12 * steps}
+    print(f"S3DIS CLI (configs/semseg.yaml, synthetic={S3DIS_SAMPLES}): {steps} train steps, "
+          f"{evals} eval batches; epoch losses {epoch_losses}; "
+          f"{evals_lines[-1] if evals_lines else 'no eval line'}; "
+          f"launches {launches} (want {want})")
+    if (len(epoch_losses) != S3DIS_EPOCHS or not np.isfinite(epoch_losses).all()
+            or len(evals_lines) != S3DIS_EPOCHS or not lines[-1].startswith("Best Inctance")):
+        raise AssertionError(f"S3DIS CLI output: {lines[-8:]}")
+    if launches != want:
+        raise AssertionError(f"S3DIS launch counts {launches}, want {want}")
+
+    # learnability: labels are 13 height bins of feature 2
+    rs = np.random.RandomState(12)
+    lx = rs.rand((LEARN_STEPS + 1) * SB, SN, 9).astype(np.float32)
+    ly = np.minimum(lx[..., 2] * 13, 12).astype(np.int32)
+    ds = DeviceResidentDataset({"x": lx, "y": ly}, "cuda")
+    run = make_scanned_train_steps(s3dis_trainer(torch, "cuda"), ds, seg_cross_entropy)
+    idx = ds.put_indices(np.arange((LEARN_STEPS + 1) * SB).reshape(LEARN_STEPS + 1, SB))
+    curve = run(idx[:LEARN_STEPS], LEARN_LR)["loss"].cpu().numpy()
+    first, last = float(curve[:5].mean()), float(curve[-5:].mean())
+    print(f"S3DIS learnability (labels = height bin of feature 2, lr {LEARN_LR}, {LEARN_STEPS} "
+          f"steps at B={SB}): loss {first:.4f} over the first 5 steps -> {last:.4f} over the "
+          f"last 5; curve {np.round(curve, 4).tolist()}")
+    if not np.isfinite(curve).all() or not last < 0.75 * first:
+        raise AssertionError(f"S3DIS learnability: loss {first} -> {last}")
+
+    # train throughput: 10 steps at B=4 from a corpus on the card, host clock
+    n_steps = 10
+    run = make_scanned_train_steps(s3dis_trainer(torch, "cuda"), ds, seg_cross_entropy)
+    run(idx[:1], lr)  # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(run(idx[1:n_steps + 1], lr)["loss"][-1])
+    dt = time.perf_counter() - t0
+    ms_step = dt / n_steps * 1e3
+    print(f"S3DIS training throughput: {ms_step:.3f} ms per step, {n_steps * SB / dt:.2f} "
+          f"samples/s at B={SB} f32 (host clock over {n_steps} steps, corpus on the card); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_steps(torch, run, idx[1:6], ms_step, "S3DIS training", lr)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -839,6 +1064,8 @@ def main() -> int:
         train_launches, _ = phase_training(torch)
         point_report = phase_point_kernels(torch)
         partseg_launches, _ = phase_partseg(torch)
+        mhsa_report = phase_mhsa_kernels(torch)
+        s3dis_launches = phase_s3dis(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -872,6 +1099,10 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=f"simple3dformer_tpu_torch/csrc/{source}", replaces=replaces,
                             launches=partseg_launches[name], **point_report[name]))
+    for name, line in (("mhsa_fwd", 120), ("mhsa_bwd", 144)):
+        kernels.append(dict(name=name, route="cuda", source="simple3dformer_tpu_torch/csrc/mhsa.cu",
+                            replaces=f"simple3dformer_tpu/kernels/mhsa.py:{line}",
+                            launches=s3dis_launches[name], **mhsa_report[name]))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

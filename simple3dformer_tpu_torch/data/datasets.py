@@ -1,5 +1,6 @@
-"""Dataset readers (port of ModelNetVoxelDataset, ShapeNetV2VoxelDataset and
-PartNormalDataset from simple3dformer_tpu/data/datasets.py, numpy path).
+"""Dataset readers (port of ModelNetVoxelDataset, ShapeNetV2VoxelDataset,
+PartNormalDataset and S3DISDataset from simple3dformer_tpu/data/datasets.py,
+numpy path).
 
 Python classes with __len__/__getitem__ mirroring the reference's torch
 Datasets (data/modelnet40.py, modelnet10.py, shapenet_v2.py); samples come
@@ -178,3 +179,84 @@ class PartNormalDataset:
         pts[:, 0:3] = _pc_normalize_np(pts[:, 0:3])
         choice = self.rng.choice(len(seg), self.npoints, replace=True)
         return pts[choice], cls, seg[choice]
+
+
+class S3DISDataset:
+    """Room-block sampler over per-room ``Area_*.npy`` files (the reference's
+    s3dis.py:8-83; port of the JAX package's reader).
+
+    Each room file is [points, 7]: x y z r g b label. A sample is a block of
+    ``block_size`` metres around a random point, resampled to ``num_point``
+    rows of 9 columns: xyz centred on the block (z kept), rgb / 255, and xyz
+    over the room's maximum. ``labelweights`` are the reference's
+    (max share / share)^(1/3) class weights.
+    """
+
+    def __init__(self, data_root: str, split: str = "train", num_point: int = 4096,
+                 test_area: int = 5, block_size: float = 1.0, sample_rate: float = 1.0,
+                 rng: np.random.RandomState | None = None):
+        self.num_point = num_point
+        self.block_size = block_size
+        self.rng = rng if rng is not None else np.random.RandomState()
+        rooms = sorted(r for r in os.listdir(data_root) if "Area_" in r)
+        tag = f"Area_{test_area}"
+        rooms = [r for r in rooms if (tag not in r) == (split == "train")]
+
+        self.room_points, self.room_labels = [], []
+        self.room_coord_max = []
+        counts = []
+        labelweights = np.zeros(13)
+        for room in rooms:
+            data = np.load(os.path.join(data_root, room))
+            pts, lbl = data[:, 0:6], data[:, 6]
+            hist, _ = np.histogram(lbl, range(14))
+            labelweights += hist
+            self.room_points.append(pts)
+            self.room_labels.append(lbl)
+            self.room_coord_max.append(np.amax(pts, axis=0)[:3])
+            counts.append(lbl.size)
+        labelweights = labelweights / labelweights.sum()
+        self.labelweights = np.power(
+            np.amax(labelweights) / np.maximum(labelweights, 1e-12), 1 / 3.0).astype(np.float32)
+        prob = np.array(counts) / np.sum(counts)
+        num_iter = int(np.sum(counts) * sample_rate / num_point)
+        idxs = []
+        for i in range(len(rooms)):
+            idxs.extend([i] * int(round(prob[i] * num_iter)))
+        self.room_idxs = np.array(idxs)
+
+    def __len__(self):
+        return len(self.room_idxs)
+
+    def __getitem__(self, idx: int):
+        room = self.room_idxs[idx]
+        pts, lbl = self.room_points[room], self.room_labels[room]
+        n = pts.shape[0]
+        # The reference retries without bound until a block holds more than
+        # 1024 points (s3dis.py:54-60), which never ends on a sparse room: at
+        # most 64 tries here, then the densest block found.
+        best_sel, best_center = None, None
+        for _ in range(64):
+            center = pts[self.rng.choice(n)][:3]
+            lo = center - [self.block_size / 2, self.block_size / 2, 0]
+            hi = center + [self.block_size / 2, self.block_size / 2, 0]
+            sel = np.where((pts[:, 0] >= lo[0]) & (pts[:, 0] <= hi[0])
+                           & (pts[:, 1] >= lo[1]) & (pts[:, 1] <= hi[1]))[0]
+            if best_sel is None or sel.size > best_sel.size:
+                best_sel, best_center = sel, center
+            if sel.size > 1024:
+                break
+        sel, center = best_sel, best_center
+        if sel.size == 0:
+            raise ValueError(f"room {room} yielded an empty block")
+        chosen = self.rng.choice(sel, self.num_point, replace=sel.size < self.num_point)
+        p = pts[chosen].copy()
+        out = np.zeros((self.num_point, 9), dtype=np.float32)
+        out[:, 6] = p[:, 0] / self.room_coord_max[room][0]
+        out[:, 7] = p[:, 1] / self.room_coord_max[room][1]
+        out[:, 8] = p[:, 2] / self.room_coord_max[room][2]
+        p[:, 0] -= center[0]
+        p[:, 1] -= center[1]
+        p[:, 3:6] /= 255.0
+        out[:, 0:6] = p
+        return out, lbl[chosen].astype(np.int32)

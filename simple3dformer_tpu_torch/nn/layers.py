@@ -5,9 +5,10 @@ timm or reference state dict loads as it is. Parameters are f32. Every module
 takes an optional ``torch.Generator`` (init draws on the CPU from it, so one
 seed gives the same weights on any device) and a ``device``.
 
-``Block`` on a CUDA tensor runs the whole block as the port's CUDA kernels
-(kernels/vit_block.py), forward and backward; on a CPU tensor it runs the
-plain modules below.
+``Block`` on a CUDA tensor runs the whole block as the port's fused CUDA
+kernels (kernels/vit_block.py) up to N = 512 tokens, and above that the
+layered modules with attention as the port's ``mhsa`` kernels
+(kernels/mhsa.py); on a CPU tensor it runs the plain modules below.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import mhsa as mhsa_kernel
 from ..kernels.vit_block import (fused_vit_block, fused_vit_block_train, records_grad,
                                  unsupported)
 
@@ -58,6 +60,11 @@ class Attention(nn.Module):
     The qkv weight's rows order as (q, k, v), each [heads, head_dim], as in
     timm. ``seg_len`` packs several length-seg_len sequences into one row and
     masks attention to within each segment (block-diagonal).
+
+    On a CUDA tensor the attention is the ``mhsa`` kernels, under the JAX
+    package's gate (simple3dformer_tpu/nn/layers.py:155-177): 256 <= N <= 2048,
+    a head_dim the kernels take, no live attention dropout, no ``seg_len``;
+    anything else raises. On a CPU tensor it is the plain products below.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
@@ -71,9 +78,33 @@ class Attention(nn.Module):
         self.proj = dense(dim, dim, generator=generator, device=device)
         self.proj_drop = nn.Dropout(proj_drop)
 
+    def kernel_unsupported(self, x: torch.Tensor, seg_len: int | None = None) -> str | None:
+        """Why the ``mhsa`` kernels cannot run this call, or None when they can."""
+        n, c = x.shape[-2:]
+        if not mhsa_kernel.MIN_N <= n <= mhsa_kernel.MAX_N:
+            return f"sequence length {n} outside {mhsa_kernel.MIN_N}..{mhsa_kernel.MAX_N}"
+        if self.training and self.attn_drop.p:
+            return "attention dropout is live (training mode with a nonzero rate)"
+        if seg_len is not None:
+            return "the kernel takes no seg_len mask"
+        return mhsa_kernel.unsupported(n, c // self.num_heads, x.dtype)
+
+    def forward_kernel(self, x):
+        """The kernel route: q, k, v as views of the qkv projection, ``mhsa``,
+        then proj (on a CPU tensor ``mhsa`` runs its plain versions)."""
+        b, n, c = x.shape
+        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads).unbind(2)
+        out = mhsa_kernel.mhsa(q, k, v, self.scale).reshape(b, n, c)
+        return self.proj_drop(self.proj(out))
+
     def forward(self, x, seg_len: int | None = None):
         b, n, c = x.shape
         h = self.num_heads
+        if x.is_cuda:
+            why = self.kernel_unsupported(x, seg_len)
+            if why:
+                raise NotImplementedError(f"Attention on CUDA runs the mhsa kernel: {why}")
+            return self.forward_kernel(x)
         q, k, v = self.qkv(x).reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
         attn = (q * self.scale) @ k.transpose(-1, -2)  # [B, H, N, N]
         if seg_len is not None and 0 < seg_len < n:
@@ -104,15 +135,23 @@ class DropPath(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block: x + attn(ln(x)); x + mlp(ln(x)).
 
-    On a CUDA tensor the block is one call of the fused kernels, dispatched
-    as the JAX package's Block dispatches (simple3dformer_tpu/nn/layers.py:307):
-    a gradient to record in train mode runs ``fused_vit_block_train`` (the
-    residual-saving forward and the residual backward), in eval mode
-    ``fused_vit_block`` (its backward recomputes the forward); with nothing
-    to record (``torch.inference_mode()``, serving) the forward kernel alone
-    runs. The kernels take no dropout, so on CUDA a block with live dropout
-    or drop-path, a ``seg_len`` mask, or a shape beyond the kernels' limits
-    raises instead of falling back.
+    On a CUDA tensor ``route`` picks one of two routes, as the JAX package's
+    Block and Attention dispatch (simple3dformer_tpu/nn/layers.py:155-177,
+    268-318):
+
+    - ``"fused"`` (N <= 512): the whole block is one call of the fused
+      kernels. A gradient to record in train mode runs
+      ``fused_vit_block_train`` (the residual-saving forward and the
+      residual backward), in eval mode ``fused_vit_block`` (its backward
+      recomputes the forward); with nothing to record
+      (``torch.inference_mode()``, serving) the forward kernel alone runs.
+      The kernels take no dropout, drop-path or ``seg_len`` mask.
+    - ``"layered"`` (where the fused kernels cannot run, 256 <= N <= 2048):
+      the modules one by one; LayerNorm, the Linear layers and GELU are
+      PyTorch's, attention is the ``mhsa`` kernels (see ``Attention``).
+
+    A call that neither route takes raises, naming both reasons, instead of
+    falling back. On a CPU tensor the block runs the plain modules.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -157,11 +196,21 @@ class Block(nn.Module):
             return "the kernel takes no seg_len mask"
         return unsupported(x.shape[1], x.shape[2], self.num_heads)
 
+    def route(self, x: torch.Tensor, seg_len: int | None = None) -> str:
+        """``"fused"`` or ``"layered"``: how this call runs on CUDA. Raises
+        NotImplementedError, naming why, when neither route can take it."""
+        fused_why = self.fused_unsupported(x, seg_len)
+        if not fused_why:
+            return "fused"
+        layered_why = (f"input must be [B, N, D], got {tuple(x.shape)}" if x.ndim != 3
+                       else self.attn.kernel_unsupported(x, seg_len))
+        if not layered_why:
+            return "layered"
+        raise NotImplementedError(f"Block on CUDA: the fused kernel cannot run ({fused_why}), "
+                                  f"nor the mhsa kernel ({layered_why})")
+
     def forward(self, x, seg_len: int | None = None):
-        if x.is_cuda:
-            why = self.fused_unsupported(x, seg_len)
-            if why:
-                raise NotImplementedError(f"Block on CUDA runs the fused kernel: {why}")
+        if x.is_cuda and self.route(x, seg_len) == "fused":
             weights = self.fused_weights()
             if self.training and records_grad(x, weights):
                 return fused_vit_block_train(x, weights, self.num_heads)

@@ -1,11 +1,14 @@
 """Evaluation metrics with the reference's conventions (port of
-ClassificationMeter and the ShapeNetPart pieces of
+ClassificationMeter, the ShapeNetPart pieces and SemSegMeter of
 simple3dformer_tpu/train/eval_metrics.py).
 
   * Overall and mean-class accuracy (the reference's train_cls_voxel.py:300-329).
   * ShapeNetPart: category-restricted argmax (train_partseg.py:181-184),
     per-shape part IoU with "absent part counts as IoU 1.0"
     (train_partseg.py:194-206), class-avg and instance-avg mIoU.
+  * S3DIS: point accuracy, mean class accuracy, global mIoU, and the
+    reference's first-point class-avg / instance-avg IoU
+    (train_s3dis_semseg.py:181-231).
 
 Small host-side reductions over predictions fetched from the device.
 """
@@ -101,3 +104,75 @@ class PartSegMeter:
     def instance_avg_iou(self) -> float:
         all_ious = [x for v in self.shape_ious.values() for x in v]
         return float(np.mean(all_ious)) if all_ious else 0.0
+
+
+class SemSegMeter:
+    """S3DIS point accuracy / mean class accuracy / mIoU (13 classes).
+
+    Two IoU conventions, both kept:
+      * ``miou``: the global per-class IoU mean (what most S3DIS papers report);
+      * ``class_avg_iou`` / ``instance_avg_iou``: the reference's own
+        bookkeeping (train_s3dis_semseg.py:181,201-231). Every class is its own
+        single-label category, a sample's category is its first point's label
+        (:208), and the sample's IoU is that one class's; instance-avg averages
+        over samples, class-avg over per-category means. The reference saves
+        its best checkpoint on instance_avg_iou (:237). Per-sample tracking
+        needs 2-D [B, N] updates; flat 1-D updates feed only the global counters.
+    """
+
+    def __init__(self, num_classes: int = 13):
+        self.num_classes = num_classes
+        self.total_seen = np.zeros(num_classes, dtype=np.int64)
+        self.total_correct = np.zeros(num_classes, dtype=np.int64)
+        self.total_union = np.zeros(num_classes, dtype=np.int64)
+        self.shape_ious: dict[int, list[float]] = {c: [] for c in range(num_classes)}
+
+    def update(self, pred: np.ndarray, label: np.ndarray) -> None:
+        pred = np.asarray(pred)
+        label = np.asarray(label)
+        if pred.ndim >= 2:
+            p2 = pred.reshape(-1, pred.shape[-1])
+            l2 = label.reshape(-1, label.shape[-1])
+            for i in range(p2.shape[0]):
+                c = int(l2[i, 0])  # category := the first point's label (:208)
+                gt = l2[i] == c
+                pd = p2[i] == c
+                union = int((gt | pd).sum())
+                # the reference's absent-part branch (:210-212): IoU 1.0
+                iou = 1.0 if union == 0 else float((gt & pd).sum()) / union
+                self.shape_ious[c].append(iou)
+        pred = pred.reshape(-1)
+        label = label.reshape(-1)
+        for c in range(self.num_classes):
+            gt = label == c
+            pd = pred == c
+            self.total_seen[c] += int(gt.sum())
+            self.total_correct[c] += int((gt & pd).sum())
+            self.total_union[c] += int((gt | pd).sum())
+
+    @property
+    def class_avg_iou(self) -> float:
+        means = [np.mean(v) for v in self.shape_ious.values() if v]
+        return float(np.mean(means)) if means else 0.0
+
+    @property
+    def instance_avg_iou(self) -> float:
+        alls = [i for v in self.shape_ious.values() for i in v]
+        return float(np.mean(alls)) if alls else 0.0
+
+    @property
+    def accuracy(self) -> float:
+        seen = self.total_seen.sum()
+        return float(self.total_correct.sum() / seen) if seen else 0.0
+
+    @property
+    def mean_class_accuracy(self) -> float:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            per = self.total_correct / self.total_seen
+        return float(np.nanmean(per))
+
+    @property
+    def miou(self) -> float:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            per = self.total_correct / self.total_union
+        return float(np.nanmean(per))

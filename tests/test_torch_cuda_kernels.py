@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
-                        KNN_DIST_TOL, KNN_SHAPES, TOL, TRAIN_SHAPES, block_inputs, errors)
+                        KNN_DIST_TOL, KNN_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES,
+                        block_inputs, errors, mhsa_inputs, rel_err)
+from simple3dformer_tpu_torch.kernels import mhsa as mk
 from simple3dformer_tpu_torch.kernels import vit_block as vb
 from simple3dformer_tpu_torch.kernels.adam import adam_reference, fused_adam
 from simple3dformer_tpu_torch.kernels.fps import fps, fps_reference
@@ -196,3 +198,56 @@ def test_gather_rows_through_autograd(device):
     cpu = pts.detach().cpu().requires_grad_()
     (want,) = torch.autograd.grad(gather_rows(cpu, idx.cpu()).square().sum(), cpu)
     torch.testing.assert_close(grad.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("label,b,n,h,dh,dtype", MHSA_SHAPES, ids=[s[0] for s in MHSA_SHAPES])
+def test_mhsa_kernels_match_plain_and_repeat_bit_for_bit(device, label, b, n, h, dh, dtype):
+    q, k, v, g = mhsa_inputs(torch, b, n, h, dh, getattr(torch, dtype), b * n + dh, device)
+    scale = dh ** -0.5
+    before = (mk.mhsa_fwd.launches, mk.mhsa_bwd.launches)
+    o, stats = mk.mhsa_fwd(q, k, v, scale)
+    grads = mk.mhsa_bwd(q, k, v, g, scale, stats)
+    again = mk.mhsa_bwd(q, k, v, g, scale, stats)
+    torch.cuda.synchronize()
+    assert (mk.mhsa_fwd.launches, mk.mhsa_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert rel_err([o], [mk.mhsa_reference(q, k, v, scale)]) <= MHSA_REL[dtype]
+    assert rel_err(grads, mk.mhsa_backward_reference(q, k, v, g, scale)) <= MHSA_REL[dtype]
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+def test_mhsa_rejects_what_it_cannot_take(device):
+    q, k, v, _ = mhsa_inputs(torch, 1, 300, 2, 96, torch.float32, 0, device)
+    with pytest.raises(ValueError, match="head_dim"):
+        mk.mhsa(q, k, v, 96 ** -0.5)
+    q, k, v, _ = mhsa_inputs(torch, 1, 2049, 1, 64, torch.float32, 0, device)
+    with pytest.raises(ValueError, match="sequence length"):
+        mk.mhsa(q, k, v, 0.125)
+    q, k, v, _ = mhsa_inputs(torch, 1, 300, 1, 64, torch.float16, 0, device)
+    with pytest.raises(ValueError, match="dtype"):
+        mk.mhsa(q, k, v, 0.125)
+
+
+def test_layered_block_through_autograd_matches_plain(device):
+    """N = 600 is beyond the fused kernels: the block runs its layered route,
+    one mhsa forward and one backward, and no fused kernel."""
+    from simple3dformer_tpu_torch.nn.layers import Block
+
+    torch.manual_seed(0)
+    blk = Block(768, 3)
+    cuda_blk = Block(768, 3).to(device)
+    cuda_blk.load_state_dict(blk.state_dict())
+    x = torch.randn(2, 600, 768)
+    assert cuda_blk.route(x) == "layered"
+    for train in (True, False):
+        blk.train(train)
+        cuda_blk.train(train)
+        before = (mk.mhsa_fwd.launches, mk.mhsa_bwd.launches, vb.fused_vit_block_train_fwd.launches,
+                  vb.fused_vit_block.launches)
+        want = torch.autograd.grad(blk(x).square().sum(), list(blk.parameters()))
+        got = torch.autograd.grad(cuda_blk(x.to(device)).square().sum(),
+                                  list(cuda_blk.parameters()))
+        assert (mk.mhsa_fwd.launches, mk.mhsa_bwd.launches, vb.fused_vit_block_train_fwd.launches,
+                vb.fused_vit_block.launches) == (before[0] + 1, before[1] + 1, *before[2:])
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
