@@ -44,6 +44,16 @@ Phases, one line each (and a line per kernel shape):
               launch counts of every kernel of the path, no fused block); a
               learnability run (labels a function of the points); ms per step,
               samples/s and a per-kernel profile
+ 11. vector attention  the forward and backward against their plain versions
+              (the Hengshuang step's levels 0, 1 and 4 at B=64, N=255 and 256, a
+              D other than 512, duplicated neighbours), the backward twice
+              bit-equal; times of kernel and plain version at level 0
+ 12. Hengshuang  the Point Transformer cls model (D=512, 4 blocks, 16
+              neighbours, N=1024 with normals, 40 classes, f32, SGD): 3 steps on
+              the card against the CPU's plain path at B=4; the train_cls CLI on
+              its synthetic stream at B=64 (epoch and eval lines, a checkpoint, the
+              resume, launch counts of every kernel of the path); a learnability
+              run; ms per step, samples/s and a per-kernel profile
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -312,11 +322,11 @@ def errors(got: dict, want: dict) -> tuple[float, float]:
     return max(a for a, _ in diffs), max(a / m for a, m in diffs)
 
 
-def in_turns(torch, kernel, plain):
-    """Mean ms of kernel and plain, timed plain, kernel, kernel, plain (50 calls each)."""
-    p = [time_ms(torch, plain)]
-    k = [time_ms(torch, kernel) for _ in range(2)]
-    p.append(time_ms(torch, plain))
+def in_turns(torch, kernel, plain, iters=50):
+    """Mean ms of kernel and plain, timed plain, kernel, kernel, plain (``iters`` calls each)."""
+    p = [time_ms(torch, plain, iters)]
+    k = [time_ms(torch, kernel, iters) for _ in range(2)]
+    p.append(time_ms(torch, plain, iters))
     return float(np.mean(k)), float(np.mean(p))
 
 
@@ -544,7 +554,10 @@ def phase_training(torch):
     return launches, {"ms_per_step": ms_step, "samples_per_s": 50 * BATCH / dt}
 
 
-KERNEL_GROUPS = ("grad_gemm_kernel", "gemm_kernel", "attention_kernel", "attn_bwd_rows_kernel",
+KERNEL_GROUPS = ("VaEpiPos", "VaEpiBiasRelu", "VaEpiSoftmax", "VaEpiMask", "VaEpiGx", "VaEpiHdMask",
+                 "VaEpiPartial", "va_softmax_bwd_kernel", "va_sum_chunks_kernel",
+                 "va_rel_wgrad_kernel", "va_rel_wgrad_sum_kernel", "va_rel_grad_kernel",
+                 "grad_gemm_kernel", "gemm_kernel", "attention_kernel", "attn_bwd_rows_kernel",
                  "attn_bwd_cols_kernel", "colsum_kernel", "ln_bwd_kernel", "row_stats_kernel",
                  "adam_kernel", "fps_kernel", "knn_kernel", "gather_fwd_kernel",
                  "gather_bwd_kernel", "mhsa_fwd_kernel", "mhsa_dq_kernel", "mhsa_dkdv_kernel")
@@ -605,19 +618,19 @@ KNN_DIST_TOL = 1e-5  # distances: the same sums, q.p in another order on the pla
 GATHER_BWD_REL = 1e-6  # f32 sums in source order on both sides (index_add_ may not be)
 
 
-def timed(torch, kernel, plain, library=None):
-    """(kernel ms, plain ms, library ms or None): in turns, 50 calls each."""
-    ms, plain_ms = in_turns(torch, kernel, plain)
-    return ms, plain_ms, (time_ms(torch, library) if library is not None else None)
+def timed(torch, kernel, plain, library=None, iters=50):
+    """(kernel ms, plain ms, library ms or None): in turns, ``iters`` calls each."""
+    ms, plain_ms = in_turns(torch, kernel, plain, iters)
+    return ms, plain_ms, (time_ms(torch, library, iters) if library is not None else None)
 
 
-def point_report(name, err, times, moved, ops, note):
+def point_report(name, err, times, moved, ops, note, iters=50):
     ms, plain_ms, library_ms = times
     bound_ms, bound_by = bound(moved, ops)
     lib = f", {library_ms:.4f} ms library ({note})" if library_ms is not None else ""
     print(f"kernel {name} time: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain{lib}; bound "
           f"{bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP), "
-          f"mean of 50 calls each, in turns")
+          f"mean of {iters} calls each, in turns")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
@@ -1036,6 +1049,269 @@ def phase_s3dis(torch):
     return launches
 
 
+# the vector-attention kernels: (label, B, N, K, D, duplicated neighbours); the
+# Hengshuang cls step's levels at B=64 are N = 1024, 256, 64, 16, 4 with K = 16
+# (K = 4 at N = 4, kNN clamps k to N)
+VA_SHAPES = [("level 0", 64, 1024, 16, 512, False), ("level 1", 64, 256, 16, 512, False),
+             ("N=255", 2, 255, 16, 512, False), ("N=256", 2, 256, 16, 512, False),
+             ("level 4 N=4 K=4", 64, 4, 4, 512, False), ("D=200 K=12", 3, 77, 12, 200, False),
+             ("duplicates", 2, 64, 16, 512, True)]
+# error relative to each output's own largest value: f32 sums of up to B*N*K
+# products in another order
+VA_REL = 1e-4
+
+
+def va_err(name, got, want) -> float:
+    """The error of one vector-attention output over its own largest value;
+    over max(1, that value) for bg2's gradient, which is zero but for rounding
+    (the softmax over K does not see a bias added to every neighbour's logit),
+    as in the JAX package's test of this kernel."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / (max(1.0, scale) if name == "bg2" else scale)
+
+
+def va_inputs(torch, b, n, kk, d, seed, device, duplicates=False):
+    """q, k, v, rel and the eight weights as the block makes them: k and v the
+    rows of per-point [B, N, D] tensors at neighbour indices (all among the
+    first three points with ``duplicates``), rel neighbour offsets of unit-sphere
+    scale, Linear weights of unit gain."""
+    from simple3dformer_tpu_torch.kernels.vector_attention import weight_shapes
+
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rs.randn(*shape)).astype(np.float32)).to(device)
+
+    q, k_all, v_all = t(b, n, d), t(b, n, d), t(b, n, d)
+    hi = min(3, n) if duplicates else n
+    idx = torch.from_numpy(rs.randint(0, hi, (b, n, kk)).astype(np.int64)).to(device)
+    rows = torch.arange(b, device=device)[:, None, None]
+    k, v = k_all[rows, idx].contiguous(), v_all[rows, idx].contiguous()
+    rel = t(b, n, kk, 3, scale=0.1)
+    w = {name: t(*shape, scale=shape[1] ** -0.5 if len(shape) == 2 else 0.1)
+         for name, shape in weight_shapes(d).items()}
+    return q, k, v, rel, w
+
+
+def phase_va_kernels(torch):
+    """The vector-attention forward and backward against their plain versions
+    at the Hengshuang step's shapes; the backward twice, bit-equal; times of
+    kernel and plain version at level 0 (no PyTorch call computes the chain)."""
+    from simple3dformer_tpu_torch.kernels import vector_attention as va
+
+    report = {}
+    for label, b, n, kk, d, dup in VA_SHAPES:
+        q, k, v, rel, w = va_inputs(torch, b, n, kk, d, b * n + kk + d, "cuda", dup)
+        g = torch.randn(b, n, d, generator=torch.Generator("cuda").manual_seed(n), device="cuda")
+        out, res = va.vector_attention_fwd(q, k, v, rel, w, save=True)
+        out_inf, _ = va.vector_attention_fwd(q, k, v, rel, w)
+        grads = va.vector_attention_bwd(g, rel, w, res)
+        again = va.vector_attention_bwd(g, rel, w, res)
+        torch.cuda.synchronize()
+        flat = lambda gr: [*gr[:4], *[gr[4][name] for name in va.WNAMES]]  # noqa: E731
+        same = (torch.equal(out, out_inf)
+                and all(torch.equal(a, c) for a, c in zip(flat(grads), flat(again))))
+        del again
+        out_ref = va.vector_attention_reference(q, k, v, rel, w)
+        fwd_err = va_err("out", out, out_ref)
+        fwd_abs = float((out - out_ref).abs().max())
+        del out_ref
+        want = va.vector_attention_backward_reference(q, k, v, rel, w, g)
+        torch.cuda.synchronize()
+        errs = {name: va_err(name, a, c) for name, a, c in
+                zip(("gq", "gk", "gv", "grel", *va.WNAMES), flat(grads), flat(want))}
+        bwd_abs = max(float((a - c).abs().max()) for a, c in zip(flat(grads), flat(want)))
+        del want
+        ok = all(bool(torch.isfinite(t).all()) for t in (out, *flat(grads)))
+        worst = max(errs, key=errs.get)
+        print(f"kernel vector_attention {label} B={b} N={n} K={kk} D={d}: error relative to "
+              f"each output's largest value (bg2's gradient: max(1, it)): forward {fwd_err:.3e}, backward {errs[worst]:.3e} "
+              f"({worst}) (tolerance {VA_REL}); forward kept/not kept and two backward runs "
+              f"bit-equal {same}; finite {ok}")
+        if max(fwd_err, errs[worst]) > VA_REL or not same or not ok:
+            raise AssertionError(f"vector attention {label}: forward {fwd_err}, backward "
+                                 f"{errs}, bit-equal {same}, finite {ok}")
+        if label == "level 0":
+            ws = [w[name] for name in va.WNAMES]
+            ops = va.flops(b, n, kk, d)
+            times = timed(torch, lambda: va.vector_attention_fwd(q, k, v, rel, w, save=True),
+                          lambda: va.vector_attention_reference(q, k, v, rel, w), iters=10)
+            report["vector_attention_fwd"] = point_report(
+                "vector_attention_fwd", fwd_abs, times, nbytes(q, k, v, rel, *ws, out), ops,
+                "", iters=10)
+            gq, gk, gv, grel, gw = grads
+            times = timed(torch, lambda: va.vector_attention_bwd(g, rel, w, res),
+                          lambda: va.vector_attention_backward_reference(q, k, v, rel, w, g),
+                          iters=10)
+            report["vector_attention_bwd"] = point_report(
+                "vector_attention_bwd", bwd_abs, times,
+                nbytes(q, k, v, rel, *ws, g, gq, gk, gv, grel, gw), 2 * ops, "", iters=10)
+            torch.cuda.synchronize()
+            print(f"vector_attention level 0: peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (kernel and plain "
+                  f"versions, the residuals kept)")
+        del q, k, v, rel, w, g, out, out_inf, res, grads
+        torch.cuda.empty_cache()
+    return report
+
+
+# Hengshuang ModelNet40 cls: the slice's main path (configs/cls.yaml with
+# configs/model/Hengshuang.yaml: transformer_dim 512, 4 blocks, 16 neighbours,
+# 1024 points with normals, 40 classes, batch 64, SGD momentum 0.9 at lr 0.01)
+HB, HN = 64, 1024
+H_PARITY_B = 4  # the card-vs-CPU steps: full width, a batch the CPU finishes
+H_SAMPLES, H_EPOCHS = 256, 3  # 4 train steps and 1 eval batch an epoch
+# learnability: 8 classes, each an axis-scaling pattern of the cloud (bit j of
+# the class doubles axis j); SGD at this lr (not the recipe's hard-coded 0.01,
+# under which the trunc-normal(0.02) init leaves the loss flat for many steps)
+H_LEARN_LR, H_LEARN_STEPS = 0.05, 40
+
+
+def hengshuang_config(**overrides):
+    from simple3dformer_tpu_torch.core.config import load_task_config
+
+    cfg = load_task_config("cls", ["model=Hengshuang",
+                                   *[f"{k}={v}" for k, v in overrides.items()]])
+    cfg.num_class, cfg.input_dim, cfg.seed = 40, 6, 9
+    return cfg
+
+
+def hengshuang_trainer(torch, device):
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.models.registry import make_point_model
+    from simple3dformer_tpu_torch.train.loop import TrainState
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    model = make_point_model(hengshuang_config(), "cls",
+                             generator=generator(DEFAULT_SEED)).to(device)
+    return TrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"))
+
+
+def hengshuang_counters():
+    from simple3dformer_tpu_torch.kernels import fps, gather, knn
+    from simple3dformer_tpu_torch.kernels import vector_attention as va
+
+    return {"fps": fps.fps, "knn": knn.knn, "gather_fwd": gather.gather_fwd,
+            "gather_bwd": gather.gather_bwd, "vector_attention_fwd": va.vector_attention_fwd,
+            "vector_attention_bwd": va.vector_attention_bwd}
+
+
+def learn_clouds(n, seed):
+    """n standard-normal clouds of 6 channels, the class (0..7) doubling the axes of its bits."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, HN, 6).astype(np.float32)
+    y = rs.randint(0, 8, n).astype(np.int32)
+    for j in range(3):
+        x[..., j] *= (1 + ((y >> j) & 1))[:, None]
+    return x, y
+
+
+def phase_hengshuang(torch):
+    """The Hengshuang Point Transformer (D=512, N=1024, B=64, f32, SGD) through the
+    port's trainer; returns the launch counts of the CLI run."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from simple3dformer_tpu_torch.cli import train_cls
+    from simple3dformer_tpu_torch.data.datasets import synthetic_points
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.train.loop import make_scanned_train_steps, make_train_step
+
+    lr = 0.01  # the recipe's hard-coded SGD lr
+    # 3 steps on the card and on the CPU's plain path, same weights and batches
+    xs, ys = synthetic_points(3 * H_PARITY_B, HN, 6, 40, seed=9)
+    losses, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        step = make_train_step(hengshuang_trainer(torch, device))
+        t0 = time.perf_counter()
+        losses[device] = [float(step({"x": torch.from_numpy(xs[i * H_PARITY_B:(i + 1) * H_PARITY_B])
+                                      .to(device),
+                                      "y": torch.from_numpy(ys[i * H_PARITY_B:(i + 1) * H_PARITY_B])
+                                      .to(device)}, lr)["loss"]) for i in range(3)]
+        seconds[device] = time.perf_counter() - t0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    print(f"Hengshuang training: 3 steps at B={H_PARITY_B}, N={HN}, D=512, lr {lr}: losses on "
+          f"the card {losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol 1e-3); "
+          f"{seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
+
+    # the CLI on its synthetic stream: the slice's main path
+    counters = hengshuang_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = ["model=Hengshuang", f"synthetic={H_SAMPLES}", f"out_dir={out_dir}"]
+        with contextlib.redirect_stdout(log):
+            best = train_cls.main(argv + [f"epoch={H_EPOCHS}"])
+        launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
+        lines = log.getvalue().splitlines()
+        ckpt_dir = os.path.join(out_dir, "Hengshuang", "none", "False", "ckpt")
+        saved = sorted(int(s) for s in os.listdir(ckpt_dir) if s.isdigit())
+        resume_log = io.StringIO()
+        with contextlib.redirect_stdout(resume_log):
+            train_cls.main(argv + [f"epoch={H_EPOCHS + 1}"])
+        resumed = resume_log.getvalue().splitlines()
+    steps = H_EPOCHS * (H_SAMPLES // HB)
+    evals = H_EPOCHS * -(-max(H_SAMPLES // 5, 64) // HB)
+    # per forward: 5 vector-attention blocks (a kNN and 3 gathers each) and 4
+    # transition-downs (FPS, a kNN and 3 gathers each); per backward the k and v
+    # gathers of each block and the feature gather of each transition-down
+    want = {"fps": 4 * (steps + evals), "knn": 9 * (steps + evals),
+            "gather_fwd": 27 * (steps + evals), "gather_bwd": 14 * steps,
+            "vector_attention_fwd": 5 * (steps + evals), "vector_attention_bwd": 5 * steps}
+    epoch_lines = [line for line in lines if re.match(r"^Epoch \d+: Train Instance Accuracy", line)]
+    test_lines = [line for line in lines if line.startswith("Test Instance Accuracy")]
+    resumed_epochs = [line for line in resumed if line.startswith("Epoch ")]
+    print(f"Hengshuang CLI (configs/cls.yaml, model=Hengshuang, synthetic={H_SAMPLES}): {steps} "
+          f"train steps, {evals} eval batches; {epoch_lines[-1] if epoch_lines else 'no epoch'}"
+          f"; {test_lines[-1] if test_lines else 'no eval line'}; best instance accuracy "
+          f"{best:f}; checkpoints at epochs {saved}; resume: "
+          f"{'Use pretrain model' in resumed}, "
+          f"epochs {[ln.split(':')[0] for ln in resumed_epochs]}; launches {launches} "
+          f"(want {want})")
+    if (len(epoch_lines) != H_EPOCHS or len(test_lines) != H_EPOCHS or not saved
+            or lines[-1] != "End of training..."):
+        raise AssertionError(f"Hengshuang CLI output: {lines[-8:]}")
+    if ("Use pretrain model" not in resumed
+            or [ln.split(":")[0] for ln in resumed_epochs]
+            != [f"Epoch {e + 1}" for e in range(saved[-1] + 1, H_EPOCHS + 1)]):
+        raise AssertionError(f"Hengshuang CLI resume: {resumed[-8:]}")
+    if launches != want:
+        raise AssertionError(f"Hengshuang launch counts {launches}, want {want}")
+
+    # learnability: the class is a function of the cloud's shape
+    lx, ly = learn_clouds((H_LEARN_STEPS + 1) * HB, 12)
+    ds = DeviceResidentDataset({"x": lx, "y": ly}, "cuda")
+    run = make_scanned_train_steps(hengshuang_trainer(torch, "cuda"), ds)
+    idx = ds.put_indices(np.arange((H_LEARN_STEPS + 1) * HB).reshape(H_LEARN_STEPS + 1, HB))
+    curve = run(idx[:H_LEARN_STEPS], H_LEARN_LR)["loss"].cpu().numpy()
+    first, last = float(curve[:5].mean()), float(curve[-5:].mean())
+    print(f"Hengshuang learnability (8 classes by the cloud's axis scales, lr {H_LEARN_LR}, "
+          f"{H_LEARN_STEPS} steps at B={HB}): loss {first:.4f} over the first 5 steps -> "
+          f"{last:.4f} over the last 5 (ln 8 = {np.log(8):.4f}); curve "
+          f"{np.round(curve, 4).tolist()}")
+    if not np.isfinite(curve).all() or not last < 0.75 * first:
+        raise AssertionError(f"Hengshuang learnability: loss {first} -> {last}")
+
+    # train throughput: 5 steps at B=64 from a corpus on the card, host clock
+    n_steps = 5
+    torch.cuda.reset_peak_memory_stats()
+    run = make_scanned_train_steps(hengshuang_trainer(torch, "cuda"), ds)
+    run(idx[:1], lr)  # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(run(idx[1:n_steps + 1], lr)["loss"][-1])
+    dt = time.perf_counter() - t0
+    ms_step = dt / n_steps * 1e3
+    print(f"Hengshuang training throughput: {ms_step:.3f} ms per step, {n_steps * HB / dt:.2f} "
+          f"samples/s at B={HB} f32 (host clock over {n_steps} steps, corpus on the card); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_steps(torch, run, idx[1:4], ms_step, "Hengshuang training", lr)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1066,6 +1342,8 @@ def main() -> int:
         partseg_launches, _ = phase_partseg(torch)
         mhsa_report = phase_mhsa_kernels(torch)
         s3dis_launches = phase_s3dis(torch)
+        va_report = phase_va_kernels(torch)
+        hengshuang_launches = phase_hengshuang(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -1103,6 +1381,11 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source="simple3dformer_tpu_torch/csrc/mhsa.cu",
                             replaces=f"simple3dformer_tpu/kernels/mhsa.py:{line}",
                             launches=s3dis_launches[name], **mhsa_report[name]))
+    for name, line in (("vector_attention_fwd", 473), ("vector_attention_bwd", 506)):
+        kernels.append(dict(name=name, route="cuda",
+                            source="simple3dformer_tpu_torch/csrc/vector_attention.cu",
+                            replaces=f"simple3dformer_tpu/kernels/vector_attention.py:{line}",
+                            launches=hengshuang_launches[name], **va_report[name]))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

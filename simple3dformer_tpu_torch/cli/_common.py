@@ -4,8 +4,8 @@ simple3dformer_tpu/cli/_common.py).
 Override parsing (``key=value``, ``model=Name``), config loading, the device
 (``device=cuda``, the default, or ``device=cpu``; a run never moves to the CPU
 by itself), the run-dir layout (out_dir/model.name/backbone/pretrained, the
-reference's templated hydra.run.dir), the reference's optimizer block, and
-the epoch timer. There is no device mesh: the port trains on one card.
+reference's templated hydra.run.dir), the reference's optimizer block, the
+cls lr schedule, and the epoch timer. There is no device mesh: the port trains on one card.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 
 from ..core.config import Config, load_task_config
 from ..core.rng import DEFAULT_SEED
-from ..train.optim import make_optimizer
+from ..train.optim import make_optimizer, steplr
 
 
 def parse_cli(argv=None):
@@ -77,11 +77,14 @@ def _write_provenance(d: str, cfg) -> None:
         with open(os.path.join(d, "resolved_config.json"), "w") as f:
             json.dump({"argv": list(sys.argv), "config": cfg.to_dict()}, f, indent=2,
                       default=str)
-        from ..models import point_vit
+        from ..models import hengshuang, point_vit
         from ..models.registry import POINT_VIT_VARIANTS
 
-        if str(cfg.model.name) in POINT_VIT_VARIANTS:
-            shutil.copy(point_vit.__file__, os.path.join(d, os.path.basename(point_vit.__file__)))
+        name = str(cfg.model.name)
+        mod = (hengshuang if name == "Hengshuang"
+               else point_vit if name in POINT_VIT_VARIANTS else None)
+        if mod is not None:
+            shutil.copy(mod.__file__, os.path.join(d, os.path.basename(mod.__file__)))
     except OSError as e:
         print(f"provenance write skipped: {e}")
 
@@ -94,6 +97,14 @@ def reference_optimizer(cfg, params: dict, trainable_mask=None):
         return (make_optimizer(params, "Adam", weight_decay=float(cfg.weight_decay),
                                trainable_mask=trainable_mask), float(cfg.learning_rate))
     return make_optimizer(params, "SGD", trainable_mask=trainable_mask), 0.01
+
+
+def lr_schedule(cfg, base_lr: float):
+    """epoch -> lr: StepLR(50, 0.3) for cls (the reference's train_cls.py:93), or
+    the config's ``sched_step`` / ``sched_gamma``."""
+    step = int(cfg.get("sched_step", 50))
+    gamma = float(cfg.get("sched_gamma", 0.3))
+    return lambda epoch: steplr(base_lr, step, gamma, epoch)
 
 
 class EpochTimer:

@@ -93,6 +93,9 @@ def load_arrays(cfg):
 
 def main(argv=None):
     cfg, device = C.setup("partseg", argv)
+    if str(cfg.model.name) == "Hengshuang":
+        raise NotImplementedError("model=Hengshuang is not ported for part segmentation yet "
+                                  "(PointTransformerSeg is; this CLI's route for it is not)")
     cfg.num_class = NUM_PART
     cfg.input_dim = (6 if cfg.normal else 3) + NUM_CATEGORY
 

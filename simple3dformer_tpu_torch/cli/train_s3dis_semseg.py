@@ -29,7 +29,8 @@ It runs on the card (``device=cuda``, the default) and on the CPU only when
 asked (``device=cpu``). Without the room files, ``synthetic=N`` (or
 ``--synthetic``, 512) trains on the JAX trainer's synthetic stream: uniform
 features and uniform random labels. ``S3DISWholeScene`` (sliding-window
-whole-room eval) is not ported yet; neither is ``dtype=bf16``.
+whole-room eval) is not ported yet; neither is ``dtype=bf16``, nor
+``model=Hengshuang`` through this CLI (it raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -74,6 +75,9 @@ def load_arrays(cfg):
 
 def main(argv=None):
     cfg, device = C.setup("semseg", argv)
+    if str(cfg.model.name) == "Hengshuang":
+        raise NotImplementedError("model=Hengshuang is not ported for semantic segmentation yet "
+                                  "(PointTransformerSeg is; this CLI's route for it is not)")
     cfg.num_class = NUM_CLASS
     cfg.input_dim = INPUT_DIM
     npoint = int(cfg.num_point)

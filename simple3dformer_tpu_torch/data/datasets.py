@@ -1,6 +1,6 @@
 """Dataset readers (port of ModelNetVoxelDataset, ShapeNetV2VoxelDataset,
-PartNormalDataset and S3DISDataset from simple3dformer_tpu/data/datasets.py,
-numpy path).
+ModelNetPointCloud, PartNormalDataset, S3DISDataset and synthetic_points from
+simple3dformer_tpu/data/datasets.py, numpy path).
 
 Python classes with __len__/__getitem__ mirroring the reference's torch
 Datasets (data/modelnet40.py, modelnet10.py, shapenet_v2.py); samples come
@@ -116,6 +116,75 @@ def _pc_normalize_np(pc: np.ndarray) -> np.ndarray:
     pc = pc - centroid
     m = np.max(np.sqrt(np.sum(pc ** 2, axis=1)))
     return pc / m
+
+
+def _fps_numpy(xyz: np.ndarray, npoint: int, rng: np.random.RandomState) -> np.ndarray:
+    """Host-side farthest-point sampling. xyz [N, 3] -> indices [npoint]: a random
+    start point, the running min distance, argmax (the reference's
+    data/pointnet_util.py:53-73), in float64."""
+    n = xyz.shape[0]
+    idx = np.empty(npoint, dtype=np.int64)
+    dist = np.full(n, np.inf, dtype=np.float64)
+    farthest = int(rng.randint(0, n))
+    for i in range(npoint):
+        idx[i] = farthest
+        d = np.sum((xyz - xyz[farthest]) ** 2, axis=1)
+        np.minimum(dist, d, out=dist)
+        farthest = int(np.argmax(dist))
+    return idx
+
+
+class ModelNetPointCloud:
+    """ModelNet40 resampled-txt point clouds with an in-RAM cache (the
+    reference's data/modelnet40_point_cloud.py:8-60).
+
+    root holds ``modelnet40_shape_names.txt``, ``modelnet40_{split}.txt`` and
+    ``<shape>/<shape>_<id>.txt`` files of comma-separated rows of 6 floats (xyz,
+    normal). ``uniform=True`` takes npoint points by farthest-point sampling
+    over xyz (the JAX package's repair of the reference's branch, which could
+    not run) instead of the first npoint rows. xyz is centred and scaled to the
+    unit sphere; ``normal_channel=False`` keeps xyz only. Items are (points
+    [npoint, 6 or 3] f32, class [1] int32).
+    """
+
+    def __init__(self, root: str, npoint: int = 1024, split: str = "train",
+                 uniform: bool = False, normal_channel: bool = True,
+                 rng: np.random.RandomState | None = None):
+        self.root = root
+        self.npoints = npoint
+        self.uniform = uniform
+        self.normal_channel = normal_channel
+        self.rng = rng if rng is not None else np.random.RandomState()
+        with open(os.path.join(root, "modelnet40_shape_names.txt")) as f:
+            self.classes = {line.rstrip(): i for i, line in enumerate(f)}
+        with open(os.path.join(root, f"modelnet40_{split}.txt")) as f:
+            ids = [line.rstrip() for line in f]
+        names = ["_".join(x.split("_")[0:-1]) for x in ids]
+        self.datapath = [(names[i], os.path.join(root, names[i], ids[i]) + ".txt")
+                         for i in range(len(ids))]
+        self.cache: dict[int, tuple] = {}
+
+    def __len__(self):
+        return len(self.datapath)
+
+    def __getitem__(self, index: int):
+        if index in self.cache:
+            return self.cache[index]
+        name, path = self.datapath[index]
+        cls = np.array([self.classes[name]], dtype=np.int32)
+        with open(path) as f:  # the fast parse of the JAX reader (np.loadtxt is ~20x slower)
+            pts = np.fromstring(f.read().replace("\n", ","), sep=",", dtype=np.float32)
+        pts = pts.reshape(-1, 6)
+        if self.uniform:
+            pts = pts[_fps_numpy(pts[:, 0:3], self.npoints, self.rng)]
+        else:
+            pts = pts[: self.npoints]
+        pts[:, 0:3] = _pc_normalize_np(pts[:, 0:3])
+        if not self.normal_channel:
+            pts = pts[:, 0:3]
+        item = (pts, cls)
+        self.cache[index] = item
+        return item
 
 
 class PartNormalDataset:
@@ -260,3 +329,11 @@ class S3DISDataset:
         p[:, 3:6] /= 255.0
         out[:, 0:6] = p
         return out, lbl[chosen].astype(np.int32)
+
+
+def synthetic_points(n: int, npoint: int, channels: int, n_classes: int, seed: int = 9):
+    """The JAX package's synthetic point stream: n clouds of standard-normal
+    [npoint, channels] f32 and a uniform label per cloud."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, npoint, channels).astype(np.float32)
+    return x, rng.randint(0, n_classes, size=(n,)).astype(np.int32)

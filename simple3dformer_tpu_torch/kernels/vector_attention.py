@@ -1,0 +1,294 @@
+"""Point-Transformer vector attention on pre-gathered neighbours, forward and
+backward: CUDA kernels for Hopper and their plain versions.
+
+Replaces the TPU kernels of ``simple3dformer_tpu/kernels/vector_attention.py``
+on its f32 route, ``fused_vector_attention_pregathered``: the forward
+(``_fwd_kernel_pg`` :374 over ``_chain_fwd`` :80, ``pallas_call`` :473) and the
+backward (``_bwd_kernel_pg`` :387, ``pallas_call`` :506). Per query point with
+K neighbours, on q [B, N, D], k, v [B, N, K, D] and rel [B, N, K, 3]:
+
+    pos = relu(rel wd1^T + bd1) wd2^T + bd2            fc_delta
+    x   = q - k + pos
+    a   = softmax over K of (relu(x wg1^T + bg1) wg2^T + bg2) / sqrt(D)
+    out = sum over K of a * (v + pos)                   [B, N, D]
+
+every product of f32 operands summed in f32. The weights are in the Linear
+layout [out, in] (``wd1`` [D, 3], the others [D, D], biases [D]). The
+backward gives gq = sum_K g_x, gk = -g_x, gv = a g, grel and the eight weight
+and bias gradients summed over all B*N*K rows (``_bwd_kernel_pg``'s math).
+
+The kernels (``csrc/vector_attention.cu``) cannot hold the chain per tile in
+shared memory as the TPU kernel holds it in VMEM: at D = 512 each weight is
+1 MB in f32, a Hopper block has 227 KB. So the forward is three tiled GEMM
+launches over the [B*N*K, D] rows with f32 intermediates in device memory
+(fc_delta's first layer formed while the pos GEMM stages its operand, the
+softmax over K and the sum over K in the epilogue of the logits GEMM), and it
+writes x, u = v + pos, relu(hg) and a, which the backward reads in place of a
+recompute (the TPU ``_resid`` variant's four tensors). The weight gradients
+sum over all rows in fixed chunks of rows, one partial per chunk, and a
+second pass adds the partials in chunk order: no float atomics, two runs give
+the same bits. Against the plain version on the card: within 1e-4 of each
+output's largest value (sums in another order).
+
+On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
+launch the kernels or raise. ``vector_attention_fwd.launches`` and
+``vector_attention_bwd.launches`` count calls that launched (three GEMMs a
+forward; a backward is six GEMMs and their reductions).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+WNAMES = ("wd1", "bd1", "wd2", "bd2", "wg1", "bg1", "wg2", "bg2")
+MAX_K = 128  # a GEMM row tile (128 rows) holds whole groups of K neighbours
+RESIDUALS = ("x", "u", "hg", "a")
+WGRAD_CHUNKS = 64  # the weight gradients' row sums split into at most this many chunks
+
+
+def weight_shapes(d: int) -> dict[str, tuple]:
+    """The eight weights in the Linear layout."""
+    return {"wd1": (d, 3), "bd1": (d,), "wd2": (d, d), "bd2": (d,),
+            "wg1": (d, d), "bg1": (d,), "wg2": (d, d), "bg2": (d,)}
+
+
+def unsupported(b: int, n: int, kk: int, d: int, dtype: torch.dtype) -> str | None:
+    """Why the kernels cannot take this shape and dtype, or None when they can."""
+    if dtype != torch.float32:
+        return f"dtype {dtype} is not float32 (the bf16 route has kernels of its own)"
+    if not 1 <= kk <= MAX_K:
+        return f"{kk} neighbours outside 1..{MAX_K}"
+    if d < 8 or d % 8:
+        return f"d_model {d} is not a positive multiple of 8"
+    if b * n * kk >= 2 ** 31:
+        return f"{b * n * kk} neighbour rows exceed 2**31 - 1"
+    return None
+
+
+def _chain(q, k, v, rel, w):
+    """The forward chain in f32: (hd_pre, hd, pos, x, hg_pre, hg, a, u, out)."""
+    d = q.shape[-1]
+    hd_pre = F.linear(rel, w["wd1"], w["bd1"])
+    hd = torch.relu(hd_pre)
+    pos = F.linear(hd, w["wd2"], w["bd2"])
+    x = q[:, :, None, :] - k + pos
+    hg_pre = F.linear(x, w["wg1"], w["bg1"])
+    hg = torch.relu(hg_pre)
+    z = F.linear(hg, w["wg2"], w["bg2"]) / d ** 0.5
+    e = torch.exp(z - z.amax(2, keepdim=True))
+    a = e / e.sum(2, keepdim=True)
+    u = v + pos
+    return hd_pre, hd, pos, x, hg_pre, hg, a, u, (a * u).sum(2)
+
+
+def vector_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               rel: torch.Tensor, weights: dict) -> torch.Tensor:
+    """Plain version of the forward (``vector_attention_reference`` of the JAX
+    module): [B, N, D], [B, N, K, D] x2, [B, N, K, 3] -> out [B, N, D] f32."""
+    return _chain(q, k, v, rel, weights)[-1]
+
+
+def _rows_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over every row of a[row, o] b[row, i] -> [O, I] (a weight gradient)."""
+    return a.reshape(-1, a.shape[-1]).t() @ b.reshape(-1, b.shape[-1])
+
+
+def vector_attention_backward_reference(q, k, v, rel, weights, g, need_rel_grad=True):
+    """Plain version of the backward, ``_bwd_kernel_pg``'s steps in order on a
+    recomputed chain: (gq, gk, gv, grel or None, {name: grad})."""
+    d = q.shape[-1]
+    w = weights
+    hd_pre, hd, pos, x, hg_pre, hg, a, u, _ = _chain(q, k, v, rel, w)
+    g3 = g.float()[:, :, None, :]
+    g_a = g3 * u
+    g_u = a * g3
+    g_z = a * (g_a - (a * g_a).sum(2, keepdim=True))
+    g_logits = g_z * (1.0 / d ** 0.5)
+    g_hg = (g_logits @ w["wg2"]) * (hg_pre > 0)
+    gw = {"wg2": _rows_t(g_logits, hg), "bg2": g_logits.sum((0, 1, 2))}
+    g_x = g_hg @ w["wg1"]
+    gw.update(wg1=_rows_t(g_hg, x), bg1=g_hg.sum((0, 1, 2)))
+    g_pos = g_x + g_u
+    g_hd = (g_pos @ w["wd2"]) * (hd_pre > 0)
+    gw.update(wd2=_rows_t(g_pos, hd), bd2=g_pos.sum((0, 1, 2)))
+    grel = g_hd @ w["wd1"] if need_rel_grad else None
+    gw.update(wd1=_rows_t(g_hd, rel), bd1=g_hd.sum((0, 1, 2)))
+    return g_x.sum(2), -g_x, g_u, grel, {name: gw[name] for name in WNAMES}
+
+
+@functools.cache
+def _lib():
+    from .build import load
+
+    lib = load("vector_attention")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.s3f_va_fwd.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
+    lib.s3f_va_fwd.restype = i32
+    lib.s3f_va_bwd.argtypes = [ptr] * 15 + [i32] * 4 + [ptr]
+    lib.s3f_va_bwd.restype = i32
+    return lib
+
+
+def _pointers(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != device
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"vector attention kernel: {name} is {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device} (contiguous {t.is_contiguous()}, address "
+                         f"{t.data_ptr():#x}), not contiguous {tuple(shape)} float32 on {device} "
+                         "at a 16-byte boundary")
+
+
+def _shapes(q: torch.Tensor, k: torch.Tensor) -> tuple[int, int, int, int]:
+    if q.ndim != 3 or k.ndim != 4:
+        raise ValueError(f"vector attention takes q [B, N, D] and k [B, N, K, D], got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, n, kk, d = k.shape
+    why = unsupported(b, n, kk, d, q.dtype)
+    if why:
+        raise ValueError(f"vector attention kernel: {why}")
+    return b, n, kk, d
+
+
+def _check_weights(weights: dict, d: int, device: torch.device) -> list[torch.Tensor]:
+    for name, shape in weight_shapes(d).items():
+        _check(name, weights[name], shape, device)
+    return [weights[name] for name in WNAMES]
+
+
+def wgrad_chunk(rows: int) -> int:
+    """Rows per chunk of the weight gradients' sums: a multiple of 8, at least
+    256, at most WGRAD_CHUNKS chunks. A function of the row count alone, so a
+    rerun sums in the same order."""
+    per_chunk = -(-rows // WGRAD_CHUNKS)
+    return max(256, -(-per_chunk // 8) * 8)
+
+
+def vector_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel: torch.Tensor,
+                         weights: dict, save: bool = False):
+    """(out [B, N, D] f32, residuals for ``vector_attention_bwd`` or None).
+
+    With ``save`` the residuals are, on the card, the kernel's x, u, relu(hg)
+    and a ([B*N*K, D] f32 each); on the CPU, q, k and v themselves (its plain
+    backward recomputes the chain)."""
+    if q.device.type == "cpu":
+        return vector_attention_reference(q, k, v, rel, weights), (
+            {"q": q, "k": k, "v": v} if save else None)
+    if q.device.type != "cuda":
+        raise ValueError(f"vector attention runs on cpu or cuda, not {q.device}")
+    b, n, kk, d = _shapes(q, k)
+    dev = q.device
+    for name, t, shape in (("q", q, (b, n, d)), ("k", k, (b, n, kk, d)), ("v", v, (b, n, kk, d)),
+                           ("rel", rel, (b, n, kk, 3))):
+        _check(name, t, shape, dev)
+    ws = _check_weights(weights, d, dev)
+    rows = b * n * kk
+    res = {name: torch.empty(rows, d, device=dev) for name in RESIDUALS[:3]}
+    res["a"] = torch.empty(rows, d, device=dev) if save else None
+    out = torch.empty(b, n, d, device=dev)
+    a_ptr = res["a"].data_ptr() if save else None
+    with torch.cuda.device(dev):
+        err = _lib().s3f_va_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(),
+                                _pointers(ws), res["x"].data_ptr(), res["u"].data_ptr(),
+                                res["hg"].data_ptr(), a_ptr, out.data_ptr(), b * n, kk, d,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"vector attention forward kernel launch failed: CUDA error {err}")
+    vector_attention_fwd.launches += 1
+    return out, (res if save else None)
+
+
+def vector_attention_bwd(g: torch.Tensor, rel: torch.Tensor, weights: dict, residuals: dict,
+                         need_rel_grad: bool = True):
+    """(gq [B, N, D], gk and gv [B, N, K, D], grel [B, N, K, 3] or None, {name:
+    weight grad}), all f32, from what ``vector_attention_fwd(..., save=True)``
+    returned for the same inputs."""
+    if g.device.type == "cpu":
+        return vector_attention_backward_reference(residuals["q"], residuals["k"],
+                                                   residuals["v"], rel, weights, g,
+                                                   need_rel_grad)
+    if g.device.type != "cuda":
+        raise ValueError(f"vector attention runs on cpu or cuda, not {g.device}")
+    b, n, kk, _ = rel.shape
+    d = g.shape[-1]
+    why = unsupported(b, n, kk, d, torch.float32)
+    if why:
+        raise ValueError(f"vector attention kernel: {why}")
+    dev = g.device
+    g = g.float().contiguous()
+    _check("g", g, (b, n, d), dev)
+    _check("rel", rel, (b, n, kk, 3), dev)
+    ws = _check_weights(weights, d, dev)
+    rows = b * n * kk
+    for name in RESIDUALS:
+        if residuals.get(name) is None:
+            raise ValueError(f"vector attention backward: residual {name!r} missing (run the "
+                             "forward with save=True)")
+        _check(name, residuals[name], (rows, d), dev)
+    gq = torch.empty(b, n, d, device=dev)
+    gk = torch.empty(b, n, kk, d, device=dev)
+    gv = torch.empty(b, n, kk, d, device=dev)
+    grel = torch.empty(b, n, kk, 3, device=dev) if need_rel_grad else None
+    gw = {name: torch.empty(shape, device=dev) for name, shape in weight_shapes(d).items()}
+    chunk = wgrad_chunk(rows)
+    scratch = [torch.empty(rows, d, device=dev) for _ in range(2)]
+    partials = torch.empty(max(-(-rows // chunk) * (d * d + d), -(-rows // (chunk // 8)) * d * 4),
+                           device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().s3f_va_bwd(
+            rel.data_ptr(), _pointers(ws), residuals["x"].data_ptr(), residuals["u"].data_ptr(),
+            residuals["hg"].data_ptr(), residuals["a"].data_ptr(), g.data_ptr(), gq.data_ptr(),
+            gk.data_ptr(), gv.data_ptr(), grel.data_ptr() if need_rel_grad else None,
+            _pointers([gw[name] for name in WNAMES]), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), partials.data_ptr(), b * n, kk, d, chunk,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"vector attention backward kernel launch failed: CUDA error {err}")
+    vector_attention_bwd.launches += 1
+    return gq, gk, gv, grel, gw
+
+
+vector_attention_fwd.launches = 0
+vector_attention_bwd.launches = 0
+
+
+class _VectorAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rel, *ws):
+        out, res = vector_attention_fwd(q, k, v, rel, dict(zip(WNAMES, ws)), save=True)
+        ctx.names = tuple(res)
+        ctx.save_for_backward(rel, *ws, *res.values())
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rel, *rest = ctx.saved_tensors
+        ws, res = rest[:len(WNAMES)], rest[len(WNAMES):]
+        gq, gk, gv, grel, gw = vector_attention_bwd(
+            g, rel, dict(zip(WNAMES, ws)), dict(zip(ctx.names, res)), ctx.needs_input_grad[3])
+        return (gq, gk, gv, grel, *[gw[name] for name in WNAMES])
+
+
+def vector_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel: torch.Tensor,
+                     weights: dict) -> torch.Tensor:
+    """The chain on [B, N, D] q, [B, N, K, D] k and v, [B, N, K, 3] rel -> [B, N, D],
+    with its backward under autograd; the forward alone, keeping nothing, when
+    nothing records a gradient."""
+    ws = [weights[name] for name in WNAMES]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rel, *ws)):
+        return _VectorAttention.apply(q, k, v, rel, *ws)
+    return vector_attention_fwd(q, k, v, rel, weights)[0]
+
+
+def flops(b: int, n: int, kk: int, d: int) -> int:
+    """Operations of one forward counted as the chain needs them: the three
+    D x D products and fc_delta's first layer, 2 per multiply-add."""
+    return 2 * b * n * kk * d * (3 * d + 3)
+

@@ -2,11 +2,12 @@
 simple3dformer_tpu/models/registry.py; the reference imported
 ``models.{name}.model`` by name).
 
-Ported: the 3DViT family. ``Hengshuang`` raises until its slice.
+The 3DViT family and the Hengshuang Point Transformer (cls and seg).
 """
 
 from __future__ import annotations
 
+from .hengshuang import PointTransformerCls, PointTransformerSeg
 from .point_vit import PointViT, variant_spec
 
 POINT_VIT_VARIANTS = {
@@ -18,8 +19,8 @@ def make_point_model(cfg, task: str, **kw):
     """task: 'cls' | 'seg'. cfg needs num_point, num_class, input_dim and model.*"""
     name = cfg.model.name
     if name == "Hengshuang":
-        raise NotImplementedError("model=Hengshuang is not ported yet: it comes with the "
-                                  "Hengshuang slice (its vector-attention kernels)")
+        model = PointTransformerCls if task == "cls" else PointTransformerSeg
+        return model.from_config(cfg, **kw)
     if name in POINT_VIT_VARIANTS:
         return PointViT.from_config(cfg, task=task, **kw)
     raise ValueError(f"Unknown model name {name!r}")

@@ -1,8 +1,10 @@
 """Evaluation metrics with the reference's conventions (port of
-ClassificationMeter, the ShapeNetPart pieces and SemSegMeter of
-simple3dformer_tpu/train/eval_metrics.py).
+ClassificationMeter, InstanceClassMeter, the ShapeNetPart pieces and
+SemSegMeter of simple3dformer_tpu/train/eval_metrics.py).
 
   * Overall and mean-class accuracy (the reference's train_cls_voxel.py:300-329).
+  * train_cls's instance accuracy (the mean of per-batch accuracies) and class
+    accuracy (the mean over classes of per-batch class accuracies).
   * ShapeNetPart: category-restricted argmax (train_partseg.py:181-184),
     per-shape part IoU with "absent part counts as IoU 1.0"
     (train_partseg.py:194-206), class-avg and instance-avg mIoU.
@@ -43,6 +45,34 @@ class ClassificationMeter:
         with np.errstate(invalid="ignore", divide="ignore"):
             per = self.correct / self.total
         return float(np.nansum(per) / len(self.total))
+
+
+class InstanceClassMeter:
+    """train_cls.py's: per-batch instance accuracy, averaged, and per-class
+    accuracy summed per batch and averaged over the batches that held the class."""
+
+    def __init__(self, num_classes: int):
+        self.class_acc = np.zeros((num_classes, 2), dtype=np.float64)
+        self.mean_correct: list[float] = []
+
+    def update(self, pred: np.ndarray, label: np.ndarray) -> None:
+        pred = np.asarray(pred).reshape(-1)
+        label = np.asarray(label).reshape(-1)
+        for c in np.unique(label):
+            sel = label == c
+            self.class_acc[c, 0] += (pred[sel] == c).mean()
+            self.class_acc[c, 1] += 1
+        self.mean_correct.append(float((pred == label).mean()))
+
+    @property
+    def instance_accuracy(self) -> float:
+        return float(np.mean(self.mean_correct)) if self.mean_correct else 0.0
+
+    @property
+    def class_accuracy(self) -> float:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            per = self.class_acc[:, 0] / self.class_acc[:, 1]
+        return float(np.nanmean(per))
 
 
 # ShapeNetPart taxonomy (the reference's train_partseg.py seg_classes; the

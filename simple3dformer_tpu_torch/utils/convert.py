@@ -10,7 +10,12 @@ Point models take the reference's names as well (the ones
 ``simple3dformer_tpu/utils/torch_convert.reference_pointvit_to_jax_tree``
 reads): ``fc1.0`` / ``fc1.2``, ``transition_downs.{i}.sa.mlp_convs.{j}.weight``
 [out, in, 1, 1] and ``mlp_bns.{j}``, ``transition_ups.{i}.fc1.0`` (Linear) and
-``fc1.2`` (BatchNorm), the point head ``head`` or ``new_head``. flax BatchNorm
+``fc1.2`` (BatchNorm), the point head ``head`` or ``new_head``; the Hengshuang
+models' the names ``reference_hengshuang_to_jax_tree`` reads:
+``backbone.fc1.{0,2}`` (JAX ``fc1_1`` / ``fc1_2``), ``fc_delta.{0,2}`` and
+``fc_gamma.{0,2}`` (an MLP2's ``fc1`` / ``fc2``), ``transformers.{i}`` (JAX
+``transformers_i`` and, in the seg model, ``up_transformers_i``) and the heads
+``fc2.{0,2,4}`` / ``fc3.{0,2,4}`` (JAX ``fc1..fc3``). flax BatchNorm
 ``scale`` / ``bias`` become ``weight`` / ``bias``, and the ``batch_stats``
 tree's ``mean`` / ``var`` the ``running_mean`` / ``running_var`` buffers.
 Leaves may be numpy or jax arrays; nothing here imports jax.
@@ -44,16 +49,21 @@ def _point_parts(parts: list[str], like: Mapping[str, torch.Tensor]) -> list[str
     for i, p in enumerate(parts):
         prev = parts[i - 1] if i else ""
         nxt = parts[i + 1] if i + 1 < len(parts) else ""
-        p = re.sub(r"^(transition_downs|transition_ups)_(\d+)$", r"\1.\2", p)
+        p = re.sub(r"^(transition_downs|transition_ups|transformers)_(\d+)$", r"\1.\2", p)
+        p = re.sub(r"^up_transformers_(\d+)$", r"transformers.\1", p)  # Hengshuang seg
+        p = {"fc1_1": "fc1.0", "fc1_2": "fc1.2"}.get(p, p)  # the Hengshuang stem
         m = re.match(r"^mlp_(\d+)$", p)
+        head = re.match(r"^fc(\d+)$", p) if i == 1 and prev in ("fc2", "fc3") else None
         if m and nxt in ("conv", "bn"):  # a shared MLP layer: the conv and BN lists
             p = f"mlp_{'convs' if nxt == 'conv' else 'bns'}.{m.group(1)}"
         elif p in ("conv", "bn") and prev.startswith("mlp_"):
             continue
         elif p in ("fc", "bn") and prev in ("fc1", "fc2"):  # LinearBNReLU: Sequential 0, 2
             p = "0" if p == "fc" else "2"
-        elif p in ("fc1", "fc2") and prev in ("fc1", "fc_pos_embed"):  # StemMLP
-            p = "0" if p == "fc1" else "2"
+        elif p in ("fc1", "fc2") and prev in ("fc1", "fc_pos_embed", "fc_delta", "fc_gamma"):
+            p = "0" if p == "fc1" else "2"  # StemMLP, MLP2: Sequential 0, 2
+        elif head:  # a Hengshuang head, Sequential(Linear, ReLU, ...): Linears at 0, 2, 4
+            p = str(2 * (int(head.group(1)) - 1))
         elif i == 0 and p == "new_head" and not any(k.startswith("new_head.") for k in like):
             p = "head"  # the plain 3DViT's point head
         out.append(p)

@@ -15,8 +15,10 @@ import torch
 
 from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
                         KNN_DIST_TOL, KNN_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES,
-                        block_inputs, errors, mhsa_inputs, rel_err)
+                        VA_REL, VA_SHAPES, block_inputs, errors, mhsa_inputs, rel_err, va_err,
+                        va_inputs)
 from simple3dformer_tpu_torch.kernels import mhsa as mk
+from simple3dformer_tpu_torch.kernels import vector_attention as va
 from simple3dformer_tpu_torch.kernels import vit_block as vb
 from simple3dformer_tpu_torch.kernels.adam import adam_reference, fused_adam
 from simple3dformer_tpu_torch.kernels.fps import fps, fps_reference
@@ -251,3 +253,74 @@ def test_layered_block_through_autograd_matches_plain(device):
                 vb.fused_vit_block.launches) == (before[0] + 1, before[1] + 1, *before[2:])
         for a, b in zip(got, want):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
+
+
+def _va_flat(grads):
+    gq, gk, gv, grel, gw = grads
+    return [gq, gk, gv, grel, *[gw[name] for name in va.WNAMES]]
+
+
+@pytest.mark.parametrize("label,b,n,kk,d,dup", VA_SHAPES, ids=[s[0] for s in VA_SHAPES])
+def test_vector_attention_kernels_match_plain_and_repeat_bit_for_bit(device, label, b, n, kk, d,
+                                                                     dup):
+    q, k, v, rel, w = va_inputs(torch, b, n, kk, d, b * n + kk + d, device, dup)
+    g = torch.randn(b, n, d, generator=torch.Generator(device).manual_seed(n), device=device)
+    before = (va.vector_attention_fwd.launches, va.vector_attention_bwd.launches)
+    out, res = va.vector_attention_fwd(q, k, v, rel, w, save=True)
+    grads = va.vector_attention_bwd(g, rel, w, res)
+    again = va.vector_attention_bwd(g, rel, w, res)
+    torch.cuda.synchronize()
+    assert (va.vector_attention_fwd.launches, va.vector_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert all(torch.equal(a, c) for a, c in zip(_va_flat(grads), _va_flat(again)))
+    del again
+    want = va.vector_attention_reference(q, k, v, rel, w)
+    assert va_err("out", out, want) <= VA_REL
+    del want
+    for name, a, c in zip(("gq", "gk", "gv", "grel", *va.WNAMES), _va_flat(grads),
+                          _va_flat(va.vector_attention_backward_reference(q, k, v, rel, w, g))):
+        assert a.shape == c.shape
+        assert va_err(name, a, c) <= VA_REL, name
+
+
+def test_vector_attention_rejects_what_it_cannot_take(device):
+    q, k, v, rel, w = va_inputs(torch, 1, 40, 8, 64, 0, device)
+    with pytest.raises(ValueError, match="float32"):
+        va.vector_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), rel, w)
+    with pytest.raises(ValueError, match="wg1"):
+        va.vector_attention_fwd(q, k, v, rel, dict(w, wg1=w["wg1"].cpu()))
+    with pytest.raises(ValueError, match="contiguous"):
+        va.vector_attention_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, rel, w)
+    q, k, v, rel, w = va_inputs(torch, 1, 200, 129, 64, 0, device)
+    with pytest.raises(ValueError, match="neighbours"):
+        va.vector_attention_fwd(q, k, v, rel, w)
+
+
+def test_vector_attention_block_through_autograd_matches_plain(device):
+    """A Hengshuang block at N = 300 (and at N = 3, fewer points than
+    neighbours) on the card against the CPU's plain path: one forward and one
+    backward kernel launch each. fc_gamma's last bias has a zero gradient but
+    for rounding (the softmax over K does not see it): both sides hold it below
+    1e-6 of the block's largest gradient."""
+    from simple3dformer_tpu_torch.nn.vector_attention import VectorAttentionBlock
+
+    torch.manual_seed(0)
+    blk = VectorAttentionBlock(64, 128, 16, generator=torch.Generator().manual_seed(0))
+    cuda_blk = VectorAttentionBlock(64, 128, 16).to(device)
+    cuda_blk.load_state_dict(blk.state_dict())
+    for n in (300, 3):
+        xyz, feats = torch.rand(2, n, 3), torch.randn(2, n, 64)
+        before = (va.vector_attention_fwd.launches, va.vector_attention_bwd.launches)
+        want = torch.autograd.grad(blk(xyz, feats)[0].square().sum(), list(blk.parameters()))
+        got = torch.autograd.grad(cuda_blk(xyz.to(device), feats.to(device))[0].square().sum(),
+                                  list(cuda_blk.parameters()))
+        assert (va.vector_attention_fwd.launches, va.vector_attention_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        largest = max(float(g.abs().max()) for g in want)
+        for name, a, b in zip([n for n, _ in blk.named_parameters()], got, want):
+            if name == "fc_gamma.2.bias":
+                assert max(float(a.abs().max()), float(b.abs().max())) < 1e-6 * largest
+                continue
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
+    with pytest.raises(ValueError, match="float32"):
+        cuda_blk.bfloat16()(xyz.bfloat16().to(device), feats.bfloat16().to(device))

@@ -269,8 +269,12 @@ def test_registry_builds_every_variant_and_refuses_hengshuang():
     assert not has_lwf_pathway(cfg)
     cfg.model.name = "3DViT_1_layer"
     assert has_lwf_pathway(cfg)
-    cfg.model.name = "Hengshuang"
-    with pytest.raises(NotImplementedError, match="Hengshuang"):
+    cfg.model.name = "Hengshuang"  # ported with its vector-attention kernels: no refusal now
+    cfg.model.nblocks, cfg.model.transformer_dim = 2, 64
+    assert type(make_point_model(cfg, "seg")).__name__ == "PointTransformerSeg"
+    assert not has_lwf_pathway(cfg)
+    cfg.model.name = "4DViT"
+    with pytest.raises(ValueError, match="4DViT"):
         make_point_model(cfg, "seg")
     with pytest.raises(ValueError):
         ppv.variant_spec("3DViT_2_layer", 192, 64)
