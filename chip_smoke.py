@@ -54,6 +54,20 @@ Phases, one line each (and a line per kernel shape):
               its synthetic stream at B=64 (epoch and eval lines, a checkpoint, the
               resume, launch counts of every kernel of the path); a learnability
               run; ms per step, samples/s and a per-kernel profile
+ 13. vector attention bf16  the in-kernel-gather forward, the recompute
+              backward and the residual-saving pair against their plain versions
+              (level 0 and level 4 of the bf16 step, N=1000, K=1, K=128 with
+              duplicated neighbours, D=200), each backward twice bit-equal, the
+              residual backward against the recompute backward; times of kernel
+              and plain version at level 0
+ 14. Hengshuang bf16  the same model at dtype=bf16 (parameters f32): 3 steps on
+              the card against the CPU's plain path at B=4; the train_cls CLI at
+              dtype=bf16 (its lines, a checkpoint, the resume, launch counts: the
+              residual-saving pair in training, the forward in eval); a
+              learnability run; two steps under S3F_VA_RESID=0 (the recompute
+              pair); ms per step, samples/s and a per-kernel profile
+ 15. attention route  a ViT block at 2049 tokens on the card: the plain
+              attention outside the mhsa kernels' gate, counted, against the CPU
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -288,15 +302,16 @@ TRAIN_SHAPES = [s for s in KERNEL_SHAPES
 # round an intermediate to the neighbouring bf16 value.
 GRAD_REL = {"float32": 1e-4, "bfloat16": 3e-2}
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12  # H100 SXM: HBM bytes/s, f32 non-tensor FLOP/s
+PEAK_BF16 = 989e12  # H100 SXM: bf16 dense tensor-core FLOP/s
 # base lr of the CLI run (chosen on the CPU: 3.69 -> 0.76 over 40 steps); the
 # warmup scales it by (epoch + 1) / 2000, so 1e-5 to 2e-4 over the 20 epochs
 TRAIN_LR = 0.02
 TRAIN_SAMPLES, TRAIN_EPOCHS = 64, 20  # 2 steps per epoch at B=32: 40 steps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time in ms for the work, and what bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32) -> tuple[float, str]:
+    """The least time in ms for the work (operations at ``peak`` FLOP/s), and what bounds it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -554,9 +569,13 @@ def phase_training(torch):
     return launches, {"ms_per_step": ms_step, "samples_per_s": 50 * BATCH / dt}
 
 
-KERNEL_GROUPS = ("VaEpiPos", "VaEpiBiasRelu", "VaEpiSoftmax", "VaEpiMask", "VaEpiGx", "VaEpiHdMask",
-                 "VaEpiPartial", "va_softmax_bwd_kernel", "va_sum_chunks_kernel",
+# the first group named in a kernel's name takes its time: the vector-attention
+# epilogues before "gemm_kernel", which their GEMMs' names contain (an f32 and
+# a bf16 instantiation of one epilogue share its group; a step runs one of them)
+KERNEL_GROUPS = ("VaEpiPos", "VagEpiPos", "VaEpiBias", "VaEpiSoftmax", "VaEpiMask", "VaEpiGx",
+                 "VaEpiHdMask", "VaEpiPartial", "va_softmax_bwd_kernel", "va_sum_chunks_kernel",
                  "va_rel_wgrad_kernel", "va_rel_wgrad_sum_kernel", "va_rel_grad_kernel",
+                 "vag_inverse_kernel", "vag_scatter_kernel",
                  "grad_gemm_kernel", "gemm_kernel", "attention_kernel", "attn_bwd_rows_kernel",
                  "attn_bwd_cols_kernel", "colsum_kernel", "ln_bwd_kernel", "row_stats_kernel",
                  "adam_kernel", "fps_kernel", "knn_kernel", "gather_fwd_kernel",
@@ -624,9 +643,9 @@ def timed(torch, kernel, plain, library=None, iters=50):
     return ms, plain_ms, (time_ms(torch, library, iters) if library is not None else None)
 
 
-def point_report(name, err, times, moved, ops, note, iters=50):
+def point_report(name, err, times, moved, ops, note, iters=50, peak=PEAK_F32):
     ms, plain_ms, library_ms = times
-    bound_ms, bound_by = bound(moved, ops)
+    bound_ms, bound_by = bound(moved, ops, peak)
     lib = f", {library_ms:.4f} ms library ({note})" if library_ms is not None else ""
     print(f"kernel {name} time: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain{lib}; bound "
           f"{bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP), "
@@ -1176,13 +1195,13 @@ def hengshuang_config(**overrides):
     return cfg
 
 
-def hengshuang_trainer(torch, device):
+def hengshuang_trainer(torch, device, dtype=None):
     from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
     from simple3dformer_tpu_torch.models.registry import make_point_model
     from simple3dformer_tpu_torch.train.loop import TrainState
     from simple3dformer_tpu_torch.train.optim import make_optimizer
 
-    model = make_point_model(hengshuang_config(), "cls",
+    model = make_point_model(hengshuang_config(), "cls", dtype=dtype,
                              generator=generator(DEFAULT_SEED)).to(device)
     return TrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"))
 
@@ -1193,7 +1212,34 @@ def hengshuang_counters():
 
     return {"fps": fps.fps, "knn": knn.knn, "gather_fwd": gather.gather_fwd,
             "gather_bwd": gather.gather_bwd, "vector_attention_fwd": va.vector_attention_fwd,
-            "vector_attention_bwd": va.vector_attention_bwd}
+            "vector_attention_bwd": va.vector_attention_bwd,
+            "vector_attention_gather_fwd": va.gather_attention_fwd,
+            "vector_attention_gather_bwd": va.gather_attention_bwd,
+            "vector_attention_resid_fwd": va.gather_attention_resid_fwd,
+            "vector_attention_resid_bwd": va.gather_attention_resid_bwd}
+
+
+def hengshuang_launches(steps, evals, bf16, resid=True) -> dict:
+    """The launches of ``steps`` train steps and ``evals`` eval batches. Per
+    forward: 5 vector-attention blocks (a kNN and the neighbours' xyz gather
+    each, in f32 also the k and v gathers) and 4 transition-downs (FPS, a kNN
+    and 3 gathers each); per backward the feature gather of each
+    transition-down, in f32 also the k and v gathers of each block. The
+    vector-attention kernels: in f32 the pre-gathered pair; in bf16 training
+    the residual-saving pair (``resid``) or the recompute pair, in eval the
+    forward."""
+    fwd = steps + evals
+    want = dict.fromkeys(hengshuang_counters(), 0)
+    want.update(fps=4 * fwd, knn=9 * fwd, gather_fwd=(17 if bf16 else 27) * fwd,
+                gather_bwd=(4 if bf16 else 14) * steps)
+    if not bf16:
+        want.update(vector_attention_fwd=5 * fwd, vector_attention_bwd=5 * steps)
+    elif resid:
+        want.update(vector_attention_gather_fwd=5 * evals, vector_attention_resid_fwd=5 * steps,
+                    vector_attention_resid_bwd=5 * steps)
+    else:
+        want.update(vector_attention_gather_fwd=5 * fwd, vector_attention_gather_bwd=5 * steps)
+    return want
 
 
 def learn_clouds(n, seed):
@@ -1206,9 +1252,21 @@ def learn_clouds(n, seed):
     return x, y
 
 
-def phase_hengshuang(torch):
-    """The Hengshuang Point Transformer (D=512, N=1024, B=64, f32, SGD) through the
-    port's trainer; returns the launch counts of the CLI run."""
+# card vs CPU: f32, the same sums in another order; bf16, the logits keep 8
+# bits, and bf16 intermediates (the Linears' outputs, the kernels' operands)
+# round f32 sums taken in another order on the two sides (3 steps' losses
+# measured within 4.4e-4 relative on an H100). The eval logits of the first
+# batch are compared centred (what the softmax sees), over the largest centred
+# CPU logit, so a forward that lost the classes' differences fails.
+H_LOSS_RTOL = {False: 1e-3, True: 2e-3}
+H_LOGIT_REL = {False: 1e-3, True: 5e-2}
+
+
+def phase_hengshuang(torch, bf16=False):
+    """The Hengshuang Point Transformer (D=512, N=1024, B=64, SGD), f32 or at
+    dtype=bf16 (parameters f32), through the port's trainer. Returns the launch
+    counts of the CLI run (the main path) and, at bf16, of two steps under
+    S3F_VA_RESID=0 (the recompute pair's path)."""
     import contextlib
     import io
     import os
@@ -1219,22 +1277,35 @@ def phase_hengshuang(torch):
     from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
     from simple3dformer_tpu_torch.train.loop import make_scanned_train_steps, make_train_step
 
+    label, dtype = ("Hengshuang bf16", torch.bfloat16) if bf16 else ("Hengshuang", None)
     lr = 0.01  # the recipe's hard-coded SGD lr
     # 3 steps on the card and on the CPU's plain path, same weights and batches
     xs, ys = synthetic_points(3 * H_PARITY_B, HN, 6, 40, seed=9)
-    losses, seconds = {}, {}
+    losses, seconds, logits = {}, {}, {}
     for device in ("cuda", "cpu"):
-        step = make_train_step(hengshuang_trainer(torch, device))
+        state = hengshuang_trainer(torch, device, dtype)
+        with torch.no_grad():
+            out = state.model.eval()(torch.from_numpy(xs[:H_PARITY_B]).to(device)).float()
+        logits[device] = out.cpu().numpy() - out.cpu().numpy().mean(-1, keepdims=True)
+        state.model.train()
+        step = make_train_step(state)
         t0 = time.perf_counter()
         losses[device] = [float(step({"x": torch.from_numpy(xs[i * H_PARITY_B:(i + 1) * H_PARITY_B])
                                       .to(device),
                                       "y": torch.from_numpy(ys[i * H_PARITY_B:(i + 1) * H_PARITY_B])
                                       .to(device)}, lr)["loss"]) for i in range(3)]
         seconds[device] = time.perf_counter() - t0
-    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
-    print(f"Hengshuang training: 3 steps at B={H_PARITY_B}, N={HN}, D=512, lr {lr}: losses on "
-          f"the card {losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol 1e-3); "
-          f"{seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
+    print(f"{label} training: 3 steps at B={H_PARITY_B}, N={HN}, D=512, lr {lr}: losses on "
+          f"the card {losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol "
+          f"{H_LOSS_RTOL[bf16]}); {seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s "
+          "on the CPU")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=H_LOSS_RTOL[bf16])
+    logit_err = float(np.abs(logits["cuda"] - logits["cpu"]).max() / np.abs(logits["cpu"]).max())
+    print(f"{label} eval logits at B={H_PARITY_B}, card vs the CPU's plain path, centred: largest "
+          f"error {logit_err:.3e} of the largest centred logit "
+          f"{float(np.abs(logits['cpu']).max()):.4e} (limit {H_LOGIT_REL[bf16]})")
+    if not logit_err <= H_LOGIT_REL[bf16]:
+        raise AssertionError(f"{label} eval logits: card vs CPU {logit_err}")
 
     # the CLI on its synthetic stream: the slice's main path
     counters = hengshuang_counters()
@@ -1242,7 +1313,8 @@ def phase_hengshuang(torch):
         fn.launches = 0
     log = io.StringIO()
     with tempfile.TemporaryDirectory() as out_dir:
-        argv = ["model=Hengshuang", f"synthetic={H_SAMPLES}", f"out_dir={out_dir}"]
+        argv = ["model=Hengshuang", *(["dtype=bf16"] if bf16 else []), f"synthetic={H_SAMPLES}",
+                f"out_dir={out_dir}"]
         with contextlib.redirect_stdout(log):
             best = train_cls.main(argv + [f"epoch={H_EPOCHS}"])
         launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
@@ -1255,16 +1327,11 @@ def phase_hengshuang(torch):
         resumed = resume_log.getvalue().splitlines()
     steps = H_EPOCHS * (H_SAMPLES // HB)
     evals = H_EPOCHS * -(-max(H_SAMPLES // 5, 64) // HB)
-    # per forward: 5 vector-attention blocks (a kNN and 3 gathers each) and 4
-    # transition-downs (FPS, a kNN and 3 gathers each); per backward the k and v
-    # gathers of each block and the feature gather of each transition-down
-    want = {"fps": 4 * (steps + evals), "knn": 9 * (steps + evals),
-            "gather_fwd": 27 * (steps + evals), "gather_bwd": 14 * steps,
-            "vector_attention_fwd": 5 * (steps + evals), "vector_attention_bwd": 5 * steps}
+    want = hengshuang_launches(steps, evals, bf16)
     epoch_lines = [line for line in lines if re.match(r"^Epoch \d+: Train Instance Accuracy", line)]
     test_lines = [line for line in lines if line.startswith("Test Instance Accuracy")]
     resumed_epochs = [line for line in resumed if line.startswith("Epoch ")]
-    print(f"Hengshuang CLI (configs/cls.yaml, model=Hengshuang, synthetic={H_SAMPLES}): {steps} "
+    print(f"{label} CLI (configs/cls.yaml, {' '.join(argv[:-2])}, synthetic={H_SAMPLES}): {steps} "
           f"train steps, {evals} eval batches; {epoch_lines[-1] if epoch_lines else 'no epoch'}"
           f"; {test_lines[-1] if test_lines else 'no eval line'}; best instance accuracy "
           f"{best:f}; checkpoints at epochs {saved}; resume: "
@@ -1273,43 +1340,244 @@ def phase_hengshuang(torch):
           f"(want {want})")
     if (len(epoch_lines) != H_EPOCHS or len(test_lines) != H_EPOCHS or not saved
             or lines[-1] != "End of training..."):
-        raise AssertionError(f"Hengshuang CLI output: {lines[-8:]}")
+        raise AssertionError(f"{label} CLI output: {lines[-8:]}")
     if ("Use pretrain model" not in resumed
             or [ln.split(":")[0] for ln in resumed_epochs]
             != [f"Epoch {e + 1}" for e in range(saved[-1] + 1, H_EPOCHS + 1)]):
-        raise AssertionError(f"Hengshuang CLI resume: {resumed[-8:]}")
+        raise AssertionError(f"{label} CLI resume: {resumed[-8:]}")
     if launches != want:
-        raise AssertionError(f"Hengshuang launch counts {launches}, want {want}")
+        raise AssertionError(f"{label} launch counts {launches}, want {want}")
 
     # learnability: the class is a function of the cloud's shape
     lx, ly = learn_clouds((H_LEARN_STEPS + 1) * HB, 12)
     ds = DeviceResidentDataset({"x": lx, "y": ly}, "cuda")
-    run = make_scanned_train_steps(hengshuang_trainer(torch, "cuda"), ds)
+    run = make_scanned_train_steps(hengshuang_trainer(torch, "cuda", dtype), ds)
     idx = ds.put_indices(np.arange((H_LEARN_STEPS + 1) * HB).reshape(H_LEARN_STEPS + 1, HB))
     curve = run(idx[:H_LEARN_STEPS], H_LEARN_LR)["loss"].cpu().numpy()
     first, last = float(curve[:5].mean()), float(curve[-5:].mean())
-    print(f"Hengshuang learnability (8 classes by the cloud's axis scales, lr {H_LEARN_LR}, "
+    print(f"{label} learnability (8 classes by the cloud's axis scales, lr {H_LEARN_LR}, "
           f"{H_LEARN_STEPS} steps at B={HB}): loss {first:.4f} over the first 5 steps -> "
           f"{last:.4f} over the last 5 (ln 8 = {np.log(8):.4f}); curve "
           f"{np.round(curve, 4).tolist()}")
     if not np.isfinite(curve).all() or not last < 0.75 * first:
-        raise AssertionError(f"Hengshuang learnability: loss {first} -> {last}")
+        raise AssertionError(f"{label} learnability: loss {first} -> {last}")
+
+    recompute = None
+    if bf16:  # the recompute pair's path: S3F_VA_RESID=0, two steps at B=64
+        previous = os.environ.get("S3F_VA_RESID")
+        os.environ["S3F_VA_RESID"] = "0"
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            run = make_scanned_train_steps(hengshuang_trainer(torch, "cuda", dtype), ds)
+            rec_losses = run(idx[:2], lr)["loss"].cpu().numpy()
+            recompute = {k: fn.launches for k, fn in counters.items()}
+        finally:
+            if previous is None:
+                del os.environ["S3F_VA_RESID"]
+            else:
+                os.environ["S3F_VA_RESID"] = previous
+        rec_want = hengshuang_launches(2, 0, bf16, resid=False)
+        print(f"{label} under S3F_VA_RESID=0: 2 steps at B={HB}, losses {rec_losses.tolist()}; "
+              f"launches {recompute} (want {rec_want})")
+        if recompute != rec_want or not np.isfinite(rec_losses).all():
+            raise AssertionError(f"S3F_VA_RESID=0 launches {recompute}, want {rec_want}")
 
     # train throughput: 5 steps at B=64 from a corpus on the card, host clock
     n_steps = 5
     torch.cuda.reset_peak_memory_stats()
-    run = make_scanned_train_steps(hengshuang_trainer(torch, "cuda"), ds)
+    run = make_scanned_train_steps(hengshuang_trainer(torch, "cuda", dtype), ds)
     run(idx[:1], lr)  # warm-up step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     float(run(idx[1:n_steps + 1], lr)["loss"][-1])
     dt = time.perf_counter() - t0
     ms_step = dt / n_steps * 1e3
-    print(f"Hengshuang training throughput: {ms_step:.3f} ms per step, {n_steps * HB / dt:.2f} "
-          f"samples/s at B={HB} f32 (host clock over {n_steps} steps, corpus on the card); "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_steps(torch, run, idx[1:4], ms_step, "Hengshuang training", lr)
-    return launches
+    print(f"{label} training throughput: {ms_step:.3f} ms per step, {n_steps * HB / dt:.2f} "
+          f"samples/s at B={HB} {'bf16' if bf16 else 'f32'} (host clock over {n_steps} steps, "
+          f"corpus on the card); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_steps(torch, run, idx[1:4], ms_step, f"{label} training", lr)
+    return launches, recompute
+
+
+# the bf16 vector-attention kernels (in-kernel gather by index): (label, B, N,
+# K, D, duplicated neighbours); level 0 and level 4 of the bf16 Hengshuang step
+# at B=64, an N off every tile, one neighbour, 128 neighbours all among three
+# points, a D that is a multiple of 8 but not of 128
+VAG_SHAPES = [("level 0", 64, 1024, 16, 512, False), ("level 4 N=4 K=4", 64, 4, 4, 512, False),
+              ("N=1000", 2, 1000, 16, 512, False), ("K=1", 2, 300, 1, 512, False),
+              ("K=128 duplicates", 2, 256, 128, 512, True), ("D=200 K=12", 3, 77, 12, 200, False)]
+# error over each output's own largest value (bg2's gradient: over max(1, it)):
+# both sides take the same bf16 operands and sum in f32 in another order, which
+# can round an intermediate (x, hg_pre, a product's gradient operand) or an
+# output to the neighbouring bf16 value, 2**-8 of it
+VAG_REL = 2e-2
+# the residual backward against the recompute backward: u and a are rounded to
+# bf16 in the saves (the JAX package's own bound for the pair)
+VAG_RESID_REL = 2e-2
+
+
+def vag_inputs(torch, b, n, kk, d, seed, device, duplicates=False):
+    """q, k_all, v_all [B, N, D] bf16, idx [B, N, K] int32 (all among the first
+    three points with ``duplicates``), rel [B, N, K, 3] bf16 of unit-sphere
+    scale, the eight f32 weights of unit gain."""
+    from simple3dformer_tpu_torch.kernels.vector_attention import weight_shapes
+
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rs.randn(*shape)).astype(np.float32)).to(device)
+
+    q, k_all, v_all = (t(b, n, d).bfloat16() for _ in range(3))
+    hi = min(3, n) if duplicates else n
+    idx = torch.from_numpy(rs.randint(0, hi, (b, n, kk)).astype(np.int32)).to(device)
+    rel = t(b, n, kk, 3, scale=0.1).bfloat16()
+    w = {name: t(*shape, scale=shape[1] ** -0.5 if len(shape) == 2 else 0.1)
+         for name, shape in weight_shapes(d).items()}
+    return q, k_all, v_all, idx, rel, w
+
+
+def vag_flat(grads) -> dict:
+    gq, gk, gv, grel, gw = grads
+    return {"gq": gq, "gk_all": gk, "gv_all": gv, "grel": grel, **gw}
+
+
+def vag_check(torch, b, n, kk, d, dup, seed, device="cuda") -> dict:
+    """The four bf16 kernels on one input against their plain versions (the
+    residual backward fed the kernel's own saves), each backward run twice, the
+    residual backward against the recompute backward. Returns the inputs, the
+    kernels' outputs, the errors by check and output, the bit-equality of the
+    reruns and whether every check held."""
+    from simple3dformer_tpu_torch.kernels import vector_attention as va
+
+    inputs = vag_inputs(torch, b, n, kk, d, seed, device, dup)
+    idx, rel, w = inputs[3:]
+    g = torch.randn(b, n, d, generator=torch.Generator(device).manual_seed(seed),
+                    device=device).bfloat16()
+    out = va.gather_attention_fwd(*inputs)
+    out_res, saves = va.gather_attention_resid_fwd(*inputs)
+    rec = [vag_flat(va.gather_attention_bwd(*inputs, g)) for _ in range(2)]
+    res = [vag_flat(va.gather_attention_resid_bwd(idx, rel, w, saves, g)) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = {"forwards": torch.equal(out, out_res),
+            "recompute backward": all(torch.equal(rec[0][k], rec[1][k]) for k in rec[0]),
+            "residual backward": all(torch.equal(res[0][k], res[1][k]) for k in res[0])}
+    rec, res = rec[0], res[0]
+
+    def errs(got, want):
+        # an output that is zero throughout (at K=1 the softmax passes no gradient) is held to 0
+        return {k: (va_err(k, got[k].float(), want[k].float()) if bool(want[k].any())
+                    else float(got[k].float().abs().max())) for k in want}
+
+    def abs_err(got, want):
+        return max(float((got[k].float() - want[k].float()).abs().max()) for k in want)
+
+    want_out, want_saves = va.gather_attention_resid_reference(*inputs)
+    err = {"fwd": errs({"out": out}, {"out": want_out}),
+           "resid_fwd": errs({"out": out_res, **saves}, {"out": want_out, **want_saves})}
+    absolute = {"fwd": abs_err({"out": out}, {"out": want_out}),
+                "resid_fwd": abs_err({"out": out_res, **saves}, {"out": want_out, **want_saves})}
+    del want_saves
+    want = vag_flat(va.gather_attention_backward_reference(*inputs, g))
+    err["bwd"], absolute["bwd"] = errs(rec, want), abs_err(rec, want)
+    del want
+    want = vag_flat(va.gather_attention_resid_backward_reference(idx, rel, w, saves, g))
+    err["resid_bwd"], absolute["resid_bwd"] = errs(res, want), abs_err(res, want)
+    del want
+    err["resid vs recompute"] = errs(res, rec)
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (out, *saves.values(), *rec.values(), *res.values()))
+    worst = {k: max(v.values()) for k, v in err.items()}
+    limit = {k: VAG_RESID_REL if k == "resid vs recompute" else VAG_REL for k in err}
+    ok = all(worst[k] <= limit[k] for k in err) and all(same.values()) and finite
+    return dict(inputs=inputs, g=g, out=out, saves=saves, rec=rec, res=res, err=err,
+                abs=absolute, worst=worst, same=same, finite=finite, ok=ok)
+
+
+def phase_vag_kernels(torch):
+    """The bf16 vector-attention kernels against their plain versions at the bf16
+    Hengshuang step's shapes and the edge shapes; times of kernel and plain
+    version at level 0 (no PyTorch call computes the chain)."""
+    from simple3dformer_tpu_torch.kernels import vector_attention as va
+
+    report = {}
+    for label, b, n, kk, d, dup in VAG_SHAPES:
+        r = vag_check(torch, b, n, kk, d, dup, seed=b * n + kk + d)
+        worst = ", ".join(f"{k} {v:.3e} ({max(r['err'][k], key=r['err'][k].get)})"
+                          for k, v in r["worst"].items())
+        print(f"kernel vector_attention bf16 {label} B={b} N={n} K={kk} D={d}: error relative "
+              f"to each output's largest value (bg2's gradient: max(1, it)): {worst} "
+              f"(tolerance {VAG_REL}, resid vs recompute {VAG_RESID_REL}); bit-equal "
+              f"{r['same']}; finite {r['finite']}")
+        if not r["ok"]:
+            raise AssertionError(f"bf16 vector attention {label}: {r['err']}, {r['same']}, "
+                                 f"finite {r['finite']}")
+        if label == "level 0":
+            inputs, g, saves, rec, res = r["inputs"], r["g"], r["saves"], r["rec"], r["res"]
+            idx, rel, w = inputs[3:]
+            ops = va.flops(b, n, kk, d)
+            outs = {"gq": rec["gq"], "gk": rec["gk_all"], "gv": rec["gv_all"],
+                    "grel": rec["grel"], **{k: rec[k] for k in va.WNAMES}}
+            cases = [
+                ("vector_attention_gather_fwd", lambda: va.gather_attention_fwd(*inputs),
+                 lambda: va.gather_attention_reference(*inputs), nbytes(*inputs, r["out"]), ops),
+                ("vector_attention_resid_fwd", lambda: va.gather_attention_resid_fwd(*inputs),
+                 lambda: va.gather_attention_resid_reference(*inputs),
+                 nbytes(*inputs, r["out"], saves), ops),
+                ("vector_attention_gather_bwd", lambda: va.gather_attention_bwd(*inputs, g),
+                 lambda: va.gather_attention_backward_reference(*inputs, g),
+                 nbytes(*inputs, g, outs), 3 * ops),
+                ("vector_attention_resid_bwd",
+                 lambda: va.gather_attention_resid_bwd(idx, rel, w, saves, g),
+                 lambda: va.gather_attention_resid_backward_reference(idx, rel, w, saves, g),
+                 nbytes(idx, rel, w, saves, g, outs), 2 * ops)]
+            for (name, kernel, plain, moved, work), key in zip(
+                    cases, ("fwd", "resid_fwd", "bwd", "resid_bwd")):
+                times = timed(torch, kernel, plain, iters=5)
+                report[name] = point_report(name, r["abs"][key], times, moved, work, "", iters=5,
+                                            peak=PEAK_BF16)
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            print(f"vector_attention bf16 level 0: peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (kernels and plain "
+                  "versions, the saves kept)")
+        del r
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_attention_route(torch):
+    """Attention outside the mhsa kernels' gate on the card: a ViT block at 2049
+    tokens (deit_base width, 3 heads) takes the layered route with the plain
+    attention, counted, and matches the CPU's plain path, forward and gradients."""
+    from simple3dformer_tpu_torch.kernels import mhsa as mk
+    from simple3dformer_tpu_torch.nn.layers import Attention, Block
+
+    torch.manual_seed(0)
+    blk = Block(768, 3)
+    cuda_blk = copy.deepcopy(blk).cuda()
+    x = torch.randn(1, 2049, 768)
+    route, why = cuda_blk.route(x), cuda_blk.attn.kernel_unsupported(x)
+    before = (Attention.plain_calls, mk.mhsa_fwd.launches, mk.mhsa_bwd.launches)
+    out = cuda_blk(x.cuda())
+    got = torch.autograd.grad(out.square().sum(), list(cuda_blk.parameters()))
+    torch.cuda.synchronize()
+    after = (Attention.plain_calls, mk.mhsa_fwd.launches, mk.mhsa_bwd.launches)
+    want_out = blk(x)
+    want = torch.autograd.grad(want_out.square().sum(), list(blk.parameters()))
+    out, want_out = out.detach(), want_out.detach()
+    out_err = float((out.cpu() - want_out).abs().max()) / float(want_out.abs().max())
+    grad_err = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got, want))
+    print(f"attention outside the mhsa gate: Block(768, 3) at N=2049 on the card: route {route} "
+          f"({why}); plain attention calls {after[0] - before[0]}, mhsa launches "
+          f"{after[1] - before[1]} forward, {after[2] - before[2]} backward; against the CPU: "
+          f"output {out_err:.3e}, gradients {grad_err:.3e} of each one's largest value "
+          "(tolerance 1e-3)")
+    if (route != "layered" or after != (before[0] + 1, before[1], before[2])
+            or out_err > 1e-3 or grad_err > 1e-3):
+        raise AssertionError("attention outside the mhsa gate")
 
 
 def main() -> int:
@@ -1343,7 +1611,10 @@ def main() -> int:
         mhsa_report = phase_mhsa_kernels(torch)
         s3dis_launches = phase_s3dis(torch)
         va_report = phase_va_kernels(torch)
-        hengshuang_launches = phase_hengshuang(torch)
+        hengshuang_launches, _ = phase_hengshuang(torch)
+        vag_report = phase_vag_kernels(torch)
+        bf16_launches, recompute_launches = phase_hengshuang(torch, bf16=True)
+        phase_attention_route(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -1386,6 +1657,15 @@ def main() -> int:
                             source="simple3dformer_tpu_torch/csrc/vector_attention.cu",
                             replaces=f"simple3dformer_tpu/kernels/vector_attention.py:{line}",
                             launches=hengshuang_launches[name], **va_report[name]))
+    # the recompute backward's launches are those of its own path (S3F_VA_RESID=0)
+    for name, line, path in (("vector_attention_gather_fwd", 254, bf16_launches),
+                             ("vector_attention_gather_bwd", 290, recompute_launches),
+                             ("vector_attention_resid_fwd", 689, bf16_launches),
+                             ("vector_attention_resid_bwd", 722, bf16_launches)):
+        kernels.append(dict(name=name, route="cuda",
+                            source="simple3dformer_tpu_torch/csrc/vector_attention.cu",
+                            replaces=f"simple3dformer_tpu/kernels/vector_attention.py:{line}",
+                            launches=path[name], **vag_report[name]))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,9 +3,11 @@ simple3dformer_tpu/cli/_common.py).
 
 Override parsing (``key=value``, ``model=Name``), config loading, the device
 (``device=cuda``, the default, or ``device=cpu``; a run never moves to the CPU
-by itself), the run-dir layout (out_dir/model.name/backbone/pretrained, the
-reference's templated hydra.run.dir), the reference's optimizer block, the
-cls lr schedule, and the epoch timer. There is no device mesh: the port trains on one card.
+by itself), the compute dtype (``dtype=bf16``; the registry refuses the
+models that do not take it), the run-dir layout
+(out_dir/model.name/backbone/pretrained, the reference's templated
+hydra.run.dir), the reference's optimizer block, the cls lr schedule, and
+the epoch timer. There is no device mesh: the port trains on one card.
 """
 
 from __future__ import annotations
@@ -50,14 +52,22 @@ def setup(task: str, argv=None) -> tuple[Config, torch.device]:
     for f in flags:
         if f == "--synthetic":
             cfg.synthetic = 512
-    if str(cfg.get("dtype", "f32")).lower() not in ("", "f32", "float32", "none"):
-        raise NotImplementedError(f"dtype={cfg.dtype} is not ported yet: the point models run "
-                                  "in f32 (their bf16 route comes with a later slice)")
     device = resolve_device(str(cfg.device))
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"devices: 1 | {device} ({kind})")
     print(cfg.to_yaml())
     return cfg, device
+
+
+def compute_dtype(cfg):
+    """cfg.dtype: 'bf16'/'bfloat16' -> torch.bfloat16 compute (the parameters
+    stay f32); 'f32' (the default) -> None."""
+    name = str(cfg.get("dtype", "")).lower()
+    if name in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    if name in ("", "f32", "float32", "none"):
+        return None
+    raise ValueError(f"unknown dtype {name!r}")
 
 
 def run_dir(cfg, task: str) -> str:

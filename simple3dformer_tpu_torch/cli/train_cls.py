@@ -22,8 +22,14 @@ full f32, as the kernels do and as the JAX trainer computes.
 It runs on the card (``device=cuda``, the default) and on the CPU only when
 asked (``device=cpu``). Without the ``modelnet40_normal_resampled`` corpus,
 ``synthetic=N`` (or ``--synthetic``, 512) trains on the JAX trainer's
-synthetic stream: standard-normal clouds and uniform labels. ``dtype=bf16`` is
-not ported yet.
+synthetic stream: standard-normal clouds and uniform labels. ``dtype=bf16``
+(``model=Hengshuang`` only) computes every Linear in bf16 with the parameters
+in f32, as the JAX trainer's ``compute_dtype`` does; the vector-attention
+blocks take the bf16 kernels (``S3F_VA_RESID=0`` picks their recompute
+backward); the loss is taken on the logits in f32 and the checkpoints keep
+the f32 parameters.
+
+    python -m simple3dformer_tpu_torch.cli.train_cls model=Hengshuang dtype=bf16 synthetic=1024
 """
 
 from __future__ import annotations
@@ -76,7 +82,8 @@ def main(argv=None):
     train_ds = DeviceResidentDataset({"x": tr_x, "y": tr_y}, device)
     test_ds = DeviceResidentDataset({"x": te_x, "y": te_y}, device)
 
-    model = make_point_model(cfg, task="cls", generator=generator(int(cfg.seed))).to(device)
+    model = make_point_model(cfg, task="cls", dtype=C.compute_dtype(cfg),
+                             generator=generator(int(cfg.seed))).to(device)
     print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     optimizer, base_lr = C.reference_optimizer(cfg, dict(model.named_parameters()))
     state = TrainState(model, optimizer)

@@ -104,7 +104,8 @@ def main(argv=None):
     train_ds = DeviceResidentDataset({"x": tr_x, "cls": tr_c, "y": tr_s}, device)
     test_ds = DeviceResidentDataset({"x": te_x, "cls": te_c, "y": te_s}, device)
 
-    model = make_point_model(cfg, task="seg", generator=generator(int(cfg.seed))).to(device)
+    model = make_point_model(cfg, task="seg", dtype=C.compute_dtype(cfg),
+                             generator=generator(int(cfg.seed))).to(device)
     print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     optimizer, _ = C.reference_optimizer(cfg, dict(model.named_parameters()))
     state = TrainState(model, optimizer)

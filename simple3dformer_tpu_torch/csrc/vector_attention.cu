@@ -52,10 +52,52 @@
 //
 // Every entry returns the first CUDA error of its launches (0 on success).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// x rounded to the nearest bf16 (ties to even), as a float
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Element types: f32 on the f32 route, bf16 (with f32 scratch) on the bf16 route.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <class T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+// an f32 value as a product's operand on the route whose tensors are of the
+// pointer's type: as it is on the f32 route, rounded to bf16 on the bf16 route
+__device__ __forceinline__ float operand(float x, const float*) { return x; }
+__device__ __forceinline__ float operand(float x, const bf16*) { return bf16r(x); }
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
 
 constexpr int BM = 128, BN = 128, BK = 8, THREADS = 256;
 constexpr int LDS = BM + 4;  // a staged row of 128: 16-byte aligned, conflict-free stores
@@ -64,33 +106,38 @@ constexpr int STAGE_FLOATS = 2 * 2 * BK * LDS;  // A and B, two buffers each
 constexpr size_t STAGE_BYTES = STAGE_FLOATS * sizeof(float);
 constexpr size_t GROUP_BYTES = static_cast<size_t>(BM) * LDE * sizeof(float);
 
-// fc_delta's first layer before the ReLU, the same expression wherever it is
-// formed (the pos GEMM's operand, the wd2 gradient's operand, the g_hd mask)
-__device__ __forceinline__ float hd_pre(const float* rel, const float* w, float b) {
-  return __fadd_rn(fmaf(rel[2], w[2], fmaf(rel[1], w[1], __fmul_rn(rel[0], w[0]))), b);
-}
-
 // ---------------------------------------------------------------------------
 // GEMM operands. Each fills one staged tile S[BK][LDS] with S[kk][m] =
 // element(m0 + m, k0 + kk), zero outside the matrix, in two steps: fetch (device
 // memory to four registers a thread) and put (registers to shared memory).
 // ---------------------------------------------------------------------------
 
-// element (m, k) = p[m * ld + k]: the contraction contiguous (rows of
-// activations, weights as Linear layers hold them). k0 + 8 <= the contraction
-// length, a multiple of 8.
+// what a loader does to its values before they are staged
+enum Load { AS_IS = 0, ROUND = 1, RELU = 2 };
+template <int MODE>
+__device__ __forceinline__ float4 staged(float4 r) {
+  if (MODE == ROUND) return make_float4(bf16r(r.x), bf16r(r.y), bf16r(r.z), bf16r(r.w));
+  if (MODE == RELU)
+    return make_float4(fmaxf(r.x, 0.f), fmaxf(r.y, 0.f), fmaxf(r.z, 0.f), fmaxf(r.w, 0.f));
+  return r;
+}
+
+// element (m, k) = p[m * ld + k] of type T, MODE applied: the contraction
+// contiguous (rows of activations, weights as Linear layers hold them). k0 + 8
+// <= the contraction length, a multiple of 8.
+template <class T = float, int MODE = AS_IS>
 struct KRows {
-  const float* p;
+  const T* p;
   long long ld;
   int m_lim;
   __device__ __forceinline__ void fetch(float4& r, int m0, int k0, int) const {
     const int m = threadIdx.x >> 1, kk = (threadIdx.x & 1) * 4;
-    r = m0 + m < m_lim
-            ? *reinterpret_cast<const float4*>(p + static_cast<long long>(m0 + m) * ld + k0 + kk)
-            : make_float4(0.f, 0.f, 0.f, 0.f);
+    r = m0 + m < m_lim ? load4(p + static_cast<long long>(m0 + m) * ld + k0 + kk)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  __device__ __forceinline__ void put(float* S, const float4& r) const {
+  __device__ __forceinline__ void put(float* S, const float4& v) const {
     const int m = threadIdx.x >> 1, kk = (threadIdx.x & 1) * 4;
+    const float4 r = staged<MODE>(v);
     S[(kk + 0) * LDS + m] = r.x;
     S[(kk + 1) * LDS + m] = r.y;
     S[(kk + 2) * LDS + m] = r.z;
@@ -98,68 +145,84 @@ struct KRows {
   }
 };
 
-// element (m, k) = p[k * ld + m]: the tile's m contiguous (a weight read
-// transposed; the rows of an activation as the contraction of a weight
-// gradient). m_lim is a multiple of 4; rows k at or beyond k_lim read as zero.
+// element (m, k) = p[k * ld + m] of type T, MODE applied: the tile's m
+// contiguous (a weight read transposed; the rows of an activation as the
+// contraction of a weight gradient). m_lim is a multiple of 4; rows k at or
+// beyond k_lim read as zero.
+template <class T = float, int MODE = AS_IS>
 struct MRows {
-  const float* p;
+  const T* p;
   long long ld;
   int m_lim;
   __device__ __forceinline__ void fetch(float4& r, int m0, int k0, int k_lim) const {
     const int kk = threadIdx.x >> 5, m = (threadIdx.x & 31) * 4;
     r = (k0 + kk < k_lim && m0 + m < m_lim)
-            ? *reinterpret_cast<const float4*>(p + static_cast<long long>(k0 + kk) * ld + m0 + m)
+            ? load4(p + static_cast<long long>(k0 + kk) * ld + m0 + m)
             : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   __device__ __forceinline__ void put(float* S, const float4& r) const {
     const int kk = threadIdx.x >> 5, m = (threadIdx.x & 31) * 4;
-    *reinterpret_cast<float4*>(S + kk * LDS + m) = r;
+    *reinterpret_cast<float4*>(S + kk * LDS + m) = staged<MODE>(r);
   }
 };
 
-// hd = relu(hd_pre) computed from rel [R, 3], wd1 [D, 3], bd1 [D].
+// fc_delta's first layer from rel [R, 3] and wd1 [D, 3] of type T, bd1 [D] f32:
+// hd_pre in f32, the same expression wherever it is formed (the pos GEMM's
+// operand, the wd2 gradient's operand, the g_hd mask); hd = relu(hd_pre) as a
+// product's operand (rounded to bf16 on the bf16 route)
+template <class T>
 struct Hd {
-  const float* rel;
-  const float* wd1;
+  const T* rel;
+  const T* wd1;
   const float* bd1;
   int rows, d;
-  __device__ __forceinline__ float at(const float* rr, int i) const {
-    return fmaxf(hd_pre(rr, wd1 + 3 * i, bd1[i]), 0.f);
+  __device__ __forceinline__ void row(long long r, float (&v)[3]) const {
+    v[0] = to_f(rel[3 * r]);
+    v[1] = to_f(rel[3 * r + 1]);
+    v[2] = to_f(rel[3 * r + 2]);
+  }
+  __device__ __forceinline__ float pre(const float (&v)[3], int i) const {
+    const T* w = wd1 + 3 * i;
+    return __fadd_rn(fmaf(v[2], to_f(w[2]), fmaf(v[1], to_f(w[1]), __fmul_rn(v[0], to_f(w[0])))),
+                     bd1[i]);
+  }
+  __device__ __forceinline__ float at(const float (&v)[3], int i) const {
+    return operand(fmaxf(pre(v, i), 0.f), rel);
   }
 };
 
 // hd as the A operand of the pos GEMM: element (m = row, k = channel)
-struct HdByRow : Hd {
+template <class T>
+struct HdByRow : Hd<T> {
   __device__ __forceinline__ void fetch(float4& r, int m0, int k0, int) const {
     const int m = threadIdx.x >> 1, kk = (threadIdx.x & 1) * 4;
-    const int row = m0 + m, i = k0 + kk;
-    if (row < rows) {
-      const float* rr = rel + 3LL * row;
-      r = make_float4(at(rr, i), at(rr, i + 1), at(rr, i + 2), at(rr, i + 3));
+    const int rr = m0 + m, i = k0 + kk;
+    if (rr < this->rows) {
+      float v[3];
+      this->row(rr, v);
+      r = make_float4(this->at(v, i), this->at(v, i + 1), this->at(v, i + 2), this->at(v, i + 3));
     } else {
       r = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  __device__ __forceinline__ void put(float* S, const float4& r) const {
-    KRows{}.put(S, r);
-  }
+  __device__ __forceinline__ void put(float* S, const float4& r) const { KRows<>{}.put(S, r); }
 };
 
 // hd as the B operand of wd2's weight gradient: element (m = channel, k = row)
-struct HdByChannel : Hd {
+template <class T>
+struct HdByChannel : Hd<T> {
   __device__ __forceinline__ void fetch(float4& r, int m0, int k0, int k_lim) const {
     const int kk = threadIdx.x >> 5, m = (threadIdx.x & 31) * 4;
-    const int row = k0 + kk, i = m0 + m;
-    if (row < k_lim && i < d) {
-      const float* rr = rel + 3LL * row;
-      r = make_float4(at(rr, i), at(rr, i + 1), at(rr, i + 2), at(rr, i + 3));
+    const int rr = k0 + kk, i = m0 + m;
+    if (rr < k_lim && i < this->d) {
+      float v[3];
+      this->row(rr, v);
+      r = make_float4(this->at(v, i), this->at(v, i + 1), this->at(v, i + 2), this->at(v, i + 3));
     } else {
       r = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  __device__ __forceinline__ void put(float* S, const float4& r) const {
-    MRows{}.put(S, r);
-  }
+  __device__ __forceinline__ void put(float* S, const float4& r) const { MRows<>{}.put(S, r); }
 };
 
 // A thread's outputs: rows (i < 4 ? 0 : 64) + 4 ty + i % 4 and columns
@@ -176,7 +239,8 @@ __device__ __forceinline__ int col_of(int j) {
 // tiles (blockIdx.x = row tile * ncol + column tile), chunk rows of the
 // contraction per blockIdx.z. SUM_A: the first column tile's blocks also sum A
 // over k for each of its rows (a bias gradient beside a weight gradient).
-template <class OpA, class OpB, class Epi, bool SUM_A>
+// ROUND_A: the products take A rounded to bf16, the sums of A take it as it is.
+template <class OpA, class OpB, class Epi, bool SUM_A, bool ROUND_A = false>
 __global__ void __launch_bounds__(THREADS)
 va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, int chunk) {
   extern __shared__ __align__(16) float smem[];
@@ -222,9 +286,11 @@ va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, in
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i) {
+        const float ai = ROUND_A ? bf16r(av[i]) : av[i];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+      }
       if (sum_a) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) asum[i] = __fadd_rn(asum[i], av[i]);
@@ -242,17 +308,13 @@ va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, in
 
 // ---------------------------------------------------------------------------
 // Epilogues: (acc, asum, has_asum, m0, n0, tile_rows, shared memory). The
-// columns of a row come in runs of 4 (D is a multiple of 8): float4 access.
+// columns of a row come in runs of 4 (D is a multiple of 8): 4-wide access.
+// Each takes its tensors' element types as template arguments: f32 on the f32
+// route, bf16 where the bf16 route keeps bf16.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// pos = acc + bd2; x = q[row / K] - k + pos; u = v + pos
+// pos = acc + bd2; x = q[row / K] - k + pos; u = v + pos (the f32 route: k and
+// v pre-gathered [R, D])
 struct VaEpiPos {
   const float *q, *k, *v, *bd2;
   float *x, *u;
@@ -269,23 +331,27 @@ struct VaEpiPos {
       for (int h = 0; h < 2; ++h) {
         const int c = n0 + col_of(4 * h);
         if (c >= d) continue;
-        const float4 b = ld4(bd2 + c), qv = ld4(q + qo + c), kv = ld4(k + ro + c),
-                     vv = ld4(v + ro + c);
+        const float4 b = load4(bd2 + c), qv = load4(q + qo + c), kv = load4(k + ro + c),
+                     vv = load4(v + ro + c);
         const float p0 = __fadd_rn(acc[i][4 * h + 0], b.x), p1 = __fadd_rn(acc[i][4 * h + 1], b.y),
                     p2 = __fadd_rn(acc[i][4 * h + 2], b.z), p3 = __fadd_rn(acc[i][4 * h + 3], b.w);
-        st4(x + ro + c, __fadd_rn(__fsub_rn(qv.x, kv.x), p0), __fadd_rn(__fsub_rn(qv.y, kv.y), p1),
-            __fadd_rn(__fsub_rn(qv.z, kv.z), p2), __fadd_rn(__fsub_rn(qv.w, kv.w), p3));
-        st4(u + ro + c, __fadd_rn(vv.x, p0), __fadd_rn(vv.y, p1), __fadd_rn(vv.z, p2),
-            __fadd_rn(vv.w, p3));
+        store4(x + ro + c, __fadd_rn(__fsub_rn(qv.x, kv.x), p0),
+               __fadd_rn(__fsub_rn(qv.y, kv.y), p1), __fadd_rn(__fsub_rn(qv.z, kv.z), p2),
+               __fadd_rn(__fsub_rn(qv.w, kv.w), p3));
+        store4(u + ro + c, __fadd_rn(vv.x, p0), __fadd_rn(vv.y, p1), __fadd_rn(vv.z, p2),
+               __fadd_rn(vv.w, p3));
       }
     }
   }
 };
 
-// hg = relu(acc + bg1)
-struct VaEpiBiasRelu {
+// hg = acc + bias to out of type TO, through the ReLU where WITH_RELU (the f32
+// route keeps relu(hg); the bf16 route keeps hg_pre and takes the ReLU where it
+// reads it)
+template <class TO, bool WITH_RELU>
+struct VaEpiBias {
   const float* bias;
-  float* out;
+  TO* out;
   int rows, d;
   __device__ void operator()(float (&acc)[8][8], float (&)[8], bool, int m0, int n0, int,
                              float*) const {
@@ -297,12 +363,14 @@ struct VaEpiBiasRelu {
       for (int h = 0; h < 2; ++h) {
         const int c = n0 + col_of(4 * h);
         if (c >= d) continue;
-        const float4 b = ld4(bias + c);
-        st4(out + static_cast<long long>(r) * d + c,
-            fmaxf(__fadd_rn(acc[i][4 * h + 0], b.x), 0.f),
-            fmaxf(__fadd_rn(acc[i][4 * h + 1], b.y), 0.f),
-            fmaxf(__fadd_rn(acc[i][4 * h + 2], b.z), 0.f),
-            fmaxf(__fadd_rn(acc[i][4 * h + 3], b.w), 0.f));
+        const float4 b = load4(bias + c);
+        float v[4] = {__fadd_rn(acc[i][4 * h + 0], b.x), __fadd_rn(acc[i][4 * h + 1], b.y),
+                      __fadd_rn(acc[i][4 * h + 2], b.z), __fadd_rn(acc[i][4 * h + 3], b.w)};
+        if (WITH_RELU) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = fmaxf(v[j], 0.f);
+        }
+        store4(out + static_cast<long long>(r) * d + c, v[0], v[1], v[2], v[3]);
       }
     }
   }
@@ -322,19 +390,23 @@ __device__ __forceinline__ void to_group_tile(float (&acc)[8][8], int n0, int ti
     for (int h = 0; h < 2; ++h) {
       const int cl = col_of(4 * h);
       if (n0 + cl >= d) continue;
-      st4(E + rl * LDE + cl, value(acc[i][4 * h + 0], n0 + cl + 0),
-          value(acc[i][4 * h + 1], n0 + cl + 1), value(acc[i][4 * h + 2], n0 + cl + 2),
-          value(acc[i][4 * h + 3], n0 + cl + 3));
+      store4(E + rl * LDE + cl, value(acc[i][4 * h + 0], n0 + cl + 0),
+             value(acc[i][4 * h + 1], n0 + cl + 1), value(acc[i][4 * h + 2], n0 + cl + 2),
+             value(acc[i][4 * h + 3], n0 + cl + 3));
     }
   }
   __syncthreads();
 }
 
 // z = (acc + bg2) * scale; per point and channel: a = softmax of z over its K
-// rows (written when a is kept), out = sum over the K rows of a * u
+// rows, out = sum over the K rows of a * u (u f32), stored as TO; kept where
+// not null: a in f32 (a32) or bf16 (a16), u in bf16 (u16)
+template <class TO>
 struct VaEpiSoftmax {
   const float *bg2, *u;
-  float *a, *out;
+  float* a32;
+  bf16 *a16, *u16;
+  TO* out;
   int npts, d, kk;
   float scale;
   __device__ void operator()(float (&acc)[8][8], float (&)[8], bool, int m0, int n0,
@@ -359,18 +431,21 @@ struct VaEpiSoftmax {
       const long long r0 = static_cast<long long>(pt) * kk;
       for (int j = 0; j < kk; ++j) {
         const long long off = (r0 + j) * d + col;
-        const float aw = __fdiv_rn(e[j * LDE], sum);
-        if (a != nullptr) a[off] = aw;
-        o = __fadd_rn(o, __fmul_rn(aw, u[off]));
+        const float aw = __fdiv_rn(e[j * LDE], sum), uv = u[off];
+        if (a32 != nullptr) a32[off] = aw;
+        if (a16 != nullptr) a16[off] = __float2bfloat16_rn(aw);
+        if (u16 != nullptr) u16[off] = __float2bfloat16_rn(uv);
+        o = __fadd_rn(o, __fmul_rn(aw, uv));
       }
-      out[static_cast<long long>(pt) * d + col] = o;
+      out[static_cast<long long>(pt) * d + col] = from_f<TO>(o);
     }
   }
 };
 
-// out = acc where mask > 0 (ReLU's backward through relu(hg) > 0), else 0
+// out = acc where mask (of type TM: relu(hg) or hg_pre) > 0, else 0 (ReLU's backward)
+template <class TM>
 struct VaEpiMask {
-  const float* mask;
+  const TM* mask;
   float* out;
   int rows, d;
   __device__ void operator()(float (&acc)[8][8], float (&)[8], bool, int m0, int n0, int,
@@ -384,19 +459,42 @@ struct VaEpiMask {
       for (int h = 0; h < 2; ++h) {
         const int c = n0 + col_of(4 * h);
         if (c >= d) continue;
-        const float4 mk = ld4(mask + ro + c);
-        st4(out + ro + c, mk.x > 0.f ? acc[i][4 * h + 0] : 0.f,
-            mk.y > 0.f ? acc[i][4 * h + 1] : 0.f, mk.z > 0.f ? acc[i][4 * h + 2] : 0.f,
-            mk.w > 0.f ? acc[i][4 * h + 3] : 0.f);
+        const float4 mk = load4(mask + ro + c);
+        store4(out + ro + c, mk.x > 0.f ? acc[i][4 * h + 0] : 0.f,
+               mk.y > 0.f ? acc[i][4 * h + 1] : 0.f, mk.z > 0.f ? acc[i][4 * h + 2] : 0.f,
+               mk.w > 0.f ? acc[i][4 * h + 3] : 0.f);
       }
     }
   }
 };
 
-// g_x = acc: gk = -g_x, g_pos = g_x + gv, gq[point] = sum over its K rows of g_x
-struct VaEpiGx {
+// the value gradient of a row (offset ro) of a point (offset go), 4 channels
+// from c: read from gv [R, D] (the f32 route, from the softmax backward) ...
+struct GvRows {
   const float* gv;
-  float *gk, *gpos, *gq;
+  __device__ __forceinline__ float4 at(long long ro, long long, int c) const {
+    return load4(gv + ro + c);
+  }
+};
+// ... or formed as a g from a [R, D] of type TR and g [npts, D] bf16 (the bf16 route)
+template <class TR>
+struct GvProduct {
+  const TR* a;
+  const bf16* g;
+  __device__ __forceinline__ float4 at(long long ro, long long go, int c) const {
+    const float4 av = load4(a + ro + c), gv = load4(g + go + c);
+    return make_float4(__fmul_rn(av.x, gv.x), __fmul_rn(av.y, gv.y), __fmul_rn(av.z, gv.z),
+                       __fmul_rn(av.w, gv.w));
+  }
+};
+
+// g_x = acc: gk = -g_x and gq[point] = sum over its K rows of g_x, stored as TK;
+// g_pos = g_x + gv (f32)
+template <class GV, class TK>
+struct VaEpiGx {
+  GV gv;
+  TK *gk, *gq;
+  float* gpos;
   int npts, d, kk;
   __device__ void operator()(float (&acc)[8][8], float (&)[8], bool, int m0, int n0,
                              int tile_rows, float* E) const {
@@ -406,16 +504,17 @@ struct VaEpiGx {
       const int rl = row_of(i), r = m0 + rl;
       if (rl >= tile_rows || r >= rows) continue;
       const long long ro = static_cast<long long>(r) * d;
+      const long long go = static_cast<long long>(r / kk) * d;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = n0 + col_of(4 * h);
         if (c >= d) continue;
-        const float4 g = ld4(gv + ro + c);
+        const float4 g = gv.at(ro, go, c);
         const float s0 = acc[i][4 * h + 0], s1 = acc[i][4 * h + 1], s2 = acc[i][4 * h + 2],
                     s3 = acc[i][4 * h + 3];
-        st4(gk + ro + c, -s0, -s1, -s2, -s3);
-        st4(gpos + ro + c, __fadd_rn(s0, g.x), __fadd_rn(s1, g.y), __fadd_rn(s2, g.z),
-            __fadd_rn(s3, g.w));
+        store4(gk + ro + c, -s0, -s1, -s2, -s3);
+        store4(gpos + ro + c, __fadd_rn(s0, g.x), __fadd_rn(s1, g.y), __fadd_rn(s2, g.z),
+               __fadd_rn(s3, g.w));
       }
     }
     to_group_tile(acc, n0, tile_rows, d, E, [](float s, int) { return s; });
@@ -427,14 +526,15 @@ struct VaEpiGx {
       const float* e = E + p * kk * LDE + c;
       float s = 0.f;
       for (int j = 0; j < kk; ++j) s = __fadd_rn(s, e[j * LDE]);
-      gq[static_cast<long long>(pt) * d + col] = s;
+      gq[static_cast<long long>(pt) * d + col] = from_f<TK>(s);
     }
   }
 };
 
 // g_hd = acc where hd_pre(row, channel) > 0, else 0
+template <class T>
 struct VaEpiHdMask {
-  Hd hd;
+  Hd<T> hd;
   float* out;
   __device__ void operator()(float (&acc)[8][8], float (&)[8], bool, int m0, int n0, int,
                              float*) const {
@@ -442,13 +542,13 @@ struct VaEpiHdMask {
     for (int i = 0; i < 8; ++i) {
       const int r = m0 + row_of(i);
       if (r >= hd.rows) continue;
-      const float* rr = hd.rel + 3LL * r;
+      float v[3];
+      hd.row(r, v);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = n0 + col_of(j);
         if (c >= hd.d) continue;
-        const float pre = hd_pre(rr, hd.wd1 + 3 * c, hd.bd1[c]);
-        out[static_cast<long long>(r) * hd.d + c] = pre > 0.f ? acc[i][j] : 0.f;
+        out[static_cast<long long>(r) * hd.d + c] = hd.pre(v, c) > 0.f ? acc[i][j] : 0.f;
       }
     }
   }
@@ -470,8 +570,8 @@ struct VaEpiPartial {
       for (int h = 0; h < 2; ++h) {
         const int c = n0 + col_of(4 * h);
         if (c >= n) continue;
-        st4(w + static_cast<long long>(o) * n + c, acc[i][4 * h + 0], acc[i][4 * h + 1],
-            acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        store4(w + static_cast<long long>(o) * n + c, acc[i][4 * h + 0], acc[i][4 * h + 1],
+               acc[i][4 * h + 2], acc[i][4 * h + 3]);
       }
       if (has_asum) w[static_cast<long long>(m) * n + o] = asum[i];
     }
@@ -488,47 +588,50 @@ __global__ void va_sum_chunks_kernel(const float* __restrict__ partial, int chun
   out[e] = s;
 }
 
-// the softmax backward, one thread per (point, channel): gv = a g,
-// gl = a (g u - sum_K(a g u)) * scale
-__global__ void va_softmax_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a,
-                                   const float* __restrict__ u, float* __restrict__ gl,
-                                   float* __restrict__ gv, int npts, int kk, int d, float scale) {
+// the softmax backward, one thread per (point, channel): gl = a (g u - sum_K(a g
+// u)) * scale, and gv = a g where gv is not null; g of type TG, u and a of type TR
+template <class TG, class TR>
+__global__ void va_softmax_bwd_kernel(const TG* __restrict__ g, const TR* __restrict__ a,
+                                      const TR* __restrict__ u, float* __restrict__ gl,
+                                      float* __restrict__ gv, int npts, int kk, int d,
+                                      float scale) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= static_cast<long long>(npts) * d) return;
   const long long pt = e / d;
   const int c = static_cast<int>(e % d);
-  const float gval = g[e];
+  const float gval = to_f(g[e]);
   const long long r0 = pt * kk;
   float s = 0.f;
   for (int j = 0; j < kk; ++j) {
     const long long off = (r0 + j) * d + c;
-    s = __fadd_rn(s, __fmul_rn(a[off], __fmul_rn(gval, u[off])));
+    s = __fadd_rn(s, __fmul_rn(to_f(a[off]), __fmul_rn(gval, to_f(u[off]))));
   }
   for (int j = 0; j < kk; ++j) {
     const long long off = (r0 + j) * d + c;
-    const float aw = a[off];
-    const float ga = __fmul_rn(gval, u[off]);
+    const float aw = to_f(a[off]);
+    const float ga = __fmul_rn(gval, to_f(u[off]));
     gl[off] = __fmul_rn(__fmul_rn(aw, __fsub_rn(ga, s)), scale);
-    gv[off] = __fmul_rn(aw, gval);
+    if (gv != nullptr) gv[off] = __fmul_rn(aw, gval);
   }
 }
 
 // fc_delta's first layer backward, the weight side: per chunk of rows and per
-// channel o, sum of g_hd[r, o] rel[r, j] (j < 3) and of g_hd[r, o], to
-// partial[chunk][o][4]
-__global__ void va_rel_wgrad_kernel(const float* __restrict__ ghd, const float* __restrict__ rel,
-                                 int rows, int d, int chunk, float* __restrict__ partial) {
+// channel o, sum of g_hd[r, o] rel[r, j] (j < 3; g_hd as a product's operand)
+// and of g_hd[r, o], to partial[chunk][o][4]
+template <class T>
+__global__ void va_rel_wgrad_kernel(const float* __restrict__ ghd, const T* __restrict__ rel,
+                                    int rows, int d, int chunk, float* __restrict__ partial) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= d) return;
   const int r0 = blockIdx.y * chunk, r1 = min(r0 + chunk, rows);
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, sb = 0.f;
 #pragma unroll 4
   for (int r = r0; r < r1; ++r) {
-    const float gh = ghd[static_cast<long long>(r) * d + o];
-    const float* rr = rel + 3LL * r;
-    s0 = fmaf(gh, rr[0], s0);
-    s1 = fmaf(gh, rr[1], s1);
-    s2 = fmaf(gh, rr[2], s2);
+    const float gh = ghd[static_cast<long long>(r) * d + o], gho = operand(gh, rel);
+    const T* rr = rel + 3LL * r;
+    s0 = fmaf(gho, to_f(rr[0]), s0);
+    s1 = fmaf(gho, to_f(rr[1]), s1);
+    s2 = fmaf(gho, to_f(rr[2]), s2);
     sb = __fadd_rn(sb, gh);
   }
   float* p = partial + (static_cast<long long>(blockIdx.y) * d + o) * 4;
@@ -553,19 +656,20 @@ __global__ void va_rel_wgrad_sum_kernel(const float* __restrict__ partial, int c
   gbd1[o] = s[3];
 }
 
-// grel[r, j] = sum over o of g_hd[r, o] wd1[o, j]: one warp a row, lanes over o,
-// a fixed shuffle tree
-__global__ void va_rel_grad_kernel(const float* __restrict__ ghd, const float* __restrict__ wd1,
-                                int rows, int d, float* __restrict__ grel) {
+// grel[r, j] = sum over o of g_hd[r, o] wd1[o, j] (g_hd as a product's operand),
+// stored as T: one warp a row, lanes over o, a fixed shuffle tree
+template <class T>
+__global__ void va_rel_grad_kernel(const float* __restrict__ ghd, const T* __restrict__ wd1,
+                                   int rows, int d, T* __restrict__ grel) {
   const long long r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
   for (int o = lane; o < d; o += 32) {
-    const float gh = ghd[r * d + o];
-    s0 = fmaf(gh, wd1[3 * o + 0], s0);
-    s1 = fmaf(gh, wd1[3 * o + 1], s1);
-    s2 = fmaf(gh, wd1[3 * o + 2], s2);
+    const float gh = operand(ghd[r * d + o], wd1);
+    s0 = fmaf(gh, to_f(wd1[3 * o + 0]), s0);
+    s1 = fmaf(gh, to_f(wd1[3 * o + 1]), s1);
+    s2 = fmaf(gh, to_f(wd1[3 * o + 2]), s2);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -574,9 +678,9 @@ __global__ void va_rel_grad_kernel(const float* __restrict__ ghd, const float* _
     s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, off));
   }
   if (lane == 0) {
-    grel[3 * r + 0] = s0;
-    grel[3 * r + 1] = s1;
-    grel[3 * r + 2] = s2;
+    grel[3 * r + 0] = from_f<T>(s0);
+    grel[3 * r + 1] = from_f<T>(s1);
+    grel[3 * r + 2] = from_f<T>(s2);
   }
 }
 
@@ -599,15 +703,16 @@ int gemm(OpA a, OpB b, Epi epi, int rows, int tile_rows, int n, int k_len, size_
 }
 
 // a weight gradient g^T x over `rows` rows in chunks, and the bias gradient, then
-// the chunk sums in order: gw [d, n], gb [d]
-template <class OpX>
+// the chunk sums in order: gw [d, n], gb [d]. ROUND_A: the products take g
+// rounded to bf16, the bias gradient sums g as it is.
+template <class OpX, bool ROUND_A = false>
 int wgrad(const float* g, OpX x, int rows, int d, int n, int chunk, float* partial, float* gw,
           float* gb, cudaStream_t stream) {
-  auto kernel = va_gemm_kernel<MRows, OpX, VaEpiPartial, true>;
+  auto kernel = va_gemm_kernel<MRows<>, OpX, VaEpiPartial, true, ROUND_A>;
   const int chunks = (rows + chunk - 1) / chunk;
   const int ncol = (n + BN - 1) / BN, nrow = (d + BM - 1) / BM;
   kernel<<<dim3(nrow * ncol, 1, chunks), THREADS, STAGE_BYTES, stream>>>(
-      MRows{g, d, d}, x, VaEpiPartial{partial, d, n}, BM, ncol, rows, chunk);
+      MRows<>{g, d, d}, x, VaEpiPartial{partial, d, n}, BM, ncol, rows, chunk);
   int err = static_cast<int>(cudaGetLastError());
   const long long stride = static_cast<long long>(d) * n + d;
   const long long nw = static_cast<long long>(d) * n;
@@ -616,6 +721,253 @@ int wgrad(const float* g, OpX x, int rows, int d, int n, int chunk, float* parti
   err = first_error(err);
   va_sum_chunks_kernel<<<(d + 255) / 256, 256, 0, stream>>>(partial + nw, chunks, stride, d, gb);
   return first_error(err);
+}
+
+
+// ===========================================================================
+// The bf16 route: the in-kernel-gather chain (fused_vector_attention, its
+// forward _fwd_kernel :123 at pallas_call :254 and recompute backward
+// _bwd_kernel :137 at :290) and its residual-saving pair
+// (fused_vector_attention_resid: _fwd_kernel_res :572 at :689, _bwd_kernel_res
+// :590 at :722). q, k_all, v_all [B*N, D] bf16, idx [B*N*K] int32 (a point of
+// the same batch element), rel [R, 3] bf16; the four weight matrices arrive
+// rounded to bf16 (wd1 [D, 3], wd2, wg1, wg2 [D, D], Linear layout), the
+// biases in f32.
+//
+// The TPU kernel's precision policy, exactly: every product takes operands
+// rounded to bf16 and sums in f32 (a bf16 x bf16 product is exact in f32, so
+// the f32 FMA core computes it: the loaders round, the accumulators stay f32);
+// biases, ReLU, softmax, x = q - k + pos and u = v + pos are f32; out is
+// rounded once at the end. k and v rows are read by index in the pos GEMM's
+// epilogue (nothing [B, N, K, D] is an input); an index outside [0, N) reads a
+// zero row and scatters nowhere, as the one-hot product does. The operands,
+// epilogues and helper kernels are the f32 route's, instantiated with bf16
+// element types; only the by-index pos epilogue, the inverse index and the
+// scatter are the bf16 route's own.
+//
+// Forward (three GEMMs, as the f32 route): x and hg_pre are written in bf16
+// (exact for what reads them: the next GEMM's operand and the ReLU's sign), u
+// in f32 for the sum over K. Training keeps x, u, hg_pre and a in bf16 (the
+// _resid saves); the recompute backward runs the forward keeping u and a in
+// f32. Backward: the f32 route's steps with rounded operands; the bias
+// gradients sum the f32 values, the weight gradients their bf16 roundings.
+// gk_all and gv_all sum the rounded row gradients bf16(-g_x) and bf16(a g) of
+// every (point, neighbour) row that names a point: an inverse index (a stable
+// counting sort of idx per batch element, integer counts only) then a sum over
+// each point's rows in row order. No float atomics: reruns give the same bits.
+// ===========================================================================
+
+// pos = acc + bd2; k, v = rows idx[r] of k_all, v_all; x = bf16((q - k) + pos),
+// u = v + pos (f32)
+struct VagEpiPos {
+  const bf16 *q, *kall, *vall;
+  const int* idx;
+  const float* bd2;
+  bf16* x;
+  float* u;
+  int rows, d, kk, n;
+  __device__ void operator()(float (&acc)[8][8], float (&)[8], bool, int m0, int n0, int,
+                             float*) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = m0 + row_of(i);
+      if (r >= rows) continue;
+      const long long ro = static_cast<long long>(r) * d;
+      const int pt = r / kk, j = idx[r];
+      const bool in = j >= 0 && j < n;
+      const long long qo = static_cast<long long>(pt) * d;
+      const long long so = (static_cast<long long>(pt / n) * n + (in ? j : 0)) * d;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = n0 + col_of(4 * h);
+        if (c >= d) continue;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 b = load4(bd2 + c), qv = load4(q + qo + c),
+                     kv = in ? load4(kall + so + c) : zero, vv = in ? load4(vall + so + c) : zero;
+        const float p0 = __fadd_rn(acc[i][4 * h + 0], b.x), p1 = __fadd_rn(acc[i][4 * h + 1], b.y),
+                    p2 = __fadd_rn(acc[i][4 * h + 2], b.z), p3 = __fadd_rn(acc[i][4 * h + 3], b.w);
+        store4(x + ro + c, __fadd_rn(__fsub_rn(qv.x, kv.x), p0),
+               __fadd_rn(__fsub_rn(qv.y, kv.y), p1), __fadd_rn(__fsub_rn(qv.z, kv.z), p2),
+               __fadd_rn(__fsub_rn(qv.w, kv.w), p3));
+        store4(u + ro + c, __fadd_rn(vv.x, p0), __fadd_rn(vv.y, p1), __fadd_rn(vv.z, p2),
+               __fadd_rn(vv.w, p3));
+      }
+    }
+  }
+};
+
+// The inverse of idx per batch element (one block each): start [n + 1] (the
+// first slot of each point) and perm [nk] (the rows naming each point, in row
+// order), from integer counts in cnt [n]. The placement runs in one warp, 32
+// rows at a time in row order: equal points among them take slots by lane.
+__global__ void vag_inverse_kernel(const int* __restrict__ idx, int n, int nk, int* cnt_all,
+                                   int* __restrict__ start_all, int* __restrict__ perm_all) {
+  const int b = blockIdx.x;
+  const int* ib = idx + static_cast<long long>(b) * nk;
+  int* cnt_w = cnt_all + static_cast<long long>(b) * n;
+  volatile int* cnt = cnt_w;
+  int* start = start_all + static_cast<long long>(b) * (n + 1);
+  int* perm = perm_all + static_cast<long long>(b) * nk;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) cnt[j] = 0;
+  __syncthreads();
+  for (int r = threadIdx.x; r < nk; r += blockDim.x) {
+    const int j = ib[r];
+    if (j >= 0 && j < n) atomicAdd(cnt_w + j, 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int j = 0; j < n; ++j) {
+      const int c = cnt[j];
+      start[j] = s;
+      cnt[j] = s;
+      s += c;
+    }
+    start[n] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  for (int r0 = 0; r0 < nk; r0 += 32) {
+    const int r = r0 + lane;
+    const int j = r < nk ? ib[r] : -1;
+    const bool in = j >= 0 && j < n;
+    const int key = in ? j : -1 - lane;  // a key of its own for a row that scatters nowhere
+    const unsigned same = __match_any_sync(0xffffffffu, key);
+    const int rank = __popc(same & ((1u << lane) - 1u));
+    const int slot = in ? cnt[j] + rank : 0;
+    __syncwarp();
+    if (in && rank == 0) cnt[j] = slot + __popc(same);
+    __syncwarp();
+    if (in) perm[slot] = r;
+  }
+}
+
+// gk_all, gv_all [B*N, D] bf16: for each point and pair of channels, the f32
+// sum in row order over the rows naming the point of gkr (bf16(-g_x)) and of
+// bf16(a g), rounded to bf16
+template <class TR>
+__global__ void vag_scatter_kernel(const bf16* __restrict__ gkr, const TR* __restrict__ a,
+                                   const bf16* __restrict__ g, const int* __restrict__ start_all,
+                                   const int* __restrict__ perm_all, int npts, int n, int kk,
+                                   int d, bf16* __restrict__ gk, bf16* __restrict__ gv) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int half = d / 2;
+  if (e >= static_cast<long long>(npts) * half) return;
+  const long long tgt = e / half;
+  const int c = static_cast<int>(e % half) * 2;
+  const int b = static_cast<int>(tgt / n), j = static_cast<int>(tgt % n);
+  const int* start = start_all + static_cast<long long>(b) * (n + 1);
+  const int* perm = perm_all + static_cast<long long>(b) * n * kk;
+  float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
+  for (int t = start[j]; t < start[j + 1]; ++t) {
+    const long long r = static_cast<long long>(b) * n * kk + perm[t];
+    const long long ro = r * d + c, go = (r / kk) * d + c;
+    const float2 kr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gkr + ro));
+    k0 = __fadd_rn(k0, kr.x);
+    k1 = __fadd_rn(k1, kr.y);
+    v0 = __fadd_rn(v0, bf16r(__fmul_rn(to_f(a[ro]), __bfloat162float(g[go]))));
+    v1 = __fadd_rn(v1, bf16r(__fmul_rn(to_f(a[ro + 1]), __bfloat162float(g[go + 1]))));
+  }
+  const long long o = tgt * d + c;
+  *reinterpret_cast<__nv_bfloat162*>(gk + o) = __floats2bfloat162_rn(k0, k1);
+  *reinterpret_cast<__nv_bfloat162*>(gv + o) = __floats2bfloat162_rn(v0, v1);
+}
+
+// the forward: x16, hgp16 [R, D] bf16 and u32 [R, D] f32 always written (kept
+// or scratch); a32, a16, u16 where not null; out16 [npts, D]
+int vag_forward(const bf16* q, const bf16* kall, const bf16* vall, const int* idx,
+                const bf16* rel, const bf16* const* wh, const float* const* bias, bf16* x16,
+                bf16* hgp16, float* u32, float* a32, bf16* a16, bf16* u16, bf16* out16,
+                int npts, int n, int kk, int d, cudaStream_t stream) {
+  const int rows = npts * kk;
+  const Hd<bf16> hd{rel, wh[0], bias[0], rows, d};
+  int err = gemm(HdByRow<bf16>{hd}, KRows<bf16>{wh[1], d, d},
+                 VagEpiPos{q, kall, vall, idx, bias[1], x16, u32, rows, d, kk, n}, rows, BM, d,
+                 d, STAGE_BYTES, stream);
+  if (!err)
+    err = gemm(KRows<bf16>{x16, d, rows}, KRows<bf16>{wh[2], d, d},
+               VaEpiBias<bf16, false>{bias[2], hgp16, rows, d}, rows, BM, d, d, STAGE_BYTES,
+               stream);
+  const int tile_rows = (BM / kk) * kk;
+  if (!err)
+    err = gemm(KRows<bf16, RELU>{hgp16, d, rows}, KRows<bf16>{wh[3], d, d},
+               VaEpiSoftmax<bf16>{bias[3], u32, a32, a16, u16, out16, npts, d, kk,
+                                  1.0f / sqrtf(static_cast<float>(d))},
+               rows, tile_rows, d, d, GROUP_BYTES, stream);
+  return err;
+}
+
+// the backward from x16, hgp16 and u, a of type TR (f32 from the recompute,
+// bf16 from the saves); s1, s2 [R, D] f32 and gkr [R, D] bf16 scratch; ints:
+// cnt [B*N], start [B*(N+1)], perm [R]
+template <class TR>
+int vag_backward(const int* idx, const bf16* rel, const bf16* const* wh,
+                 const float* const* bias, const bf16* x16, const bf16* hgp16, const TR* u,
+                 const TR* a, const bf16* g, bf16* gq, bf16* gk, bf16* gv, bf16* grel,
+                 float* const* gw, float* s1, float* s2, bf16* gkr, float* partial, int* ints,
+                 int npts, int n, int kk, int d, int chunk, cudaStream_t stream) {
+  const int rows = npts * kk;
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
+  const Hd<bf16> hd{rel, wh[0], bias[0], rows, d};
+  const int tile_rows = (BM / kk) * kk;
+  const long long elems = static_cast<long long>(npts) * d;
+  int err = 0;
+  // gl -> s1
+  va_softmax_bwd_kernel<bf16, TR><<<static_cast<unsigned>((elems + 255) / 256), 256, 0, stream>>>(
+      g, a, u, s1, nullptr, npts, kk, d, scale);
+  err = first_error(err);
+  // gwg2 = bf16(gl)^T relu(hg_pre), gbg2; g_hg = (bf16(gl) wg2) [hg_pre > 0] -> s2
+  if (!err)
+    err = wgrad<MRows<bf16, RELU>, true>(s1, MRows<bf16, RELU>{hgp16, d, d}, rows, d, d, chunk,
+                                         partial, gw[6], gw[7], stream);
+  if (!err)
+    err = gemm(KRows<float, ROUND>{s1, d, rows}, MRows<bf16>{wh[3], d, d},
+               VaEpiMask<bf16>{hgp16, s2, rows, d}, rows, BM, d, d, STAGE_BYTES, stream);
+  // gwg1 = bf16(g_hg)^T x, gbg1; g_x = bf16(g_hg) wg1: gkr, g_pos -> s1, gq
+  if (!err)
+    err = wgrad<MRows<bf16>, true>(s2, MRows<bf16>{x16, d, d}, rows, d, d, chunk, partial, gw[4],
+                                   gw[5], stream);
+  if (!err)
+    err = gemm(KRows<float, ROUND>{s2, d, rows}, MRows<bf16>{wh[2], d, d},
+               VaEpiGx<GvProduct<TR>, bf16>{GvProduct<TR>{a, g}, gkr, gq, s1, npts, d, kk}, rows,
+               tile_rows, d, d, GROUP_BYTES, stream);
+  // gwd2 = bf16(g_pos)^T hd, gbd2; g_hd = (bf16(g_pos) wd2) [hd_pre > 0] -> s2
+  if (!err)
+    err = wgrad<HdByChannel<bf16>, true>(s1, HdByChannel<bf16>{hd}, rows, d, d, chunk, partial,
+                                         gw[2], gw[3], stream);
+  if (!err)
+    err = gemm(KRows<float, ROUND>{s1, d, rows}, MRows<bf16>{wh[1], d, d},
+               VaEpiHdMask<bf16>{hd, s2}, rows, BM, d, d, STAGE_BYTES, stream);
+  // gwd1 = bf16(g_hd)^T rel, gbd1; grel = bf16(bf16(g_hd) wd1)
+  const int rel_chunk = chunk / 8, rel_chunks = (rows + rel_chunk - 1) / rel_chunk;
+  if (!err) {
+    va_rel_wgrad_kernel<bf16><<<dim3((d + 127) / 128, rel_chunks), 128, 0, stream>>>(
+        s2, rel, rows, d, rel_chunk, partial);
+    err = first_error(err);
+    va_rel_wgrad_sum_kernel<<<(d + 127) / 128, 128, 0, stream>>>(partial, rel_chunks, d, gw[0],
+                                                                 gw[1]);
+    err = first_error(err);
+  }
+  if (!err && grel != nullptr) {
+    const unsigned blocks = static_cast<unsigned>((static_cast<long long>(rows) * 32 + 255) / 256);
+    va_rel_grad_kernel<bf16><<<blocks, 256, 0, stream>>>(s2, wh[0], rows, d, grel);
+    err = first_error(err);
+  }
+  // gk_all, gv_all through the inverse index
+  const int b = npts / n;
+  int* cnt = ints;
+  int* start = cnt + static_cast<long long>(b) * n;
+  int* perm = start + static_cast<long long>(b) * (n + 1);
+  if (!err) {
+    vag_inverse_kernel<<<b, 256, 0, stream>>>(idx, n, n * kk, cnt, start, perm);
+    err = first_error(err);
+    const long long pairs = static_cast<long long>(npts) * (d / 2);
+    vag_scatter_kernel<TR><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
+        gkr, a, g, start, perm, npts, n, kk, d, gk, gv);
+    err = first_error(err);
+  }
+  return err;
 }
 
 }  // namespace
@@ -630,18 +982,19 @@ int s3f_va_fwd(const float* q, const float* k, const float* v, const float* rel,
                int npts, int kk, int d, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = npts * kk;
-  const Hd hd{rel, w[0], w[1], rows, d};
+  const Hd<float> hd{rel, w[0], w[1], rows, d};
   if (npts <= 0) return 0;
-  int err = gemm(HdByRow{hd}, KRows{w[2], d, d},
+  int err = gemm(HdByRow<float>{hd}, KRows<>{w[2], d, d},
                  VaEpiPos{q, k, v, w[3], x, u, rows, d, kk}, rows, BM, d, d, STAGE_BYTES, stream);
   err = first_error(err);
   if (!err)
-    err = gemm(KRows{x, d, rows}, KRows{w[4], d, d}, VaEpiBiasRelu{w[5], hg, rows, d}, rows, BM, d,
-               d, STAGE_BYTES, stream);
+    err = gemm(KRows<>{x, d, rows}, KRows<>{w[4], d, d}, VaEpiBias<float, true>{w[5], hg, rows, d},
+               rows, BM, d, d, STAGE_BYTES, stream);
   const int tile_rows = (BM / kk) * kk;
   if (!err)
-    err = gemm(KRows{hg, d, rows}, KRows{w[6], d, d},
-               VaEpiSoftmax{w[7], u, a, out, npts, d, kk, 1.0f / sqrtf(static_cast<float>(d))},
+    err = gemm(KRows<>{hg, d, rows}, KRows<>{w[6], d, d},
+               VaEpiSoftmax<float>{w[7], u, a, nullptr, nullptr, out, npts, d, kk,
+                                   1.0f / sqrtf(static_cast<float>(d))},
                rows, tile_rows, d, d, GROUP_BYTES, stream);
   return err;
 }
@@ -658,36 +1011,38 @@ int s3f_va_bwd(const float* rel, const float* const* w, const float* x, const fl
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = npts * kk;
   const float scale = 1.0f / sqrtf(static_cast<float>(d));
-  const Hd hd{rel, w[0], w[1], rows, d};
+  const Hd<float> hd{rel, w[0], w[1], rows, d};
   const int tile_rows = (BM / kk) * kk;
   const long long elems = static_cast<long long>(npts) * d;
   if (npts <= 0) return 0;
   int err = 0;
   // gl -> s1, gv
-  va_softmax_bwd_kernel<<<static_cast<unsigned>((elems + 255) / 256), 256, 0, stream>>>(
-      g, a, u, s1, gv, npts, kk, d, scale);
+  const unsigned pc_blocks = static_cast<unsigned>((elems + 255) / 256);
+  va_softmax_bwd_kernel<float, float><<<pc_blocks, 256, 0, stream>>>(g, a, u, s1, gv, npts, kk,
+                                                                     d, scale);
   err = first_error(err);
   // gwg2 = gl^T hg, gbg2; g_hg = (gl wg2) [hg > 0] -> s2
-  if (!err) err = wgrad(s1, MRows{hg, d, d}, rows, d, d, chunk, partial, gw[6], gw[7], stream);
+  if (!err) err = wgrad(s1, MRows<>{hg, d, d}, rows, d, d, chunk, partial, gw[6], gw[7], stream);
   if (!err)
-    err = gemm(KRows{s1, d, rows}, MRows{w[6], d, d}, VaEpiMask{hg, s2, rows, d}, rows, BM, d, d,
-               STAGE_BYTES, stream);
+    err = gemm(KRows<>{s1, d, rows}, MRows<>{w[6], d, d}, VaEpiMask<float>{hg, s2, rows, d}, rows,
+               BM, d, d, STAGE_BYTES, stream);
   // gwg1 = g_hg^T x, gbg1; g_x = g_hg wg1: gk, g_pos -> s1, gq
-  if (!err) err = wgrad(s2, MRows{x, d, d}, rows, d, d, chunk, partial, gw[4], gw[5], stream);
+  if (!err) err = wgrad(s2, MRows<>{x, d, d}, rows, d, d, chunk, partial, gw[4], gw[5], stream);
   if (!err)
-    err = gemm(KRows{s2, d, rows}, MRows{w[4], d, d}, VaEpiGx{gv, gk, s1, gq, npts, d, kk}, rows,
-               tile_rows, d, d, GROUP_BYTES, stream);
+    err = gemm(KRows<>{s2, d, rows}, MRows<>{w[4], d, d},
+               VaEpiGx<GvRows, float>{GvRows{gv}, gk, gq, s1, npts, d, kk}, rows, tile_rows, d, d,
+               GROUP_BYTES, stream);
   // gwd2 = g_pos^T hd, gbd2; g_hd = (g_pos wd2) [hd > 0] -> s2
   if (!err)
-    err = wgrad(s1, HdByChannel{hd}, rows, d, d, chunk, partial, gw[2], gw[3], stream);
+    err = wgrad(s1, HdByChannel<float>{hd}, rows, d, d, chunk, partial, gw[2], gw[3], stream);
   if (!err)
-    err = gemm(KRows{s1, d, rows}, MRows{w[2], d, d}, VaEpiHdMask{hd, s2}, rows, BM, d, d,
-               STAGE_BYTES, stream);
+    err = gemm(KRows<>{s1, d, rows}, MRows<>{w[2], d, d}, VaEpiHdMask<float>{hd, s2}, rows, BM, d,
+               d, STAGE_BYTES, stream);
   // gwd1 = g_hd^T rel, gbd1 (chunks of chunk / 8 rows: one thread a channel and
   // chunk walks its rows); grel = g_hd wd1
   const int rel_chunk = chunk / 8, rel_chunks = (rows + rel_chunk - 1) / rel_chunk;
   if (!err) {
-    va_rel_wgrad_kernel<<<dim3((d + 127) / 128, rel_chunks), 128, 0, stream>>>(
+    va_rel_wgrad_kernel<float><<<dim3((d + 127) / 128, rel_chunks), 128, 0, stream>>>(
         s2, rel, rows, d, rel_chunk, partial);
     err = first_error(err);
     va_rel_wgrad_sum_kernel<<<(d + 127) / 128, 128, 0, stream>>>(partial, rel_chunks, d, gw[0],
@@ -696,10 +1051,64 @@ int s3f_va_bwd(const float* rel, const float* const* w, const float* x, const fl
   }
   if (!err && grel != nullptr) {
     const unsigned blocks = static_cast<unsigned>((static_cast<long long>(rows) * 32 + 255) / 256);
-    va_rel_grad_kernel<<<blocks, 256, 0, stream>>>(s2, w[0], rows, d, grel);
+    va_rel_grad_kernel<float><<<blocks, 256, 0, stream>>>(s2, w[0], rows, d, grel);
     err = first_error(err);
   }
   return err;
+}
+
+
+// The bf16 route (see the section above). wh: wd1, wd2, wg1, wg2 rounded to
+// bf16 (Linear layout); bias: bd1, bd2, bg1, bg2 in f32.
+
+// forward: x16, hgp16 [R, D] bf16 and u32 [R, D] f32 (scratch, or x16 and
+// hgp16 kept); u16, a16 [R, D] bf16 kept, or null (nothing kept); out16
+// [npts, D]. R = npts * kk, npts = B * n.
+int s3f_vag_fwd(const __nv_bfloat16* q, const __nv_bfloat16* kall, const __nv_bfloat16* vall,
+                const int* idx, const __nv_bfloat16* rel, const __nv_bfloat16* const* wh,
+                const float* const* bias, __nv_bfloat16* x16, __nv_bfloat16* hgp16, float* u32,
+                __nv_bfloat16* u16, __nv_bfloat16* a16, __nv_bfloat16* out16, int npts, int n,
+                int kk, int d, void* stream_ptr) {
+  if (npts <= 0) return 0;
+  return vag_forward(q, kall, vall, idx, rel, wh, bias, x16, hgp16, u32, nullptr, a16, u16, out16,
+                     npts, n, kk, d, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// recompute backward: the forward again (x16, hgp16, u32, a32 scratch; its
+// output into gq, which the backward then writes), then the backward with u
+// and a in f32. Outputs gq, gk, gv [npts, D] bf16, grel [R, 3] bf16 or null,
+// gw the eight f32 gradients in w's order. Scratch: s1, s2 [R, D] f32, gkr
+// [R, D] bf16, partial as s3f_va_bwd's, ints B * (2 n + 1) + R.
+int s3f_vag_bwd(const __nv_bfloat16* q, const __nv_bfloat16* kall, const __nv_bfloat16* vall,
+                const int* idx, const __nv_bfloat16* rel, const __nv_bfloat16* const* wh,
+                const float* const* bias, const __nv_bfloat16* g, __nv_bfloat16* gq,
+                __nv_bfloat16* gk, __nv_bfloat16* gv, __nv_bfloat16* grel, float* const* gw,
+                __nv_bfloat16* x16, __nv_bfloat16* hgp16, float* u32, float* a32, float* s1,
+                float* s2, __nv_bfloat16* gkr, float* partial, int* ints, int npts, int n, int kk,
+                int d, int chunk, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (npts <= 0) return 0;
+  int err = vag_forward(q, kall, vall, idx, rel, wh, bias, x16, hgp16, u32, a32, nullptr,
+                        nullptr, gq, npts, n, kk, d, stream);
+  if (!err)
+    err = vag_backward<float>(idx, rel, wh, bias, x16, hgp16, u32, a32, g, gq, gk, gv, grel, gw,
+                              s1, s2, gkr, partial, ints, npts, n, kk, d, chunk, stream);
+  return err;
+}
+
+// backward from the saves x16, u16, hgp16, a16 [R, D] bf16; outputs and
+// scratch as s3f_vag_bwd's
+int s3f_vag_bwd_res(const int* idx, const __nv_bfloat16* rel, const __nv_bfloat16* const* wh,
+                    const float* const* bias, const __nv_bfloat16* x16,
+                    const __nv_bfloat16* u16, const __nv_bfloat16* hgp16,
+                    const __nv_bfloat16* a16, const __nv_bfloat16* g, __nv_bfloat16* gq,
+                    __nv_bfloat16* gk, __nv_bfloat16* gv, __nv_bfloat16* grel, float* const* gw,
+                    float* s1, float* s2, __nv_bfloat16* gkr, float* partial, int* ints,
+                    int npts, int n, int kk, int d, int chunk, void* stream_ptr) {
+  if (npts <= 0) return 0;
+  return vag_backward<__nv_bfloat16>(idx, rel, wh, bias, x16, hgp16, u16, a16, g, gq, gk, gv,
+                                     grel, gw, s1, s2, gkr, partial, ints, npts, n, kk, d, chunk,
+                                     static_cast<cudaStream_t>(stream_ptr));
 }
 
 }  // extern "C"

@@ -10,6 +10,13 @@ interpolation. The transitions are also the 3DViT point models' (they came
 with the partseg slice). On the card every vector-attention block runs the
 vector-attention kernels, every kNN, FPS and gather the point kernels.
 
+``dtype=torch.bfloat16`` is the JAX package's ``compute_dtype`` (its
+``cli/_common.py:56``): every Linear computes in bf16, the parameters stay
+f32, the BatchNorms return f32. So the stem and ``transformer1`` run in
+bf16 (its residual ``fc2(res) + pre`` is bf16), every stage after a
+transition-down adds into f32, ``xyz`` stays f32 and the heads return bf16
+logits.
+
 Config surface as configs/model/Hengshuang.yaml + configs/cls.yaml:
 num_point, input_dim, num_class, model.nblocks, model.nneighbor,
 model.transformer_dim.
@@ -38,11 +45,11 @@ class TransitionDown(nn.Module):
     ``channels`` = (in, mid, out), ``in`` counting the 3 centred coordinates."""
 
     def __init__(self, k: int, nneighbor: int, channels, bn_momentum: float = 0.9,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype=None):
         super().__init__()
         self.sa = PointNetSetAbstraction(k, 0.0, nneighbor, channels[0], list(channels[1:]),
                                          group_all=False, knn=True, bn_momentum=bn_momentum,
-                                         generator=generator, device=device)
+                                         generator=generator, device=device, dtype=dtype)
 
     def forward(self, xyz, points, sample_generator=None):
         return self.sa(xyz, points, sample_generator)
@@ -53,9 +60,10 @@ class LinearBNReLU(nn.Module):
     as in the reference's Sequential."""
 
     def __init__(self, in_features: int, features: int, bn_momentum: float = 0.9,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype=None):
         super().__init__()
-        self.add_module("0", dense(in_features, features, generator=generator, device=device))
+        self.add_module("0", dense(in_features, features, generator=generator, device=device,
+                                   dtype=dtype))
         self.add_module("2", BatchNorm(features, bn_momentum, device=device))
 
     def forward(self, x):
@@ -67,10 +75,10 @@ class TransitionUp(nn.Module):
     (Hengshuang/model.py:16-46): interp(fc1(coarse)) + fc2(fine)."""
 
     def __init__(self, dim_in_coarse: int, dim_in_fine: int, dim_out: int,
-                 bn_momentum: float = 0.9, generator=None, device=None):
+                 bn_momentum: float = 0.9, generator=None, device=None, dtype=None):
         super().__init__()
-        self.fc1 = LinearBNReLU(dim_in_coarse, dim_out, bn_momentum, generator, device)
-        self.fc2 = LinearBNReLU(dim_in_fine, dim_out, bn_momentum, generator, device)
+        self.fc1 = LinearBNReLU(dim_in_coarse, dim_out, bn_momentum, generator, device, dtype)
+        self.fc2 = LinearBNReLU(dim_in_fine, dim_out, bn_momentum, generator, device, dtype)
         self.fp = PointNetFeaturePropagation(0, ())
 
     def forward(self, xyz1, points1, xyz2, points2):
@@ -79,23 +87,25 @@ class TransitionUp(nn.Module):
         return self.fp(xyz2, xyz1, None, self.fc1(points1)) + self.fc2(points2)
 
 
-def mlp_head(in_features: int, widths: tuple, n_out: int, generator=None, device=None):
+def mlp_head(in_features: int, widths: tuple, n_out: int, generator=None, device=None,
+             dtype=None):
     """Sequential(Linear, ReLU, ..., Linear): the reference's head, Linears at 0, 2, 4."""
     dims = (in_features, *widths, n_out)
     layers = []
     for i in range(len(dims) - 1):
         if i:
             layers.append(nn.ReLU())
-        layers.append(dense(dims[i], dims[i + 1], generator=generator, device=device))
+        layers.append(dense(dims[i], dims[i + 1], generator=generator, device=device,
+                            dtype=dtype))
     return nn.Sequential(*layers)
 
 
 class Backbone(nn.Module):
     def __init__(self, num_point: int, nblocks: int = 4, nneighbor: int = 16, input_dim: int = 3,
                  transformer_dim: int = 512, bn_momentum: float = 0.9, generator=None,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.fc1 = nn.Sequential(dense(input_dim, 32, **kw), nn.ReLU(), dense(32, 32, **kw))
         self.transformer1 = VectorAttentionBlock(32, transformer_dim, nneighbor, **kw)
         self.transition_downs = nn.ModuleList()
@@ -122,15 +132,15 @@ class Backbone(nn.Module):
 
 class PointTransformerCls(nn.Module):
     """Mean-pool + MLP head (Hengshuang/model.py:79-96). x [B, N, input_dim] ->
-    [B, num_class]."""
+    [B, num_class] (bf16 under ``dtype=torch.bfloat16``)."""
 
     def __init__(self, num_point: int, num_class: int, input_dim: int = 3, nblocks: int = 4,
                  nneighbor: int = 16, transformer_dim: int = 512, bn_momentum: float = 0.9,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype=None):
         super().__init__()
         self.backbone = Backbone(num_point, nblocks, nneighbor, input_dim, transformer_dim,
-                                 bn_momentum, generator, device)
-        self.fc2 = mlp_head(32 * 2 ** nblocks, (256, 64), num_class, generator, device)
+                                 bn_momentum, generator, device, dtype)
+        self.fc2 = mlp_head(32 * 2 ** nblocks, (256, 64), num_class, generator, device, dtype)
 
     @classmethod
     def from_config(cls, cfg, **kw):
@@ -150,9 +160,9 @@ class PointTransformerSeg(nn.Module):
 
     def __init__(self, num_point: int, num_class: int, input_dim: int = 3, nblocks: int = 4,
                  nneighbor: int = 16, transformer_dim: int = 512, bn_momentum: float = 0.9,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         c = 32 * 2 ** nblocks
         self.backbone = Backbone(num_point, nblocks, nneighbor, input_dim, transformer_dim,
                                  bn_momentum, **kw)

@@ -6,9 +6,15 @@ takes an optional ``torch.Generator`` (init draws on the CPU from it, so one
 seed gives the same weights on any device) and a ``device``.
 
 ``Block`` on a CUDA tensor runs the whole block as the port's fused CUDA
-kernels (kernels/vit_block.py) up to N = 512 tokens, and above that the
-layered modules with attention as the port's ``mhsa`` kernels
-(kernels/mhsa.py); on a CPU tensor it runs the plain modules below.
+kernels (kernels/vit_block.py) up to N = 512 tokens, and otherwise the
+layered modules, attention as the port's ``mhsa`` kernels (kernels/mhsa.py)
+where their gate takes the call and as plain PyTorch products where it does
+not (the JAX package's XLA attention); on a CPU tensor it runs the plain
+modules below.
+
+``dense(..., dtype=torch.bfloat16)`` computes as flax ``Dense(dtype=bf16)``:
+input, weight and bias cast to bf16, the product and the bias added in bf16;
+the parameters stay f32 and their gradients come back f32 through the cast.
 """
 
 from __future__ import annotations
@@ -28,10 +34,34 @@ def trunc_normal(shape, std: float = 0.02, generator: torch.Generator | None = N
     return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """F.linear, or with a compute dtype flax ``Dense(dtype=...)``: the input,
+    weight and bias cast to it, the product and the bias added in it."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+class Dense(nn.Linear):
+    """nn.Linear with an optional compute dtype (``linear``); the parameters
+    keep their own dtype."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None,
+                 dtype: torch.dtype | None = None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias, self.compute_dtype)
+
+
 def dense(in_features: int, out_features: int, bias: bool = True,
-          generator: torch.Generator | None = None, device=None) -> nn.Linear:
-    """nn.Linear with timm's init: trunc_normal(0.02) weight, zero bias."""
-    layer = nn.Linear(in_features, out_features, bias=bias, device=device)
+          generator: torch.Generator | None = None, device=None,
+          dtype: torch.dtype | None = None) -> Dense:
+    """``Dense`` with timm's init: trunc_normal(0.02) weight, zero bias."""
+    layer = Dense(in_features, out_features, bias=bias, device=device, dtype=dtype)
     with torch.no_grad():
         layer.weight.copy_(trunc_normal((out_features, in_features), 0.02, generator))
         if bias:
@@ -61,11 +91,17 @@ class Attention(nn.Module):
     timm. ``seg_len`` packs several length-seg_len sequences into one row and
     masks attention to within each segment (block-diagonal).
 
-    On a CUDA tensor the attention is the ``mhsa`` kernels, under the JAX
-    package's gate (simple3dformer_tpu/nn/layers.py:155-177): 256 <= N <= 2048,
-    a head_dim the kernels take, no live attention dropout, no ``seg_len``;
-    anything else raises. On a CPU tensor it is the plain products below.
+    On a CUDA tensor the attention is the ``mhsa`` kernels where their gate
+    takes the call (``kernel_unsupported``: 256 <= N <= 2048, a head_dim and
+    dtype the kernels take, no live attention dropout, no ``seg_len``), and the
+    plain products below everywhere else, as the JAX package takes XLA
+    attention wherever its kernel cannot run (simple3dformer_tpu/nn/layers.py:
+    162-191). The route is chosen by shape before any launch: a kernel that
+    fails still raises. ``Attention.plain_calls`` counts the plain attention
+    calls on the card. On a CPU tensor it is the plain products.
     """
+
+    plain_calls = 0
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -101,10 +137,9 @@ class Attention(nn.Module):
         b, n, c = x.shape
         h = self.num_heads
         if x.is_cuda:
-            why = self.kernel_unsupported(x, seg_len)
-            if why:
-                raise NotImplementedError(f"Attention on CUDA runs the mhsa kernel: {why}")
-            return self.forward_kernel(x)
+            if not self.kernel_unsupported(x, seg_len):
+                return self.forward_kernel(x)
+            Attention.plain_calls += 1
         q, k, v = self.qkv(x).reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
         attn = (q * self.scale) @ k.transpose(-1, -2)  # [B, H, N, N]
         if seg_len is not None and 0 < seg_len < n:
@@ -146,12 +181,12 @@ class Block(nn.Module):
       recomputes the forward); with nothing to record
       (``torch.inference_mode()``, serving) the forward kernel alone runs.
       The kernels take no dropout, drop-path or ``seg_len`` mask.
-    - ``"layered"`` (where the fused kernels cannot run, 256 <= N <= 2048):
-      the modules one by one; LayerNorm, the Linear layers and GELU are
-      PyTorch's, attention is the ``mhsa`` kernels (see ``Attention``).
+    - ``"layered"`` (wherever the fused kernels cannot run): the modules one
+      by one; LayerNorm, the Linear layers and GELU are PyTorch's, attention
+      is the ``mhsa`` kernels where their gate takes the call and the plain
+      products elsewhere (see ``Attention``).
 
-    A call that neither route takes raises, naming both reasons, instead of
-    falling back. On a CPU tensor the block runs the plain modules.
+    On a CPU tensor the block runs the plain modules.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -197,17 +232,8 @@ class Block(nn.Module):
         return unsupported(x.shape[1], x.shape[2], self.num_heads)
 
     def route(self, x: torch.Tensor, seg_len: int | None = None) -> str:
-        """``"fused"`` or ``"layered"``: how this call runs on CUDA. Raises
-        NotImplementedError, naming why, when neither route can take it."""
-        fused_why = self.fused_unsupported(x, seg_len)
-        if not fused_why:
-            return "fused"
-        layered_why = (f"input must be [B, N, D], got {tuple(x.shape)}" if x.ndim != 3
-                       else self.attn.kernel_unsupported(x, seg_len))
-        if not layered_why:
-            return "layered"
-        raise NotImplementedError(f"Block on CUDA: the fused kernel cannot run ({fused_why}), "
-                                  f"nor the mhsa kernel ({layered_why})")
+        """``"fused"`` or ``"layered"``: how this call runs on CUDA, by shape."""
+        return "layered" if self.fused_unsupported(x, seg_len) else "fused"
 
     def forward(self, x, seg_len: int | None = None):
         if x.is_cuda and self.route(x, seg_len) == "fused":
@@ -223,12 +249,12 @@ class MlpHead(nn.Module):
     """Stack of Linear+ReLU layers ending in a linear classifier (fc1..fcK)."""
 
     def __init__(self, in_features: int, widths: tuple, n_out: int,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype: torch.dtype | None = None):
         super().__init__()
         dims = (in_features, *widths, n_out)
         for i in range(len(dims) - 1):
-            self.add_module(f"fc{i + 1}", dense(dims[i], dims[i + 1],
-                                                generator=generator, device=device))
+            self.add_module(f"fc{i + 1}", dense(dims[i], dims[i + 1], generator=generator,
+                                                device=device, dtype=dtype))
         self.depth = len(dims) - 1
 
     def forward(self, x):
@@ -269,7 +295,9 @@ class BatchNorm(nn.Module):
     is torch's 0.1), the running variance taking that same biased variance.
     Statistics run over every axis but the last, in f32; eps 1e-5. In train
     mode the batch statistics normalise and the running ones are updated; in
-    eval mode the running ones normalise. The state-dict
+    eval mode the running ones normalise. The output takes the promoted dtype
+    of the input and the f32 parameters, as flax's does: f32 from a bf16
+    input. The state-dict
     names are torch's (``weight``, ``bias``, ``running_mean``,
     ``running_var``, ``num_batches_tracked``), so a reference BatchNorm's
     state dict loads as it is.
@@ -300,4 +328,4 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
                 self.num_batches_tracked += 1
         y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return (y + self.bias).to(x.dtype)
+        return y + self.bias

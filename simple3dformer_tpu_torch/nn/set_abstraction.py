@@ -8,7 +8,11 @@ layers do. The parameters carry the reference's state-dict names and shapes:
 ``mlp_convs.{i}.weight`` [out, in, 1, 1] (Conv2d) or [out, in, 1] (Conv1d),
 ``mlp_bns.{i}`` (the flax-exact ``nn.layers.BatchNorm``). Max-pooling over
 the neighbours uses ``amax``, which splits the gradient among equal maxima
-as JAX's ``max`` does.
+as JAX's ``max`` does. With ``dtype=torch.bfloat16`` the 1x1 convolutions
+compute in bf16 (flax ``Dense(dtype=bf16)``), the BatchNorm after each
+returns f32 (flax's promotion), and ReLU and the max run in f32. The port's
+gather backward sums in f32 where the JAX package's CPU gather VJP sums bf16
+rows in bf16.
 
 Ported: ``PointNetSetAbstraction`` and ``PointNetFeaturePropagation``. Not
 yet: ``PointNetSetAbstractionRelPos``, ``PointNetSetAbstractionMsg`` and
@@ -22,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import pointops
-from .layers import BatchNorm, trunc_normal
+from .layers import BatchNorm, linear, trunc_normal
 
 
 class Conv1x1(nn.Module):
@@ -30,21 +34,22 @@ class Conv1x1(nn.Module):
     applied to the last axis of a channel-last tensor (a Linear layer)."""
 
     def __init__(self, in_features: int, out_features: int, spatial_dims: int = 2,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = dtype
         w = trunc_normal((out_features, in_features), 0.02, generator)
         self.weight = nn.Parameter(w.reshape(out_features, in_features, *(1,) * spatial_dims)
                                    .to(device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
 
     def forward(self, x):
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        return linear(x, self.weight.flatten(1), self.bias, self.compute_dtype)
 
 
 def _shared_mlp(in_features: int, widths, spatial_dims: int, momentum: float,
-                generator, device):
+                generator, device, dtype=None):
     dims = [in_features, *widths]
-    convs = nn.ModuleList(Conv1x1(dims[i], dims[i + 1], spatial_dims, generator, device)
+    convs = nn.ModuleList(Conv1x1(dims[i], dims[i + 1], spatial_dims, generator, device, dtype)
                           for i in range(len(widths)))
     bns = nn.ModuleList(BatchNorm(w, momentum, device=device) for w in widths)
     return convs, bns
@@ -57,12 +62,12 @@ class PointNetSetAbstraction(nn.Module):
 
     def __init__(self, npoint: int, radius: float, nsample: int, in_channel: int, mlp,
                  group_all: bool = False, knn: bool = False, bn_momentum: float = 0.9,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype: torch.dtype | None = None):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.group_all, self.knn = group_all, knn
         self.mlp_convs, self.mlp_bns = _shared_mlp(in_channel, mlp, 2, bn_momentum, generator,
-                                                   device)
+                                                   device, dtype)
 
     def forward(self, xyz, points, sample_generator: torch.Generator | None = None):
         """xyz [B, N, 3], points [B, N, D] -> new_xyz [B, S, 3], feats [B, S, mlp[-1]].

@@ -7,23 +7,38 @@ N), q from the point and k, v from its neighbours, and channelwise (vector)
 attention softmax_K(fc_gamma(q - k + pos) / sqrt(d_model)) over the
 neighbours with pos = fc_delta(xyz - neighbour xyz), aggregating v + pos.
 
-The neighbours come from ``ops/pointops.knn_indices`` and k, v are gathered
-by ``ops/pointops.index_points`` (the port's kNN and gather kernels on the
-card), as the JAX package's f32 route does (its ``nn/vector_attention.py``
-:132-139). The chain from there (fc_delta, fc_gamma, the softmax and the sum
-over K) is ``kernels/vector_attention.vector_attention``: the CUDA kernels on
-a CUDA tensor at every N and K the kernels take (the JAX package's gate of
-N >= 256 on a TPU is a TPU reason only; both of its routes compute this
-chain in f32), its plain version on a CPU tensor. A call the kernels cannot
-take on the card (a dtype other than f32, more than 128 neighbours) raises.
-The block returns ``attn=None``, as the JAX package's kernel route does:
-every model discards it.
+The neighbours come from ``ops/pointops.knn_indices`` (the port's kNN
+kernel on the card). Two routes by compute dtype, as the JAX package's kernel
+route dispatches (its ``nn/vector_attention.py`` :113-152):
+
+* f32 (``dtype=None``): k, v gathered by ``ops/pointops.index_points`` (the
+  gather kernels), then ``kernels/vector_attention.vector_attention``, the
+  pre-gathered chain (fc_delta, fc_gamma, the softmax and the sum over K).
+* bf16 (``dtype=torch.bfloat16``; the parameters stay f32): q, k_all, v_all
+  [B, N, D] and the indices go to ``kernels/vector_attention.gather_attention``,
+  which reads the neighbour rows by index inside the kernels. Training takes
+  the residual-saving pair when its four saves, 4 B N K D x 2 bytes, fit
+  ``RESID_CAP_BYTES`` (6 GiB, the JAX package's cap) and ``S3F_VA_RESID`` is
+  not ``0`` (the JAX package's switch), the recompute pair otherwise; a call
+  that records no gradient runs the forward alone.
+
+On a CUDA tensor the kernels run at every N and K they take (1 <= K <= 128,
+D a multiple of 8); the JAX package's gate of N >= 256 and d_model % 128 == 0
+is a TPU reason. Below it the JAX package computes the chain as flax Dense
+layers, all in bf16 at bf16; the kernels' function (f32 biases, ReLU and
+softmax, bf16 only as products' operands) is the tighter one, the one the JAX
+package computes with ``FORCE_FUSED=True``. On a CPU tensor the kernels' plain
+versions run. A call the kernels cannot take on the card raises. The block
+returns ``attn=None``, as the JAX package's kernel route does: every model
+discards it.
 
 State-dict names are the reference's: ``fc1``, ``fc2``, ``w_qs``, ``w_ks``,
 ``w_vs`` and ``fc_delta.{0,2}`` / ``fc_gamma.{0,2}``.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
@@ -32,23 +47,27 @@ from ..kernels import vector_attention as va
 from ..ops import pointops
 from .layers import dense
 
+# the bf16 training route keeps its four saves up to this many bytes a call
+RESID_CAP_BYTES = 6 * 2 ** 30
+
 
 class MLP2(nn.Sequential):
     """Linear -> ReLU -> Linear (fc_delta / fc_gamma), children 0, 1, 2."""
 
-    def __init__(self, in_features: int, hidden: int, out: int, generator=None, device=None):
-        super().__init__(dense(in_features, hidden, generator=generator, device=device),
-                         nn.ReLU(),
-                         dense(hidden, out, generator=generator, device=device))
+    def __init__(self, in_features: int, hidden: int, out: int, generator=None, device=None,
+                 dtype=None):
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        super().__init__(dense(in_features, hidden, **kw), nn.ReLU(), dense(hidden, out, **kw))
 
 
 class VectorAttentionBlock(nn.Module):
     """TransformerBlock(d_points, d_model, k) of the reference."""
 
-    def __init__(self, d_points: int, d_model: int, k: int, generator=None, device=None):
+    def __init__(self, d_points: int, d_model: int, k: int, generator=None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.d_model, self.k = d_model, k
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.fc1 = dense(d_points, d_model, **kw)
         self.fc2 = dense(d_model, d_points, **kw)
         self.fc_delta = MLP2(3, d_model, d_model, **kw)
@@ -69,8 +88,18 @@ class VectorAttentionBlock(nn.Module):
         knn_xyz = pointops.index_points(xyz, knn_idx)
         x = self.fc1(features)
         q = self.w_qs(x)
-        k = pointops.index_points(self.w_ks(x), knn_idx)  # [B, N, K, d_model]
-        v = pointops.index_points(self.w_vs(x), knn_idx)
         rel = xyz[:, :, None, :] - knn_xyz
-        res = va.vector_attention(q, k, v, rel, self.chain_weights())
+        if q.dtype == torch.bfloat16:
+            res = va.gather_attention(q, self.w_ks(x), self.w_vs(x), knn_idx, rel.to(q.dtype),
+                                      self.chain_weights(), self.takes_resid(knn_idx, q))
+        else:
+            k = pointops.index_points(self.w_ks(x), knn_idx)  # [B, N, K, d_model]
+            v = pointops.index_points(self.w_vs(x), knn_idx)
+            res = va.vector_attention(q, k, v, rel, self.chain_weights())
         return self.fc2(res) + features, None
+
+    def takes_resid(self, knn_idx: torch.Tensor, q: torch.Tensor) -> bool:
+        """Whether a bf16 training call takes the residual-saving pair."""
+        b, n, kk = knn_idx.shape
+        saves = 4 * b * n * kk * self.d_model * q.element_size()
+        return os.environ.get("S3F_VA_RESID", "1") != "0" and saves <= RESID_CAP_BYTES

@@ -15,8 +15,8 @@ import torch
 
 from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
                         KNN_DIST_TOL, KNN_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES,
-                        VA_REL, VA_SHAPES, block_inputs, errors, mhsa_inputs, rel_err, va_err,
-                        va_inputs)
+                        VA_REL, VA_SHAPES, VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_inputs,
+                        errors, mhsa_inputs, rel_err, va_err, va_inputs, vag_check, vag_inputs)
 from simple3dformer_tpu_torch.kernels import mhsa as mk
 from simple3dformer_tpu_torch.kernels import vector_attention as va
 from simple3dformer_tpu_torch.kernels import vit_block as vb
@@ -324,3 +324,94 @@ def test_vector_attention_block_through_autograd_matches_plain(device):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
     with pytest.raises(ValueError, match="float32"):
         cuda_blk.bfloat16()(xyz.bfloat16().to(device), feats.bfloat16().to(device))
+
+
+def _vag_launches():
+    return tuple(fn.launches for fn in (va.gather_attention_fwd, va.gather_attention_resid_fwd,
+                                        va.gather_attention_bwd, va.gather_attention_resid_bwd))
+
+
+@pytest.mark.parametrize("label,b,n,kk,d,dup", VAG_SHAPES, ids=[s[0] for s in VAG_SHAPES])
+def test_bf16_vector_attention_kernels_match_plain_and_repeat_bit_for_bit(device, label, b, n, kk,
+                                                                          d, dup):
+    """The four bf16 kernels (forward, residual-saving forward, recompute and
+    residual backward) against their plain versions within VAG_REL of each
+    output's largest value, the backwards twice bit-equal, the residual backward
+    within VAG_RESID_REL of the recompute backward."""
+    before = _vag_launches()
+    r = vag_check(torch, b, n, kk, d, dup, seed=b * n + kk + d + 1, device=device)
+    assert _vag_launches() == (before[0] + 1, before[1] + 1, before[2] + 2, before[3] + 2)
+    assert all(r["same"].values()), r["same"]
+    assert r["finite"]
+    for check, errs in r["err"].items():
+        limit = VAG_RESID_REL if check == "resid vs recompute" else VAG_REL
+        assert max(errs.values()) <= limit, (check, errs)
+
+
+def test_bf16_vector_attention_rejects_what_it_cannot_take(device):
+    q, k_all, v_all, idx, rel, w = vag_inputs(torch, 1, 40, 8, 64, 0, device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        va.gather_attention_fwd(q.float(), k_all.float(), v_all.float(), idx, rel, w)
+    with pytest.raises(ValueError, match="float32"):  # the parameters stay f32
+        va.gather_attention_fwd(q, k_all, v_all, idx, rel, {k: t.bfloat16() for k, t in w.items()})
+    with pytest.raises(ValueError, match="int32"):
+        va.gather_attention_fwd(q, k_all, v_all, idx.long(), rel, w)
+    with pytest.raises(ValueError, match="neighbours"):
+        va.gather_attention_fwd(*vag_inputs(torch, 1, 200, 129, 64, 0, device))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        va.gather_attention_fwd(*vag_inputs(torch, 1, 40, 8, 100, 0, device))
+
+
+@pytest.mark.parametrize("resid", ["1", "0"], ids=["resid", "recompute"])
+def test_bf16_vector_attention_block_through_autograd_matches_plain(device, monkeypatch, resid):
+    """A bf16 Hengshuang block (parameters f32) at N = 300 and at N = 3 on the card
+    against the CPU's plain path: the residual-saving pair, or under
+    S3F_VA_RESID=0 the recompute pair, one forward and one backward launch each;
+    gradients within 2e-2 of each one's largest value (bf16 intermediates).
+    fc_gamma's last bias has a gradient that is zero but for rounding: both sides
+    hold it below 1e-3 of the block's largest gradient."""
+    from simple3dformer_tpu_torch.nn.vector_attention import VectorAttentionBlock
+
+    monkeypatch.setenv("S3F_VA_RESID", resid)
+    torch.manual_seed(0)
+    blk = VectorAttentionBlock(64, 128, 16, generator=torch.Generator().manual_seed(0),
+                               dtype=torch.bfloat16)
+    cuda_blk = VectorAttentionBlock(64, 128, 16, dtype=torch.bfloat16).to(device)
+    cuda_blk.load_state_dict(blk.state_dict())
+    for n in (300, 3):
+        xyz, feats = torch.rand(2, n, 3), torch.randn(2, n, 64)
+        before = _vag_launches()
+        want = torch.autograd.grad(blk(xyz, feats)[0].float().square().sum(),
+                                   list(blk.parameters()))
+        got = torch.autograd.grad(
+            cuda_blk(xyz.to(device), feats.to(device))[0].float().square().sum(),
+            list(cuda_blk.parameters()))
+        step = (1, 0, 1, 0) if resid == "0" else (0, 1, 0, 1)
+        assert _vag_launches() == tuple(a + s for a, s in zip(before, step))
+        largest = max(float(g.abs().max()) for g in want)
+        for name, a, b in zip([n for n, _ in blk.named_parameters()], got, want):
+            assert a.dtype == torch.float32
+            if name == "fc_gamma.2.bias":
+                assert max(float(a.abs().max()), float(b.abs().max())) < 1e-3 * largest
+                continue
+            torch.testing.assert_close(a.cpu(), b, rtol=2e-2, atol=2e-2 * float(b.abs().max()))
+
+
+def test_attention_outside_the_mhsa_gate_runs_plain_on_the_card(device):
+    """A ViT block at 2049 tokens (beyond the mhsa kernels) takes the layered
+    route with the plain attention, counted, and matches the CPU's plain path."""
+    from simple3dformer_tpu_torch.nn.layers import Attention, Block
+
+    torch.manual_seed(0)
+    blk = Block(192, 3)
+    cuda_blk = Block(192, 3).to(device)
+    cuda_blk.load_state_dict(blk.state_dict())
+    x = torch.randn(1, 2049, 192)
+    assert cuda_blk.route(x) == "layered"
+    assert "sequence length 2049" in cuda_blk.attn.kernel_unsupported(x)
+    before = (Attention.plain_calls, mk.mhsa_fwd.launches)
+    got = torch.autograd.grad(cuda_blk(x.to(device)).square().sum(), list(cuda_blk.parameters()))
+    assert (Attention.plain_calls, mk.mhsa_fwd.launches) == (before[0] + 1, before[1])
+    want = torch.autograd.grad(blk(x).square().sum(), list(blk.parameters()))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))

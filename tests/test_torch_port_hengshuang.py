@@ -468,6 +468,37 @@ def test_cli_trains_on_the_cpu_and_resumes(tmp_path, capsys, model):
         range(latest + 2, 4))
 
 
+def test_cli_trains_hengshuang_at_bf16_on_the_cpu_and_resumes(tmp_path, capsys):
+    """``dtype=bf16`` at test size: the epoch and eval lines with finite losses,
+    a checkpoint of the f32 parameters, and the resume."""
+    out_dir = str(tmp_path / "run")
+    argv = ["device=cpu", "model=Hengshuang", "dtype=bf16", "synthetic=16", "num_point=64",
+            "batch_size=8", f"out_dir={out_dir}", "model.nblocks=2", "model.nneighbor=8",
+            "model.transformer_dim=64"]
+    cli.main(argv + ["epoch=2"])
+    lines = capsys.readouterr().out.splitlines()
+    epochs = [EPOCH_LINE.match(line) for line in lines if line.startswith("Epoch ")]
+    tests = [TEST_LINE.match(line) for line in lines if line.startswith("Test Instance")]
+    assert len(epochs) == len(tests) == 2 and all(epochs) and all(tests)
+    assert "Save model..." in lines and lines[-1] == "End of training..."
+    ckpt = Checkpointer(os.path.join(out_dir, "Hengshuang", "none", "False", "ckpt"))
+    latest = ckpt.latest_step()
+    assert latest in (0, 1)
+    cfg = config.load_task_config("cls", ["model=Hengshuang", "num_point=64", "model.nblocks=2",
+                                          "model.nneighbor=8", "model.transformer_dim=64"])
+    cfg.num_class, cfg.input_dim = 40, 6
+    model = make_point_model(cfg, "cls", dtype=torch.bfloat16)
+    state = TrainState(model, optim.make_optimizer(dict(model.named_parameters()), "SGD"))
+    ckpt.restore_into(state)
+    assert all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+               for p in model.parameters())
+    cli.main(argv + ["epoch=3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert "Use pretrain model" in lines
+    assert [int(m.group(1)) for m in map(EPOCH_LINE.match, lines) if m] == list(
+        range(latest + 2, 4))
+
+
 def test_cli_refuses_bf16_and_does_not_move_to_the_cpu_by_itself():
     with pytest.raises(NotImplementedError, match="bf16"):
         cli.main(["device=cpu", "synthetic=8", "num_point=16", "dtype=bf16"])

@@ -3,6 +3,8 @@ interpret mode, as tests/test_pallas_kernels.py runs it) on the CPU, the
 autograd wrapper, the attention's kernel route, and the block's route choice.
 Inputs are made with numpy."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -107,18 +109,24 @@ def test_block_route_by_shape(n, dim, heads, route):
     (100, 192 * 2, 2, "sequence length 100"),
 ])
 def test_block_route_refuses_what_no_kernel_takes(n, dim, heads, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Block(dim, heads).route(torch.zeros(1, n, dim))
+    """Where neither the fused kernels nor mhsa take a call, the block takes its
+    layered route with the plain attention (the JAX package's XLA attention),
+    and the attention's gate names why mhsa refuses."""
+    blk = Block(dim, heads)
+    x = torch.zeros(1, n, dim)
+    assert blk.route(x) == "layered"
+    assert re.search(match, blk.attn.kernel_unsupported(x))
 
 
 def test_layered_route_gates_as_the_jax_attention():
     blk = Block(768, 3, attn_drop=0.1)
     x = torch.zeros(1, 1025, 768)
-    with pytest.raises(NotImplementedError, match="attention dropout"):
-        blk.train().route(x)
+    assert blk.train().route(x) == "layered"
+    assert "attention dropout" in blk.attn.kernel_unsupported(x)
     assert blk.eval().route(x) == "layered"
-    with pytest.raises(NotImplementedError, match="seg_len"):
-        blk.route(x, seg_len=5)
+    assert blk.attn.kernel_unsupported(x) is None
+    assert blk.route(x, seg_len=5) == "layered"
+    assert "seg_len" in blk.attn.kernel_unsupported(x, seg_len=5)
     assert mk.unsupported(1025, 256, torch.float32) is None
     assert "dtype" in mk.unsupported(1025, 256, torch.float16)
     assert "head_dim 96" in mk.unsupported(1025, 96, torch.float32)
