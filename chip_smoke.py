@@ -34,9 +34,12 @@ Phases, one line each (and a line per kernel shape):
               every kernel of the path from the counters); ms per step, samples/s
               and a per-kernel profile
   9. mhsa     the attention forward and backward against their plain versions
-              (the S3DIS shape in f32 and bf16, N=256 and 2048, head_dim 64, 128
-              and 192, B=1, N off the tile), the backward twice bit-equal; times of
-              kernel, plain version and scaled_dot_product_attention
+              (every head_dim in f32 and in bf16, the S3DIS shape in both, B=1,
+              N=1, 256 and 2048, N one either side of the kernels' 32- and 64-row
+              tiles), the backward twice bit-equal; at the S3DIS shape in f32 and
+              bf16 the times of kernel, plain version and scaled_dot_product_attention
+              under each backend that takes the call (the fastest, named, is the
+              yardstick), and the kernels' TFLOP/s
  10. S3DIS    the 3DViT_s3dis semantic-segmentation model (deit_base, 3 heads,
               N=4096 points -> 1025 tokens, 13 classes, B=4, f32, SGD): the block
               routes; 3 steps on the card against the CPU's plain path; the S3DIS
@@ -301,7 +304,10 @@ TRAIN_SHAPES = [s for s in KERNEL_SHAPES
 # up to B*N products in another order; bf16: as TOL, a last-bit difference can
 # round an intermediate to the neighbouring bf16 value.
 GRAD_REL = {"float32": 1e-4, "bfloat16": 3e-2}
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12  # H100 SXM: HBM bytes/s, f32 non-tensor FLOP/s
+# H100 SXM: HBM bytes/s; f32 products at the 3-pass TF32 tensor-core rate (495 / 3
+# TFLOP/s), which a kernel of f32 products can reach (csrc/mhsa.cu does); f32
+# non-tensor FLOP/s for the elementwise work of FPS and kNN
+PEAK_BYTES, PEAK_F32, PEAK_FMA = 3.35e12, 495e12 / 3, 67e12
 PEAK_BF16 = 989e12  # H100 SXM: bf16 dense tensor-core FLOP/s
 # base lr of the CLI run (chosen on the CPU: 3.69 -> 0.76 over 40 steps); the
 # warmup scales it by (epoch + 1) / 2000, so 1e-5 to 2e-4 over the 20 epochs
@@ -579,7 +585,8 @@ KERNEL_GROUPS = ("VaEpiPos", "VagEpiPos", "VaEpiBias", "VaEpiSoftmax", "VaEpiMas
                  "grad_gemm_kernel", "gemm_kernel", "attention_kernel", "attn_bwd_rows_kernel",
                  "attn_bwd_cols_kernel", "colsum_kernel", "ln_bwd_kernel", "row_stats_kernel",
                  "adam_kernel", "fps_kernel", "knn_kernel", "gather_fwd_kernel",
-                 "gather_bwd_kernel", "mhsa_fwd_kernel", "mhsa_dq_kernel", "mhsa_dkdv_kernel")
+                 "gather_bwd_kernel", "mhsa_fwd_kernel", "mhsa_go_kernel", "mhsa_delta_kernel",
+                 "mhsa_dkdv_kernel", "mhsa_dq_kernel")
 
 
 def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
@@ -687,7 +694,7 @@ def phase_point_kernels(torch):
             report["fps"] = point_report(
                 "fps", 0.0, timed(torch, lambda: fps(xyz, npoint),
                                   lambda: fps_reference(xyz, npoint)),
-                nbytes(xyz, got), 9 * b * n * (npoint - 1), "")
+                nbytes(xyz, got), 9 * b * n * (npoint - 1), "", peak=PEAK_FMA)
 
     for label, b, s, n, k, dup in KNN_SHAPES:
         p = xyz_cloud(b, n // 2).repeat(1, 2, 1) if dup else xyz_cloud(b, n)
@@ -708,7 +715,7 @@ def phase_point_kernels(torch):
         if label == "TD0 k=16":
             report["knn"] = point_report(
                 "knn", derr, timed(torch, lambda: knn(q, p, k), lambda: knn_reference(q, p, k)),
-                nbytes(q, p, idx, dist), 9 * b * s * n, "")
+                nbytes(q, p, idx, dist), 9 * b * s * n, "", peak=PEAK_FMA)
 
     for label, b, n, r, c, dtype in GATHER_SHAPES:
         pts = cloud(b, n, c).to(getattr(torch, dtype))
@@ -757,10 +764,23 @@ MHSA_SHAPES = [("S3DIS f32", 4, 1025, 3, 256, "float32"),
                ("head_dim 64", 16, 257, 3, 64, "float32"),
                ("B=1", 1, 1025, 3, 256, "float32"),
                ("N=77 head_dim 128", 2, 77, 4, 128, "float32"),
-               ("head_dim 192 bf16", 2, 300, 2, 192, "bfloat16")]
+               ("head_dim 192 bf16", 2, 300, 2, 192, "bfloat16"),
+               ("head_dim 64 bf16", 4, 257, 3, 64, "bfloat16"),
+               ("head_dim 128 bf16", 2, 77, 4, 128, "bfloat16"),
+               ("head_dim 192 f32 N=300", 2, 300, 2, 192, "float32"),
+               ("head_dim 256 f32 N=97", 3, 97, 2, 256, "float32"),
+               ("N=1", 2, 1, 3, 256, "float32"),
+               ("N=1 bf16", 2, 1, 2, 64, "bfloat16"),
+               # one below and one above the kernels' tiles of 32 and 64 rows
+               # (queries or keys; 32 keys a forward warp group)
+               ("N=31", 2, 31, 2, 128, "float32"),
+               ("N=33 bf16", 2, 33, 2, 64, "bfloat16"),
+               ("N=63", 2, 63, 2, 192, "float32"),
+               ("N=65 bf16", 2, 65, 2, 256, "bfloat16")]
 # error relative to the largest value of each output. f32: sums of up to N
-# products in another order and one exp; bf16: as TOL, a last-bit difference
-# in an f32 value can round p or ds to the neighbouring bf16 value.
+# products in another order, one exp, and the last bits of the 3-pass TF32
+# split; bf16: as TOL, a last-bit difference in an f32 value can round p or ds
+# to the neighbouring bf16 value.
 MHSA_REL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -774,14 +794,61 @@ def mhsa_inputs(torch, b, n, h, dh, dtype, seed, device):
 
 
 def rel_err(got, want) -> float:
-    return max(float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+    """The largest error relative to each output's largest value; absolute for
+    an output that is zero (dq and dk at N = 1, where p is 1 and ds 0)."""
+    return max(float((a.float() - b.float()).abs().max()) / (float(b.float().abs().max()) or 1.0)
                for a, b in zip(got, want))
+
+
+def sdpa_times(torch, fwd, bwd_of, dtype, iters=50):
+    """ms of scaled_dot_product_attention's forward and of its backward alone
+    under each backend that may take ``dtype`` ({name: (fwd, bwd)}, None where
+    the backend refuses the call). ``bwd_of(out)`` runs the backward of an
+    output made under the same backend, which picks the backward kernel."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = ["EFFICIENT_ATTENTION", "MATH"]
+    if dtype == torch.bfloat16:
+        names += ["FLASH_ATTENTION", "CUDNN_ATTENTION"]
+    out = {}
+    for name in names:
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            try:
+                y = fwd()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                out[name] = None
+                continue
+            out[name] = (time_ms(torch, fwd, iters), time_ms(torch, lambda: bwd_of(y), iters))
+    return out
+
+
+def fastest(times: dict, i: int) -> tuple[float, str]:
+    """(ms, backend) of the fastest backend for the forward (i = 0) or backward (1)."""
+    return min((t[i], name) for name, t in times.items() if t is not None)
+
+
+def mhsa_profile(torch, step, label, iters=10):
+    """Device ms of each mhsa kernel per forward-and-backward call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    times = {e.key[e.key.index("mhsa_"):].split("(")[0]: e.self_device_time_total / iters / 1e3
+             for e in prof.key_averages() if "mhsa_" in e.key}
+    print(f"kernel mhsa {label}: device ms per call by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])))
 
 
 def phase_mhsa_kernels(torch):
     """The mhsa forward and backward against their plain versions; the backward
-    twice, bit-equal; times of kernel, plain and scaled_dot_product_attention
-    at the S3DIS shape."""
+    twice, bit-equal; at the S3DIS shape in f32 and bf16 the times of kernel,
+    plain version and scaled_dot_product_attention under each backend, and
+    the kernels' TFLOP/s."""
     import torch.nn.functional as F
 
     from simple3dformer_tpu_torch.kernels.mhsa import (mhsa_backward_reference, mhsa_bwd,
@@ -792,8 +859,8 @@ def phase_mhsa_kernels(torch):
         q, k, v, g = mhsa_inputs(torch, b, n, h, dh, getattr(torch, dtype), b * n + dh, "cuda")
         scale = dh ** -0.5
         o, stats = mhsa_fwd(q, k, v, scale)
-        grads = mhsa_bwd(q, k, v, g, scale, stats)
-        again = mhsa_bwd(q, k, v, g, scale, stats)
+        grads = mhsa_bwd(q, k, v, g, scale, stats, o)
+        again = mhsa_bwd(q, k, v, g, scale, stats, o)
         o_ref = mhsa_reference(q, k, v, scale)
         grads_ref = mhsa_backward_reference(q, k, v, g, scale)
         torch.cuda.synchronize()
@@ -804,29 +871,45 @@ def phase_mhsa_kernels(torch):
         print(f"kernel mhsa {label} B={b} N={n} H={h} dh={dh} {dtype}: error relative to the "
               f"largest value: forward {fwd_err:.3e}, backward {bwd_err:.3e} (tolerance "
               f"{MHSA_REL[dtype]}); two backward runs bit-equal {same}; finite/shape/dtype {ok}")
-        if max(fwd_err, bwd_err) > MHSA_REL[dtype] or not same or not ok:
+        if not max(fwd_err, bwd_err) <= MHSA_REL[dtype] or not same or not ok:
             raise AssertionError(f"mhsa {label}: errors {fwd_err}, {bwd_err}, bit-equal {same}, "
                                  f"finite/shape/dtype {ok}")
-        if label != "S3DIS f32":
+        if not label.startswith("S3DIS"):
             continue
         flops = 4 * b * h * n * n * dh  # q k^T and p v, 2 operations a multiply-add
+        peak = PEAK_F32 if dtype == "float32" else PEAK_BF16
         qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
-        times = timed(torch, lambda: mhsa_fwd(q, k, v, scale),
-                      lambda: mhsa_reference(q, k, v, scale),
-                      lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
-        report["mhsa_fwd"] = point_report(
-            "mhsa_fwd", float((o.float() - o_ref.float()).abs().max()), times,
-            nbytes(q, k, v, o), flops, "scaled_dot_product_attention forward, [B, H, N, dh]")
         leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
-        out = F.scaled_dot_product_attention(*leaves, scale=scale)
-        times = timed(torch, lambda: mhsa_bwd(q, k, v, g, scale, stats),
-                      lambda: mhsa_backward_reference(q, k, v, g, scale),
-                      lambda: torch.autograd.grad(out, leaves, gh, retain_graph=True))
-        report["mhsa_bwd"] = point_report(
-            "mhsa_bwd", max(float((a.float() - c.float()).abs().max())
-                            for a, c in zip(grads, grads_ref)), times,
+        lib = sdpa_times(torch, lambda: F.scaled_dot_product_attention(*leaves, scale=scale),
+                         lambda y: torch.autograd.grad(y, leaves, gh, retain_graph=True),
+                         q.dtype)
+        print(f"kernel mhsa {label}: scaled_dot_product_attention by backend, ms forward / "
+              "backward alone: " + "; ".join(
+                  f"{name} " + ("refused" if t is None else f"{t[0]:.4f} / {t[1]:.4f}")
+                  for name, t in lib.items()))
+        (lib_fwd, be_fwd), (lib_bwd, be_bwd) = fastest(lib, 0), fastest(lib, 1)
+        fwd_times = timed(torch, lambda: mhsa_fwd(q, k, v, scale),
+                          lambda: mhsa_reference(q, k, v, scale))[:2] + (lib_fwd,)
+        bwd_times = timed(torch, lambda: mhsa_bwd(q, k, v, g, scale, stats, o),
+                          lambda: mhsa_backward_reference(q, k, v, g, scale))[:2] + (lib_bwd,)
+        print(f"kernel mhsa {label}: forward {flops / fwd_times[0] / 1e9:.1f} TFLOP/s, backward "
+              f"{10 * flops // 4 / bwd_times[0] / 1e9:.1f} TFLOP/s (5 products); "
+              f"scaled_dot_product_attention {flops / lib_fwd / 1e9:.1f} ({be_fwd}) and "
+              f"{10 * flops // 4 / lib_bwd / 1e9:.1f} ({be_bwd})")
+        fwd = point_report(
+            f"mhsa_fwd {dtype}", float((o.float() - o_ref.float()).abs().max()), fwd_times,
+            nbytes(q, k, v, o), flops,
+            f"scaled_dot_product_attention forward, [B, H, N, dh], {be_fwd}", peak=peak)
+        bwd = point_report(
+            f"mhsa_bwd {dtype}", max(float((a.float() - c.float()).abs().max())
+                                     for a, c in zip(grads, grads_ref)), bwd_times,
             nbytes(q, k, v, g, *grads), 10 * flops // 4,
-            "scaled_dot_product_attention backward alone, autograd.grad")
+            f"scaled_dot_product_attention backward alone, autograd.grad, {be_bwd}", peak=peak)
+        mhsa_profile(torch, lambda: mhsa_bwd(q, k, v, g, scale, *mhsa_fwd(q, k, v, scale)[::-1]),
+                     label)
+        if dtype == "float32":
+            report["mhsa_fwd"], report["mhsa_bwd"] = fwd, bwd
+        del leaves, lib
     torch.cuda.synchronize()
     return report
 

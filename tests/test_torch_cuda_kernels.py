@@ -208,8 +208,8 @@ def test_mhsa_kernels_match_plain_and_repeat_bit_for_bit(device, label, b, n, h,
     scale = dh ** -0.5
     before = (mk.mhsa_fwd.launches, mk.mhsa_bwd.launches)
     o, stats = mk.mhsa_fwd(q, k, v, scale)
-    grads = mk.mhsa_bwd(q, k, v, g, scale, stats)
-    again = mk.mhsa_bwd(q, k, v, g, scale, stats)
+    grads = mk.mhsa_bwd(q, k, v, g, scale, stats, o)
+    again = mk.mhsa_bwd(q, k, v, g, scale, stats, o)
     torch.cuda.synchronize()
     assert (mk.mhsa_fwd.launches, mk.mhsa_bwd.launches) == (before[0] + 1, before[1] + 2)
     assert o.dtype == q.dtype and o.shape == q.shape

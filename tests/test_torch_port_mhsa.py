@@ -1,7 +1,8 @@
 """The port's mhsa plain versions against the JAX package's Pallas kernel (in
 interpret mode, as tests/test_pallas_kernels.py runs it) on the CPU, the
-autograd wrapper, the attention's kernel route, and the block's route choice.
-Inputs are made with numpy."""
+autograd wrapper, the attention's kernel route, the block's route choice, and
+the precision of the kernels' f32 products (3-pass TF32, emulated). Inputs are
+made with numpy."""
 
 import re
 
@@ -12,6 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from chip_smoke import MHSA_REL, rel_err
 from simple3dformer_tpu.kernels.mhsa import mhsa as jax_mhsa
 from simple3dformer_tpu_torch.kernels import mhsa as mk
 from simple3dformer_tpu_torch.nn.layers import Attention, Block
@@ -130,3 +132,78 @@ def test_layered_route_gates_as_the_jax_attention():
     assert mk.unsupported(1025, 256, torch.float32) is None
     assert "dtype" in mk.unsupported(1025, 256, torch.float16)
     assert "head_dim 96" in mk.unsupported(1025, 96, torch.float32)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (a 10-bit mantissa), ties away from zero: the card's
+    cvt.rna.tf32.f32, on the float32 bits."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def test_tf32_rounding_emulation():
+    x = torch.tensor([1 + 2**-11, 1 + 2**-12, 1 + 3 * 2**-11, -(1 + 2**-11), 3.0, 0.0])
+    want = torch.tensor([1 + 2**-10, 1.0, 1 + 2**-9, -(1 + 2**-10), 3.0, 0.0])
+    assert torch.equal(tf32(x), want)
+
+
+def tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """x with its low 13 bits cleared: how the tensor core reads a float32
+    register as a TF32 operand."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    return torch.from_numpy((bits & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def tf32_product(passes: int):
+    """A float32 matrix product on TF32 operands: one pass (a_big b_big) or
+    the kernels' three (a_small b_big + a_big b_small + a_big b_big), with
+    big = tf32(x) and small = x - big, read by the tensor core truncated."""
+    def mm(a, b):
+        ab, bb = tf32(a), tf32(b)
+        if passes == 1:
+            return ab @ bb
+        return tf32_truncated(a - ab) @ bb + ab @ tf32_truncated(b - bb) + ab @ bb
+    return mm
+
+
+def attention_with(mm, q, k, v, g, scale):
+    """The plain f32 forward and backward (mhsa_reference and
+    mhsa_backward_reference) with every product through ``mm``: [o, dq, dk, dv]."""
+    qh, kh, vh, gh = (t.permute(0, 2, 1, 3) for t in (q, k, v, g))
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    dp = mm(gh, vh.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    out = (mm(p, vh), mm(ds, kh), mm(ds.transpose(-1, -2), qh), mm(p.transpose(-1, -2), gh))
+    return [t.permute(0, 2, 1, 3) for t in out]
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3-pass meets", "1-pass misses"])
+def test_f32_products_need_the_3_pass_tf32_split(passes):
+    """Why the kernels split each f32 operand in two: at an S3DIS-like shape
+    (dh = 256, N = 257) the plain forward and backward with every product as
+    3-pass TF32 stay within the card's f32 tolerance of the plain versions, and
+    with one TF32 pass (10 bits an operand) they do not."""
+    q, k, v, g = (torch.from_numpy(a) for a in inputs(1, 257, 1, 256, "float32", 5))
+    scale = 256 ** -0.5
+    want = [mk.mhsa_reference(q, k, v, scale), *mk.mhsa_backward_reference(q, k, v, g, scale)]
+    err = rel_err(attention_with(tf32_product(passes), q, k, v, g, scale), want)
+    exact = rel_err(attention_with(torch.matmul, q, k, v, g, scale), want)
+    assert exact <= 1e-5  # the emulation's own arithmetic is the plain versions'
+    if passes == 3:
+        assert err <= MHSA_REL["float32"]
+    else:
+        assert err > MHSA_REL["float32"]
+
+
+def test_kernel_views_keep_16_byte_alignment():
+    """The kernels copy 16 bytes at a time: the packed qkv views pass as they
+    are, a view off 16 bytes is copied (same values, contiguous)."""
+    qkv = torch.zeros(2, 70, 3, 3, 64)
+    q = qkv[:, :, 1]
+    assert mk._aligned(q) is q
+    off = torch.arange(2 * 70 * 64 + 1, dtype=torch.float32)[1:].view(2, 70, 1, 64)
+    got = mk._aligned(off)
+    assert got is not off and got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert torch.equal(got, off)
