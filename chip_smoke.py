@@ -26,8 +26,12 @@ Phases, one line each (and a line per kernel shape):
               eval-mode gradient (the recompute backward); samples/s over 50 steps
   7. point kernels  FPS, kNN and the gather forward and backward against their
               plain versions at the partseg shapes (and FPS at B=1 and at the S3DIS
-              shape, kNN with duplicated points, the backward twice bit-equal);
-              times of kernel, plain version and a library call where one exists
+              shape, kNN with duplicated points); the gathers also at the
+              Hengshuang level 0 k/v shape, the S3DIS N=4096 shape, C=35 bf16 and
+              one point named by every row, the backward bit-equal to the CPU
+              plain version and over two runs; times of kernel, plain version and
+              a library call where one exists (the gathers at C=48, C=3 and the
+              Hengshuang shape, with device times by kernel)
   8. partseg  the 3DViT part-segmentation model (deit_tiny, N=1024, 50 parts,
               B=16, f32, SGD): 3 steps on the card against the CPU's plain path;
               the partseg CLI on a synthetic corpus (loss falls, launch counts of
@@ -585,7 +589,7 @@ KERNEL_GROUPS = ("VaEpiPos", "VagEpiPos", "VaEpiBias", "VaEpiSoftmax", "VaEpiMas
                  "grad_gemm_kernel", "gemm_kernel", "attention_kernel", "attn_bwd_rows_kernel",
                  "attn_bwd_cols_kernel", "colsum_kernel", "ln_bwd_kernel", "row_stats_kernel",
                  "adam_kernel", "fps_kernel", "knn_kernel", "gather_fwd_kernel",
-                 "gather_bwd_kernel", "mhsa_fwd_kernel", "mhsa_go_kernel", "mhsa_delta_kernel",
+                 "gather_bwd_sort_kernel", "gather_bwd_sum_kernel", "mhsa_fwd_kernel", "mhsa_go_kernel", "mhsa_delta_kernel",
                  "mhsa_dkdv_kernel", "mhsa_dq_kernel")
 
 
@@ -633,15 +637,88 @@ FPS_SHAPES = [("partseg TD1", PB, PN, PN // 4), ("B=1", 1, PN, PN // 4),
 KNN_SHAPES = [("TD0 k=16", PB, PN, PN, 16, False), ("TD1 k=16", PB, PN // 4, PN, 16, False),
               ("TU0 3-NN", PB, PN, PN // 4, 3, False), ("TU1 3-NN", PB, PN, PN, 3, False),
               ("ties k=16", 4, 512, PN, 16, True)]
-# (label, B, N, R, C, dtype name)
-GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32"),
-                 ("TD0 points C=48", PB, PN, PN * 16, 48, "float32"),
-                 ("TD1 points C=96", PB, PN, PN // 4 * 16, 96, "float32"),
-                 ("TU0 C=96", PB, PN // 4, PN * 3, 96, "float32"),
-                 ("TU1 C=48", PB, PN, PN * 3, 48, "float32"),
-                 ("bf16 C=96", PB, PN, PN * 16, 96, "bfloat16")]
+# (label, B, N, R, C, dtype name, every row naming one point)
+GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32", False),
+                 ("TD0 points C=48", PB, PN, PN * 16, 48, "float32", False),
+                 ("TD1 points C=96", PB, PN, PN // 4 * 16, 96, "float32", False),
+                 ("TU0 C=96", PB, PN // 4, PN * 3, 96, "float32", False),
+                 ("TU1 C=48", PB, PN, PN * 3, 48, "float32", False),
+                 ("bf16 C=96", PB, PN, PN * 16, 96, "bfloat16", False),
+                 ("Hengshuang level 0 k/v C=512", 64, 1024, 1024 * 16, 512, "float32", False),
+                 ("one point named by every row", 2, PN, PN * 16, 48, "float32", True),
+                 ("bf16 C=35", PB, PN, PN * 16, 35, "bfloat16", False),
+                 ("S3DIS TD0 N=4096 C=192", 4, 4096, 4096 * 16, 192, "float32", False)]
+# "one point named by every row" has gradients that are multiples of 2**-6, so
+# that its sums are exact in any order: the card's plain version adds by float
+# atomics in an order that changes from run to run, which with 16384 rows on
+# one point strays up to 3.7e-6 of the largest value from the exact sum (the
+# kernel's ascending-r sum of random values is held to the CPU's bit for bit
+# in tests/test_torch_cuda_kernels.py)
+# timed: the table's row (kept so old and new compare), the xyz gathers, the
+# Hengshuang f32 step's largest k and v gathers
+GATHER_TIMED = ("TD0 points C=48", "xyz C=3", "Hengshuang level 0 k/v C=512")
 KNN_DIST_TOL = 1e-5  # distances: the same sums, q.p in another order on the plain side
 GATHER_BWD_REL = 1e-6  # f32 sums in source order on both sides (index_add_ may not be)
+
+
+def gather_inputs(torch, b, n, r, c, dtype, one_point, seed, device):
+    """points [B, N, C], idx [B, R] int32 and g [B, R, C], standard normal, made
+    on ``device`` from ``seed``. Random indices include three out of range
+    (clamped); ``one_point`` names point N // 3 in every row."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pts = torch.randn(b, n, c, generator=gen, device=device).to(getattr(torch, dtype))
+    if one_point:
+        idx = torch.full((b, r), n // 3, dtype=torch.int32, device=device)
+    else:
+        idx = torch.randint(0, n, (b, r), generator=gen, device=device, dtype=torch.int32)
+        idx[0, :3] = torch.tensor([-5, n, n + 7][:r], dtype=torch.int32)
+    g = torch.randn(b, r, c, generator=gen, device=device)
+    if one_point:  # multiples of 2**-6: every order of the sums is exact (GATHER_SHAPES)
+        g = (g * 64).round() / 64
+    return pts, idx, g.to(pts.dtype)
+
+
+def gather_check(torch, pts, idx, g):
+    """The gather kernels on the card against their plain versions: the forward
+    equal to the plain one; the backward equal bit for bit to the plain version
+    on CPU copies (both sum in f32 in ascending r), within GATHER_BWD_REL of
+    the card's plain version (index_add_ there adds by atomics), and bit-equal
+    over two runs. Returns (ok, out, gp, card plain gp, facts for the log)."""
+    from simple3dformer_tpu_torch.kernels.gather import (gather_bwd, gather_bwd_reference,
+                                                         gather_fwd, gather_fwd_reference)
+
+    n = pts.shape[1]
+    out, want = gather_fwd(pts, idx), gather_fwd_reference(pts, idx)
+    gp, gp2 = gather_bwd(idx, g, n), gather_bwd(idx, g, n)
+    gwant = gather_bwd_reference(idx, g, n)
+    torch.cuda.synchronize()
+    facts = dict(forward_equal=torch.equal(out, want),
+                 cpu_bit_equal=torch.equal(gp.cpu(), gather_bwd_reference(idx.cpu(), g.cpu(), n)),
+                 rel=float((gp - gwant).abs().max()) / float(gwant.abs().max()),
+                 rerun_bit_equal=torch.equal(gp, gp2))
+    ok = (facts["forward_equal"] and facts["cpu_bit_equal"] and facts["rel"] <= GATHER_BWD_REL
+          and facts["rerun_bit_equal"])
+    return ok, out, gp, gwant, facts
+
+
+def device_split(torch, fn, iters=10):
+    """Device ms per call of ``fn`` by kernel name (torch.profiler); empty when
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and str(getattr(e, "device_type", "")).split(".")[-1] == "CUDA":
+            name = next((g for g in KERNEL_GROUPS if g in e.key), e.key[:40])
+            out[name] = out.get(name, 0.0) + us / iters / 1e3
+    return out
 
 
 def timed(torch, kernel, plain, library=None, iters=50):
@@ -717,40 +794,45 @@ def phase_point_kernels(torch):
                 "knn", derr, timed(torch, lambda: knn(q, p, k), lambda: knn_reference(q, p, k)),
                 nbytes(q, p, idx, dist), 9 * b * s * n, "", peak=PEAK_FMA)
 
-    for label, b, n, r, c, dtype in GATHER_SHAPES:
-        pts = cloud(b, n, c).to(getattr(torch, dtype))
-        idx = torch.from_numpy(rs.randint(0, n, (b, r)).astype(np.int32)).cuda()
-        idx[0, :3] = torch.tensor([-5, n, n + 7], dtype=torch.int32)  # out of range: clamped
-        g = cloud(b, r, c).to(pts.dtype)
-        out, want = gather_fwd(pts, idx), gather_fwd_reference(pts, idx)
-        gp, gp2 = gather_bwd(idx, g, n), gather_bwd(idx, g, n)
-        gwant = gather_bwd_reference(idx, g, n)
-        torch.cuda.synchronize()
-        same_fwd = torch.equal(out, want)
-        rel = float((gp - gwant).abs().max()) / float(gwant.abs().max())
-        bits = torch.equal(gp, gp2)
-        print(f"kernel gather {label} B={b} N={n} R={r} C={c} {dtype}: forward equal {same_fwd}; "
-              f"backward error relative to the largest value {rel:.3e} (tolerance "
-              f"{GATHER_BWD_REL}), two runs bit-equal {bits}")
-        if not same_fwd or rel > GATHER_BWD_REL or not bits:
-            raise AssertionError(f"gather {label}: forward equal {same_fwd}, backward {rel}, "
-                                 f"bit-equal {bits}")
+    for label, b, n, r, c, dtype, one_point in GATHER_SHAPES:
+        pts, idx, g = gather_inputs(torch, b, n, r, c, dtype, one_point, seed=b + n + r + c,
+                                    device="cuda")
+        ok, out, gp, gwant, facts = gather_check(torch, pts, idx, g)
+        print(f"kernel gather {label} B={b} N={n} R={r} C={c} {dtype}: forward equal "
+              f"{facts['forward_equal']}; backward bit-equal to the CPU plain version "
+              f"{facts['cpu_bit_equal']}, error relative to the largest value of the card's "
+              f"{facts['rel']:.3e} (tolerance {GATHER_BWD_REL}), two runs bit-equal "
+              f"{facts['rerun_bit_equal']}")
+        if not ok:
+            raise AssertionError(f"gather {label}: {facts}")
+        if label not in GATHER_TIMED:
+            continue
+        name = "" if label == "TD0 points C=48" else f" {label}"
+        idx_lib = idx.long().clamp(0, n - 1)
+        expanded = idx_lib[..., None].expand(-1, -1, c)
+        fwd = point_report(
+            f"gather_fwd{name}", 0.0,
+            timed(torch, lambda: gather_fwd(pts, idx), lambda: gather_fwd_reference(pts, idx),
+                  lambda: torch.gather(pts, 1, expanded)),
+            nbytes(pts, idx, out), 0, "torch.gather, int64 index expanded beforehand")
+        flat = (idx_lib + torch.arange(b, device="cuda")[:, None] * n).reshape(-1)
+        g2 = g.reshape(-1, c)
+        bwd = point_report(
+            f"gather_bwd{name}", float((gp - gwant).abs().max()),
+            timed(torch, lambda: gather_bwd(idx, g, n), lambda: gather_bwd_reference(idx, g, n),
+                  lambda: torch.zeros(b * n, c, device="cuda").index_add_(0, flat, g2)),
+            nbytes(idx, g, gp), b * r * c, "zeros + index_add_, float atomics")
+        for label_fn, kernel_fn, library_fn in (
+                (f"gather_fwd{name}", lambda: gather_fwd(pts, idx),
+                 lambda: torch.gather(pts, 1, expanded)),
+                (f"gather_bwd{name}", lambda: gather_bwd(idx, g, n),
+                 lambda: torch.zeros(b * n, c, device="cuda").index_add_(0, flat, g2))):
+            split, lib = device_split(torch, kernel_fn), device_split(torch, library_fn)
+            print(f"kernel {label_fn} device ms per call (profiler): "
+                  + (", ".join(f"{k} {v:.4f}" for k, v in split.items()) or "not recorded")
+                  + f"; the library call {sum(lib.values()):.4f}")
         if label == "TD0 points C=48":
-            idx_lib = idx.long().clamp(0, n - 1)
-            expanded = idx_lib[..., None].expand(-1, -1, c)
-            report["gather_fwd"] = point_report(
-                "gather_fwd", 0.0,
-                timed(torch, lambda: gather_fwd(pts, idx), lambda: gather_fwd_reference(pts, idx),
-                      lambda: torch.gather(pts, 1, expanded)),
-                nbytes(pts, idx, out), 0, "torch.gather, int64 index expanded beforehand")
-            flat = (idx_lib + torch.arange(b, device="cuda")[:, None] * n).reshape(-1)
-            g2 = g.reshape(-1, c)
-            report["gather_bwd"] = point_report(
-                "gather_bwd", float((gp - gwant).abs().max()),
-                timed(torch, lambda: gather_bwd(idx, g, n),
-                      lambda: gather_bwd_reference(idx, g, n),
-                      lambda: torch.zeros(b * n, c, device="cuda").index_add_(0, flat, g2)),
-                nbytes(idx, g, gp), b * r * c, "zeros + index_add_, float atomics")
+            report["gather_fwd"], report["gather_bwd"] = fwd, bwd
     torch.cuda.synchronize()
     return report
 

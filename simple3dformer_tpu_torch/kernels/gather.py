@@ -19,12 +19,25 @@ The port does what that comment promises. No caller in either package makes
 such indices.
 
 What bounds them on the card, and the design (``csrc/gather.cu``): both move
-bytes. The TPU's one-hot matmul is not carried over: the forward is a row
-copy, one warp per output row. The backward adds in f32 with no float
-atomics: one block per (batch element, 32 point rows, 128 channels) scans
-the R indices in order, lists the chunk's hits in source order, and adds
-their gradient rows in that order, so two runs give the same bits and the
-sums run in the order of ``index_add_`` on the CPU.
+bytes and do no arithmetic worth counting, so the least time is the bytes
+over the memory rate (the forward reads and writes each output row once, the
+backward reads each gradient row once and writes each point row once). The
+TPU's one-hot matmul is not carried over.
+
+- Forward: one flat copy over the output's vectors, thread t on vector j of
+  output row r with (r, j) = divmod(t, vectors a row), so every lane works
+  whatever C is; a vector is the widest of 16, 8, 4 or 2 bytes that divides
+  the row and both pointers (16 at C = 48 f32 or C = 96 bf16, 4 at C = 3).
+- Backward: an inverse index, then one ordered sum per point row, with no
+  float atomics. A stable counting sort of the clamped indices, parallel over
+  R (chunk histograms, a prefix and a scan, in-order placement; one
+  cooperative launch), lists the rows of each point in ascending r; a group
+  of lanes sized to the row owns one point row, reads its gradient rows in
+  that order as wide vectors and adds them in f32 from 0. The sums therefore
+  run in the order of ``index_add_`` on the CPU: the kernel equals
+  ``gather_bwd_reference`` on CPU tensors bit for bit, and two runs give the
+  same bits. Its scratch (the permutation, each point's first slot, the
+  count matrix) is allocated here.
 
 ``gather_rows`` is the autograd-aware entry: a ``torch.autograd.Function``
 whose forward is ``gather_fwd`` and whose backward is ``gather_bwd`` (only
@@ -68,9 +81,11 @@ def _lib():
 
     lib = load("gather")
     lib.s3f_gather_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.s3f_gather_bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.s3f_gather_bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.s3f_gather_bwd_scratch.argtypes = [ctypes.c_int] * 3
     lib.s3f_gather_fwd.restype = ctypes.c_int
     lib.s3f_gather_bwd.restype = ctypes.c_int
+    lib.s3f_gather_bwd_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -125,10 +140,12 @@ def gather_bwd(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.empty(b, n, c, dtype=torch.float32, device=g.device)
     if out.numel() == 0 or r == 0:
         return out.zero_()
+    lib = _lib()
+    scratch = torch.empty(lib.s3f_gather_bwd_scratch(b, n, r), dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
-        err = _lib().s3f_gather_bwd(idx.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, r, c,
-                                    _BWD_DTYPES[g.dtype],
-                                    torch.cuda.current_stream(g.device).cuda_stream)
+        err = lib.s3f_gather_bwd(idx.data_ptr(), g.data_ptr(), out.data_ptr(),
+                                 scratch.data_ptr(), b, n, r, c, _BWD_DTYPES[g.dtype],
+                                 torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(f"gather_bwd kernel launch failed: CUDA error {err}")
     gather_bwd.launches += 1

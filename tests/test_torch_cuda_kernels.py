@@ -16,7 +16,8 @@ import torch
 from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
                         KNN_DIST_TOL, KNN_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES,
                         VA_REL, VA_SHAPES, VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_inputs,
-                        errors, mhsa_inputs, rel_err, va_err, va_inputs, vag_check, vag_inputs)
+                        errors, gather_check, gather_inputs, mhsa_inputs, rel_err, va_err,
+                        va_inputs, vag_check, vag_inputs)
 from simple3dformer_tpu_torch.kernels import mhsa as mk
 from simple3dformer_tpu_torch.kernels import vector_attention as va
 from simple3dformer_tpu_torch.kernels import vit_block as vb
@@ -173,22 +174,67 @@ def test_knn_kernel_matches_plain(device, label, b, s, n, k, dup):
         assert bool(tied.any())
 
 
-@pytest.mark.parametrize("label,b,n,r,c,dtype", GATHER_SHAPES, ids=[s[0] for s in GATHER_SHAPES])
-def test_gather_kernels_match_plain_and_repeat_bit_for_bit(device, label, b, n, r, c, dtype):
-    import numpy as np
-
-    rs = np.random.RandomState(r + c)
-    pts = torch.from_numpy(rs.randn(b, n, c).astype("float32")).to(device, getattr(torch, dtype))
-    idx = torch.from_numpy(rs.randint(-2, n + 2, (b, r)).astype("int32")).to(device)
-    g = torch.from_numpy(rs.randn(b, r, c).astype("float32")).to(device, pts.dtype)
+@pytest.mark.parametrize("label,b,n,r,c,dtype,one_point", GATHER_SHAPES,
+                         ids=[s[0] for s in GATHER_SHAPES])
+def test_gather_kernels_match_plain_and_repeat_bit_for_bit(device, label, b, n, r, c, dtype,
+                                                           one_point):
+    pts, idx, g = gather_inputs(torch, b, n, r, c, dtype, one_point, seed=r + c, device=device)
     before = (gather_fwd.launches, gather_bwd.launches)
-    out = gather_fwd(pts, idx)
-    gp, gp2 = gather_bwd(idx, g, n), gather_bwd(idx, g, n)
+    ok, *_, facts = gather_check(torch, pts, idx, g)
     assert (gather_fwd.launches, gather_bwd.launches) == (before[0] + 1, before[1] + 2)
-    assert torch.equal(out, gather_fwd_reference(pts, idx))
+    assert ok, facts
+
+
+def test_gather_bwd_sums_one_point_in_row_order(device):
+    # random gradients, every row on one point: 16384 terms, each sum in
+    # ascending r as on the CPU
+    pts, idx, _ = gather_inputs(torch, 2, 1024, 16384, 48, "float32", True, seed=5, device=device)
+    g = torch.randn(2, 16384, 48, generator=torch.Generator(device).manual_seed(6), device=device)
+    gp, gp2 = gather_bwd(idx, g, 1024), gather_bwd(idx, g, 1024)
+    assert torch.equal(gp.cpu(), gather_bwd_reference(idx.cpu(), g.cpu(), 1024))
+    assert torch.equal(gp, gp2)
+    assert int((gp.abs().sum(-1) > 0).sum()) == 2  # one point row each, the rest zero
+
+
+# (label, B, N, R, C, dtype name, points and g viewed at an element offset):
+# the smallest sizes, a histogram too large for shared memory, rows of odd
+# bytes, views whose data_ptr is not 16-byte aligned, and B*R*C above 2**31
+GATHER_EDGES = [("N=1", 3, 1, 40, 48, "float32", 0), ("R=1", 3, 50, 1, 48, "float32", 0),
+                ("N=1 R=1 C=1", 1, 1, 1, 1, "bfloat16", 0),
+                ("N=20000", 2, 20000, 5000, 16, "float32", 0),
+                ("C=5 bf16 offset 1", 4, 300, 2000, 5, "bfloat16", 1),
+                ("C=64 f32 offset 1", 4, 300, 2000, 64, "float32", 1),
+                ("C=64 bf16 offset 4", 4, 300, 2000, 64, "bfloat16", 4),
+                ("B*R*C above 2**31", 1, 64, 65536, 32800, "bfloat16", 0)]
+
+
+@pytest.mark.parametrize("label,b,n,r,c,dtype,offset", GATHER_EDGES,
+                         ids=[s[0] for s in GATHER_EDGES])
+def test_gather_kernels_take_the_edges(device, label, b, n, r, c, dtype, offset):
+    pts, idx, g = gather_inputs(torch, b, n, r, c, dtype, False, seed=n + r + c, device=device)
+    if offset:  # the same values, stored at an element offset into a larger buffer
+
+        def shifted(t):
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=device)
+            view = buf[offset:].view(t.shape)
+            view.copy_(t)
+            return view
+
+        pts, g = shifted(pts), shifted(g)
+        assert pts.is_contiguous() and pts.data_ptr() % 16 and g.data_ptr() % 16
+    if b * r * c < 2 ** 31:
+        ok, *_, facts = gather_check(torch, pts, idx, g)
+        assert ok, facts
+        return
+    # too large for the CPU copies: the forward on the card, the backward's
+    # last columns on the CPU (each column sums alone) and the rest on the card
+    assert torch.equal(gather_fwd(pts, idx), gather_fwd_reference(pts, idx))
+    gp, gp2 = gather_bwd(idx, g, n), gather_bwd(idx, g, n)
     want = gather_bwd_reference(idx, g, n)
     assert float((gp - want).abs().max()) <= GATHER_BWD_REL * float(want.abs().max())
     assert torch.equal(gp, gp2)
+    tail = gather_bwd_reference(idx.cpu(), g[..., -64:].cpu(), n)
+    assert torch.equal(gp[..., -64:].cpu(), tail)
 
 
 def test_gather_rows_through_autograd(device):

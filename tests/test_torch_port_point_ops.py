@@ -77,11 +77,19 @@ def test_near_ties_counts_only_equal_distance_swaps():
     assert knn_mod.near_ties(idx, far, ref_idx, ref_dist) == (2, 1)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gather_forward_and_vjp_match_the_pallas_kernel(dtype):
-    b, n, c, r = 2, 128, 64, 513
+# (dtype, C, R, every row naming one point)
+GATHER_CASES = {"float32": ("float32", 64, 513, False), "bfloat16": ("bfloat16", 64, 513, False),
+                "C=3": ("float32", 3, 513, False), "C=35 bf16": ("bfloat16", 35, 513, False),
+                "one point": ("float32", 64, 513, True), "R=1": ("float32", 64, 1, False)}
+
+
+@pytest.mark.parametrize("dtype,c,r,one_point", GATHER_CASES.values(), ids=GATHER_CASES.keys())
+def test_gather_forward_and_vjp_match_the_pallas_kernel(dtype, c, r, one_point):
+    b, n = 2, 128
     pts = cloud(4, b, n, c)
     idx = np.random.RandomState(5).randint(0, n, (b, r)).astype(np.int32)
+    if one_point:
+        idx[:] = 17
     cot = cloud(6, b, r, c)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     jp, jc = jnp.asarray(pts).astype(jdt), jnp.asarray(cot).astype(jdt)
