@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with a Hopper card and nvcc:
 
 Phases, one line each (and a line per kernel shape):
   1. device   the card's name and power limit; TF32 off for the plain versions
-  2. build    every csrc/*.cu with nvcc (all started together), seconds
+  2. build    every csrc/*.cu with nvcc (all started together), seconds; the
+              registers and spills of each tensor-core GEMM of the
+              vector-attention backward
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serving path's shapes and at the limits; time of both at the
               flagship shape
@@ -53,8 +55,10 @@ Phases, one line each (and a line per kernel shape):
               samples/s and a per-kernel profile
  11. vector attention  the forward and backward against their plain versions
               (the Hengshuang step's levels 0, 1 and 4 at B=64, N=255 and 256, a
-              D other than 512, duplicated neighbours), the backward twice
-              bit-equal; times of kernel and plain version at level 0
+              D other than 512, D=8 and D=136, duplicated neighbours), the
+              backward twice bit-equal; times of kernel and plain version at
+              level 0; the level-0 backward's device time by GEMM kind (row
+              GEMMs, weight-gradient GEMMs) with TFLOP/s, all on the tensor cores
  12. Hengshuang  the Point Transformer cls model (D=512, 4 blocks, 16
               neighbours, N=1024 with normals, 40 classes, f32, SGD): 3 steps on
               the card against the CPU's plain path at B=4; the train_cls CLI on
@@ -64,9 +68,10 @@ Phases, one line each (and a line per kernel shape):
  13. vector attention bf16  the in-kernel-gather forward, the recompute
               backward and the residual-saving pair against their plain versions
               (level 0 and level 4 of the bf16 step, N=1000, K=1, K=128 with
-              duplicated neighbours, D=200), each backward twice bit-equal, the
-              residual backward against the recompute backward; times of kernel
-              and plain version at level 0
+              duplicated neighbours, D=200, D=8 and D=136), each backward twice
+              bit-equal, the residual backward against the recompute backward;
+              times of kernel and plain version at level 0; both backwards'
+              device time by GEMM kind with TFLOP/s
  14. Hengshuang bf16  the same model at dtype=bf16 (parameters f32): 3 steps on
               the card against the CPU's plain path at B=4; the train_cls CLI at
               dtype=bf16 (its lines, a checkpoint, the resume, launch counts: the
@@ -137,7 +142,33 @@ def phase_build():
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
         print(f"build {name}: {seconds:.1f} s nvcc, {len(regs)} kernels, "
               f"max {max(regs, default=0)} registers, {spills} bytes spill stores, {path.name}")
+        for kernel, nregs, nspill in ptxas_entries(log):
+            if "va_tc_gemm_kernel" in kernel:
+                print(f"build {name}: va_tc_gemm_kernel {tc_label(kernel)}: {nregs} registers, "
+                      f"{nspill} bytes spill stores")
     print(f"build: {len(names)} sources in {wall:.1f} s")
+
+
+def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
+    """(mangled name, registers, bytes of spill stores) of each kernel that
+    ``ptxas -v`` reports in a build log."""
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((chunk.split("'")[0], int(regs.group(1)) if regs else 0,
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
+def tc_label(kernel: str) -> str:
+    """A tensor-core GEMM instantiation by route, epilogue and, for a weight
+    gradient, its right operand (x, hg, hd, or relu(hg_pre)); from a mangled or
+    a demangled name."""
+    route = "bf16" if "Bf16Mma" in kernel else "tf32x3"
+    epi = next(e for e in ("VaEpiPartial", "VaEpiHdMask", "VaEpiMask", "VaEpiGx") if e in kernel)
+    relu = "false, true, false>" in kernel or "Lb0ELb1ELb0E" in kernel
+    return f"{route} {epi}" + (" hd" if "TcHdCols" in kernel else " relu" if relu else "")
 
 
 def block_inputs(torch, b, n, d, dtype, seed, device):
@@ -1235,11 +1266,13 @@ def phase_s3dis(torch):
 
 # the vector-attention kernels: (label, B, N, K, D, duplicated neighbours); the
 # Hengshuang cls step's levels at B=64 are N = 1024, 256, 64, 16, 4 with K = 16
-# (K = 4 at N = 4, kNN clamps k to N)
+# (K = 4 at N = 4, kNN clamps k to N); D=8 and D=136: the tensor-core core's
+# edges (a contraction not a multiple of 16, a width not a multiple of 128)
 VA_SHAPES = [("level 0", 64, 1024, 16, 512, False), ("level 1", 64, 256, 16, 512, False),
              ("N=255", 2, 255, 16, 512, False), ("N=256", 2, 256, 16, 512, False),
              ("level 4 N=4 K=4", 64, 4, 4, 512, False), ("D=200 K=12", 3, 77, 12, 200, False),
-             ("duplicates", 2, 64, 16, 512, True)]
+             ("duplicates", 2, 64, 16, 512, True), ("D=8", 2, 100, 16, 8, False),
+             ("D=136 K=10", 2, 130, 10, 136, False)]
 # error relative to each output's own largest value: f32 sums of up to B*N*K
 # products in another order
 VA_REL = 1e-4
@@ -1275,6 +1308,61 @@ def va_inputs(torch, b, n, kk, d, seed, device, duplicates=False):
     w = {name: t(*shape, scale=shape[1] ** -0.5 if len(shape) == 2 else 0.1)
          for name, shape in weight_shapes(d).items()}
     return q, k, v, rel, w
+
+
+def gemm_split(torch, fn, b, n, kk, d, label, forward_in_call=False, iters=3):
+    """Device time of one backward call by kind (torch.profiler): the three row
+    GEMMs and the three weight-gradient GEMMs on the tensor-core core, each kind
+    with its TFLOP/s (2 R D^2 a GEMM), then the other kernels. A kernel's time
+    per call is its mean time per launch times its launches per call: the
+    profiler can miss launches (the recorded ones are printed beside the
+    expected ones for the GEMMs). Fails where a GEMM of the backward ran
+    on the forward's FMA core (va_gemm_kernel; with ``forward_in_call`` the call
+    runs a forward first, whose three do) or none ran on the tensor cores.
+    Informational when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {"row GEMMs": 0.0, "weight-gradient GEMMs": 0.0}
+    rest: dict[str, float] = {}
+    each: dict[str, tuple[float, int, int]] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0 or str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        per_launch = us / e.count / 1e3
+        if "va_tc_gemm_kernel" in e.key:
+            name = tc_label(e.key)
+            # the f32 route's x and hg weight gradients are one instantiation
+            per_call = 2 if name == "tf32x3 VaEpiPartial" else 1
+            kinds["weight-gradient GEMMs" if "VaEpiPartial" in e.key else "row GEMMs"] += (
+                per_launch * per_call)
+            ms, seen, want = each.get(name, (0.0, 0, 0))
+            each[name] = (ms + per_launch * per_call, seen + e.count, want + per_call * iters)
+        else:
+            name = ("va_gemm_kernel (the forward's FMA core)" if "va_gemm_kernel" in e.key
+                    else next((g for g in KERNEL_GROUPS if g in e.key), e.key[:40]))
+            rest[name] = rest.get(name, 0.0) + per_launch * max(1, round(e.count / iters))
+    if not kinds["row GEMMs"] and not rest:
+        print(f"{label}: the profiler recorded no device time")
+        return
+    flops = 3 * 2 * b * n * kk * d * d
+    parts = ", ".join(f"{k} {v:.3f} ms ({flops / v / 1e9:.1f} TFLOP/s)" if v else f"{k} 0 ms"
+                      for k, v in kinds.items())
+    others = ", ".join(f"{k} {v:.3f}" for k, v in sorted(rest.items(), key=lambda kv: -kv[1]))
+    gemms = ", ".join(f"{k} {ms:.3f} ({seen} of {want} launches recorded)"
+                      for k, (ms, seen, want) in each.items())
+    print(f"{label} device time by kind, ms per call (profiler, {iters} calls): {parts}; "
+          f"each GEMM: {gemms}; the rest: {others}")
+    fma = rest.get("va_gemm_kernel (the forward's FMA core)", 0.0)
+    if not kinds["row GEMMs"] or not kinds["weight-gradient GEMMs"] or (fma and not forward_in_call):
+        raise AssertionError(f"{label}: backward GEMMs not all on the tensor-core core: {kinds}, "
+                             f"{rest}")
 
 
 def phase_va_kernels(torch):
@@ -1330,6 +1418,8 @@ def phase_va_kernels(torch):
             report["vector_attention_bwd"] = point_report(
                 "vector_attention_bwd", bwd_abs, times,
                 nbytes(q, k, v, rel, *ws, g, gq, gk, gv, grel, gw), 2 * ops, "", iters=10)
+            gemm_split(torch, lambda: va.vector_attention_bwd(g, rel, w, res), b, n, kk, d,
+                       "kernel vector_attention_bwd level 0")
             torch.cuda.synchronize()
             print(f"vector_attention level 0: peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (kernel and plain "
@@ -1569,10 +1659,13 @@ def phase_hengshuang(torch, bf16=False):
 # the bf16 vector-attention kernels (in-kernel gather by index): (label, B, N,
 # K, D, duplicated neighbours); level 0 and level 4 of the bf16 Hengshuang step
 # at B=64, an N off every tile, one neighbour, 128 neighbours all among three
-# points, a D that is a multiple of 8 but not of 128
+# points, a D that is a multiple of 8 but not of 128; D=8 and D=136: the
+# tensor-core core's edges (a contraction not a multiple of 16, a width not a
+# multiple of 128)
 VAG_SHAPES = [("level 0", 64, 1024, 16, 512, False), ("level 4 N=4 K=4", 64, 4, 4, 512, False),
               ("N=1000", 2, 1000, 16, 512, False), ("K=1", 2, 300, 1, 512, False),
-              ("K=128 duplicates", 2, 256, 128, 512, True), ("D=200 K=12", 3, 77, 12, 200, False)]
+              ("K=128 duplicates", 2, 256, 128, 512, True), ("D=200 K=12", 3, 77, 12, 200, False),
+              ("D=8", 2, 100, 16, 8, False), ("D=136 K=10", 2, 130, 10, 136, False)]
 # error over each output's own largest value (bg2's gradient: over max(1, it)):
 # both sides take the same bf16 operands and sum in f32 in another order, which
 # can round an intermediate (x, hg_pre, a product's gradient operand) or an
@@ -1702,6 +1795,9 @@ def phase_vag_kernels(torch):
                 times = timed(torch, kernel, plain, iters=5)
                 report[name] = point_report(name, r["abs"][key], times, moved, work, "", iters=5,
                                             peak=PEAK_BF16)
+                if key in ("bwd", "resid_bwd"):
+                    gemm_split(torch, kernel, b, n, kk, d, f"kernel {name} level 0",
+                               forward_in_call=key == "bwd")
                 torch.cuda.empty_cache()
             torch.cuda.synchronize()
             print(f"vector_attention bf16 level 0: peak device memory "

@@ -37,12 +37,14 @@
 //             sum gq in its epilogue, g_hd), four weight-gradient GEMMs, and
 //             fc_delta's first layer (grel, gwd1, gbd1) by row reductions.
 //
-// Every product is an f32 FMA GEMM tile of 128 x 128 outputs, 256 threads with
-// 8 x 8 outputs each, the contraction staged 8 at a time in shared memory and
-// double-buffered (the next tile's loads in flight during the current one's
-// products). At B=64, N=1024, K=16, D=512 the products are 1.65 TFLOP a
-// forward against 4.4 GB of inputs: the operation count bounds it on this card,
-// not bytes. bf16 tensor cores (wgmma) and TMA are later work.
+// Every product is a GEMM tile of 128 x 128 outputs, 256 threads. The forward's
+// run on va_gemm_kernel, f32 FMA with 8 x 8 outputs a thread, the contraction
+// staged 8 at a time in shared memory and double-buffered (the next tile's
+// loads in flight during the current one's products). The backward's run on
+// va_tc_gemm_kernel, mma.sync on the tensor cores (3-pass TF32 on this route,
+// bf16 on the bf16 route; see its section). At B=64, N=1024, K=16, D=512 the
+// products are 1.65 TFLOP a forward against 4.4 GB of inputs: the operation
+// count bounds it on this card, not bytes.
 //
 // The weight gradients sum over all R rows (1,048,576 at level 0) into D x D
 // outputs: one block per output tile would give 16 blocks at D = 512. So each
@@ -56,9 +58,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-namespace {
+#include <type_traits>
 
-using bf16 = __nv_bfloat16;
+#include "tensor_core.cuh"
+
+namespace {
 
 // x rounded to the nearest bf16 (ties to even), as a float
 __device__ __forceinline__ float bf16r(float x) {
@@ -107,16 +111,16 @@ constexpr size_t STAGE_BYTES = STAGE_FLOATS * sizeof(float);
 constexpr size_t GROUP_BYTES = static_cast<size_t>(BM) * LDE * sizeof(float);
 
 // ---------------------------------------------------------------------------
-// GEMM operands. Each fills one staged tile S[BK][LDS] with S[kk][m] =
-// element(m0 + m, k0 + kk), zero outside the matrix, in two steps: fetch (device
-// memory to four registers a thread) and put (registers to shared memory).
+// The forward's GEMM operands. Each fills one staged tile S[BK][LDS] with
+// S[kk][m] = element(m0 + m, k0 + kk), zero outside the matrix, in two steps:
+// fetch (device memory to four registers a thread) and put (registers to
+// shared memory).
 // ---------------------------------------------------------------------------
 
 // what a loader does to its values before they are staged
-enum Load { AS_IS = 0, ROUND = 1, RELU = 2 };
+enum Load { AS_IS = 0, RELU = 1 };
 template <int MODE>
 __device__ __forceinline__ float4 staged(float4 r) {
-  if (MODE == ROUND) return make_float4(bf16r(r.x), bf16r(r.y), bf16r(r.z), bf16r(r.w));
   if (MODE == RELU)
     return make_float4(fmaxf(r.x, 0.f), fmaxf(r.y, 0.f), fmaxf(r.z, 0.f), fmaxf(r.w, 0.f));
   return r;
@@ -145,27 +149,6 @@ struct KRows {
   }
 };
 
-// element (m, k) = p[k * ld + m] of type T, MODE applied: the tile's m
-// contiguous (a weight read transposed; the rows of an activation as the
-// contraction of a weight gradient). m_lim is a multiple of 4; rows k at or
-// beyond k_lim read as zero.
-template <class T = float, int MODE = AS_IS>
-struct MRows {
-  const T* p;
-  long long ld;
-  int m_lim;
-  __device__ __forceinline__ void fetch(float4& r, int m0, int k0, int k_lim) const {
-    const int kk = threadIdx.x >> 5, m = (threadIdx.x & 31) * 4;
-    r = (k0 + kk < k_lim && m0 + m < m_lim)
-            ? load4(p + static_cast<long long>(k0 + kk) * ld + m0 + m)
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  __device__ __forceinline__ void put(float* S, const float4& r) const {
-    const int kk = threadIdx.x >> 5, m = (threadIdx.x & 31) * 4;
-    *reinterpret_cast<float4*>(S + kk * LDS + m) = staged<MODE>(r);
-  }
-};
-
 // fc_delta's first layer from rel [R, 3] and wd1 [D, 3] of type T, bd1 [D] f32:
 // hd_pre in f32, the same expression wherever it is formed (the pos GEMM's
 // operand, the wd2 gradient's operand, the g_hd mask); hd = relu(hd_pre) as a
@@ -181,10 +164,14 @@ struct Hd {
     v[1] = to_f(rel[3 * r + 1]);
     v[2] = to_f(rel[3 * r + 2]);
   }
+  // hd_pre from a row's rel values and a channel's weights w0, w1, w2 and bias b
+  __device__ __forceinline__ static float pre_of(const float (&v)[3], float w0, float w1, float w2,
+                                                 float b) {
+    return __fadd_rn(fmaf(v[2], w2, fmaf(v[1], w1, __fmul_rn(v[0], w0))), b);
+  }
   __device__ __forceinline__ float pre(const float (&v)[3], int i) const {
     const T* w = wd1 + 3 * i;
-    return __fadd_rn(fmaf(v[2], to_f(w[2]), fmaf(v[1], to_f(w[1]), __fmul_rn(v[0], to_f(w[0])))),
-                     bd1[i]);
+    return pre_of(v, to_f(w[0]), to_f(w[1]), to_f(w[2]), bd1[i]);
   }
   __device__ __forceinline__ float at(const float (&v)[3], int i) const {
     return operand(fmaxf(pre(v, i), 0.f), rel);
@@ -208,23 +195,6 @@ struct HdByRow : Hd<T> {
   __device__ __forceinline__ void put(float* S, const float4& r) const { KRows<>{}.put(S, r); }
 };
 
-// hd as the B operand of wd2's weight gradient: element (m = channel, k = row)
-template <class T>
-struct HdByChannel : Hd<T> {
-  __device__ __forceinline__ void fetch(float4& r, int m0, int k0, int k_lim) const {
-    const int kk = threadIdx.x >> 5, m = (threadIdx.x & 31) * 4;
-    const int rr = k0 + kk, i = m0 + m;
-    if (rr < k_lim && i < this->d) {
-      float v[3];
-      this->row(rr, v);
-      r = make_float4(this->at(v, i), this->at(v, i + 1), this->at(v, i + 2), this->at(v, i + 3));
-    } else {
-      r = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __device__ __forceinline__ void put(float* S, const float4& r) const { MRows<>{}.put(S, r); }
-};
-
 // A thread's outputs: rows (i < 4 ? 0 : 64) + 4 ty + i % 4 and columns
 // (j < 4 ? 0 : 64) + 4 tx + j % 4 of the tile, ty = thread / 16, tx = thread % 16.
 __device__ __forceinline__ int row_of(int i) {
@@ -234,23 +204,18 @@ __device__ __forceinline__ int col_of(int j) {
   return (j < 4 ? 0 : 64) + (threadIdx.x & 15) * 4 + (j & 3);
 }
 
-// One 128 x 128 tile of C = sum_k A(m, k) B(n, k) over k in [kb, ke), with
-// tile_rows rows a tile (the epilogue may take fewer than BM), ncol column
-// tiles (blockIdx.x = row tile * ncol + column tile), chunk rows of the
-// contraction per blockIdx.z. SUM_A: the first column tile's blocks also sum A
-// over k for each of its rows (a bias gradient beside a weight gradient).
-// ROUND_A: the products take A rounded to bf16, the sums of A take it as it is.
-template <class OpA, class OpB, class Epi, bool SUM_A, bool ROUND_A = false>
+// One 128 x 128 tile of C = sum_k A(m, k) B(n, k) over k in [0, k_len), with
+// tile_rows rows a tile (the epilogue may take fewer than BM) and ncol column
+// tiles (blockIdx.x = row tile * ncol + column tile): the forward's f32 FMA core.
+template <class OpA, class OpB, class Epi>
 __global__ void __launch_bounds__(THREADS)
-va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, int chunk) {
+va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len) {
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = smem + 2 * BK * LDS;
   const int mt = blockIdx.x / ncol, nt = blockIdx.x % ncol;
   const int m0 = mt * tile_rows, n0 = nt * BN;
-  const int kb = blockIdx.z * chunk, ke = min(kb + chunk, k_len);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool sum_a = SUM_A && nt == 0 && tx == 0;
 
   float acc[8][8];
   float asum[8];
@@ -261,19 +226,17 @@ va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, in
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
   float4 ra, rb;
-  if (kb < ke) {
-    opa.fetch(ra, m0, kb, ke);
-    opb.fetch(rb, n0, kb, ke);
-    opa.put(As, ra);
-    opb.put(Bs, rb);
-  }
+  opa.fetch(ra, m0, 0, k_len);
+  opb.fetch(rb, n0, 0, k_len);
+  opa.put(As, ra);
+  opb.put(Bs, rb);
   __syncthreads();
   int buf = 0;
-  for (int k0 = kb; k0 < ke; k0 += BK) {
-    const bool more = k0 + BK < ke;
+  for (int k0 = 0; k0 < k_len; k0 += BK) {
+    const bool more = k0 + BK < k_len;
     if (more) {
-      opa.fetch(ra, m0, k0 + BK, ke);
-      opb.fetch(rb, n0, k0 + BK, ke);
+      opa.fetch(ra, m0, k0 + BK, k_len);
+      opb.fetch(rb, n0, k0 + BK, k_len);
     }
     const float* as = As + buf * BK * LDS;
     const float* bs = Bs + buf * BK * LDS;
@@ -287,13 +250,8 @@ va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, in
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float ai = ROUND_A ? bf16r(av[i]) : av[i];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
-      }
-      if (sum_a) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) asum[i] = __fadd_rn(asum[i], av[i]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
     if (more) {
@@ -303,7 +261,7 @@ va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, in
     __syncthreads();
     buf ^= 1;
   }
-  epi(acc, asum, sum_a, m0, n0, tile_rows, smem);
+  epi(acc, asum, false, m0, n0, tile_rows, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -531,13 +489,23 @@ struct VaEpiGx {
   }
 };
 
-// g_hd = acc where hd_pre(row, channel) > 0, else 0
+// g_hd = acc where hd_pre(row, channel) > 0, else 0; each of the thread's 8
+// channels' weights and bias read once
 template <class T>
 struct VaEpiHdMask {
   Hd<T> hd;
   float* out;
   __device__ void operator()(float (&acc)[8][8], float (&)[8], bool, int m0, int n0, int,
                              float*) const {
+    float w[8][3], b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = min(n0 + col_of(j), hd.d - 1);
+      w[j][0] = to_f(hd.wd1[3 * c]);
+      w[j][1] = to_f(hd.wd1[3 * c + 1]);
+      w[j][2] = to_f(hd.wd1[3 * c + 2]);
+      b[j] = hd.bd1[c];
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = m0 + row_of(i);
@@ -545,10 +513,16 @@ struct VaEpiHdMask {
       float v[3];
       hd.row(r, v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + col_of(j);
+      for (int h = 0; h < 2; ++h) {
+        const int c = n0 + col_of(4 * h);
         if (c >= hd.d) continue;
-        out[static_cast<long long>(r) * hd.d + c] = hd.pre(v, c) > 0.f ? acc[i][j] : 0.f;
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int jj = 4 * h + j;
+          o[j] = Hd<T>::pre_of(v, w[jj][0], w[jj][1], w[jj][2], b[jj]) > 0.f ? acc[i][jj] : 0.f;
+        }
+        store4(out + static_cast<long long>(r) * hd.d + c, o[0], o[1], o[2], o[3]);
       }
     }
   }
@@ -586,6 +560,437 @@ __global__ void va_sum_chunks_kernel(const float* __restrict__ partial, int chun
   float s = 0.f;
   for (int c = 0; c < chunks; ++c) s = __fadd_rn(s, partial[c * stride + e]);
   out[e] = s;
+}
+
+// ===========================================================================
+// The backward's GEMM core on the tensor cores: va_tc_gemm_kernel. The same
+// 128 x 128 output tiles, row chunks, operands and epilogues as the forward's
+// va_gemm_kernel, the products on mma.sync with f32 sums in registers:
+//
+//   bf16 route  m16n8k16 .bf16, the operands exactly the FMA core's (the saves
+//               and weights in bf16, the f32 scratch s1, s2 rounded to bf16 as
+//               it is staged, ReLU applied to hg_pre): a bf16 x bf16 product
+//               is exact in f32, so only the order of the f32 sums changes.
+//               Bound: 989 TFLOP/s.
+//   f32 route   m16n8k8 .tf32 in 3 passes (tensor_core.cuh's split: a product
+//               is a_small b_big + a_big b_small + a_big b_big), the split made
+//               where a fragment leaves shared memory. One pass keeps about 10
+//               bits of each operand, and the weight gradients sum over all R
+//               rows (1,048,576 at level 0): tests/test_torch_port_va_tf32.py
+//               measures what one pass loses. Bound: 495 / 3 = 165 TFLOP/s.
+//
+// A block is 8 warps (2 x 4, a warp 64 x 32 outputs) and stages the
+// contraction TBK = 32 rows at a time, its cp.async copies in flight STAGES -
+// 1 stages ahead. An operand transformed on the way (f32 scratch rounded to
+// bf16, ReLU, the bias gradients' sums of the unrounded f32 values) is
+// transformed in shared memory by the thread that copied it, once its copy
+// has landed, a stage before its products; fc_delta's hidden layer, formed
+// from rel, goes through registers a stage ahead. (Every transformed operand
+// through registers, loaded a stage ahead, was slower in both backwards.) A
+// tile keeps its device-memory layout: K-major [128][TBK + pad] (the
+// contraction contiguous: an activation's rows) or MN-major [TBK][128 + 8] (a
+// weight read transposed, and both operands of a weight gradient, whose
+// contraction is the row axis);
+// ldmatrix reads the fragments (.trans for MN-major bf16; MN-major f32 by
+// 32-bit loads on banks 8 t + g), the pads keeping each conflict-free. The
+// accumulators go through shared memory into the FMA core's per-thread
+// acc[8][8] layout (row_of, col_of), so both cores share the epilogues.
+// ===========================================================================
+
+struct Bf16Mma {  // the bf16 route's products
+  using T = bf16;
+  static constexpr int STAGES = 3, MIN_BLOCKS = 2;
+};
+struct Tf32x3 {  // the f32 route's products
+  using T = float;
+  static constexpr int STAGES = 3, MIN_BLOCKS = 2;
+};
+
+constexpr int TBK = 32;      // contraction rows a stage
+constexpr int LDC = BN + 8;  // a row of the accumulator tile: conflict-free float2 stores
+
+// a staged row: K-major rows 16 bytes longer than TBK values, MN-major rows 8
+// values longer than BM (either way consecutive rows start 4 banks apart)
+template <class T, bool KMAJOR>
+__host__ __device__ constexpr int tile_ld() {
+  return KMAJOR ? TBK + 16 / static_cast<int>(sizeof(T)) : BM + 8;
+}
+// bytes of a staged tile
+template <class T, bool KMAJOR>
+__host__ __device__ constexpr int tile_bytes() {
+  return (KMAJOR ? BM : TBK) * tile_ld<T, KMAJOR>() * static_cast<int>(sizeof(T));
+}
+
+__device__ __forceinline__ uint32_t relu2(uint32_t x) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  const __nv_bfloat162 r = __floats2bfloat162_rn(fmaxf(f.x, 0.f), fmaxf(f.y, 0.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// An operand from rows of type S: element (m, k) = p[m * ld + k] (KMAJOR) or
+// p[k * ld + m], zero at m >= m_lim or k >= k_lim, staged as T (an f32 value
+// staged as bf16 is rounded), through ReLU where RELU. SUM: the f32 values
+// before rounding go into the bias gradient's sums (an MN-major f32 operand,
+// whose thread keeps columns 4 (thread % 32) .. + 3 throughout). A stage is
+// copied as it is (RAW bytes), then, where it is transformed, each thread
+// transforms what it copied: in place, or (rounding) into a bf16 tile of
+// COOKED bytes. Copies are 16 bytes of the source; copy i of a thread is tile
+// row (a / PER_ROW), column (a % PER_ROW) E, a = thread + i THREADS.
+template <class T, class S, bool KMAJOR, bool RELU = false, bool SUM = false>
+struct TcRows {
+  const S* p;
+  long long ld;
+  int m_lim;
+  static constexpr bool K_MAJOR = KMAJOR, SUMS = SUM;
+  static constexpr bool ROUND = !std::is_same<T, S>::value;
+  static constexpr int LD = tile_ld<T, KMAJOR>(), LDR = tile_ld<S, KMAJOR>();
+  static constexpr int RAW = tile_bytes<S, KMAJOR>();
+  static constexpr int COOKED = ROUND ? tile_bytes<T, KMAJOR>() : 0;
+  static constexpr int E = 16 / static_cast<int>(sizeof(S));
+  static constexpr int PER_ROW = (KMAJOR ? TBK : BM) / E;
+  static constexpr int N = BM * TBK / E / THREADS;
+  static_assert(!SUM || (!KMAJOR && E == 4), "the bias sums take an MN-major f32 operand");
+  static_assert(!RELU || std::is_same<S, bf16>::value, "ReLU is applied to bf16 rows");
+  static_assert(!ROUND || (std::is_same<T, bf16>::value && E == 4), "f32 rows round to bf16");
+  struct Regs {};
+
+  __device__ __forceinline__ void setup(Regs&, int) const {}
+  __device__ __forceinline__ void issue(unsigned char* raw, int m0, int k0, int k_lim) const {
+    S* dst = reinterpret_cast<S*>(raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int a = threadIdx.x + i * THREADS, row = a / PER_ROW, col = a % PER_ROW * E;
+      const int m = m0 + (KMAJOR ? row : col), k = k0 + (KMAJOR ? col : row);
+      const bool in = m < m_lim && k < k_lim;
+      const long long off = KMAJOR ? static_cast<long long>(m) * ld + k
+                                   : static_cast<long long>(k) * ld + m;
+      cp_async16(dst + row * LDR + col, in ? p + off : p, in);
+    }
+  }
+  __device__ __forceinline__ void fetch(Regs&, int, int, int) const {}
+  __device__ __forceinline__ void prepare(unsigned char* raw, T* cooked, const Regs&, int, int,
+                                          int, float (&asum)[4]) const {
+    if constexpr (ROUND || RELU || SUM) {
+      S* src = reinterpret_cast<S*>(raw);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int a = threadIdx.x + i * THREADS, row = a / PER_ROW, col = a % PER_ROW * E;
+        if constexpr (E == 4) {
+          const float4 f = *reinterpret_cast<const float4*>(src + row * LDR + col);
+          if constexpr (SUM) {
+            asum[0] = __fadd_rn(asum[0], f.x);
+            asum[1] = __fadd_rn(asum[1], f.y);
+            asum[2] = __fadd_rn(asum[2], f.z);
+            asum[3] = __fadd_rn(asum[3], f.w);
+          }
+          if constexpr (ROUND) store4(cooked + row * LD + col, f.x, f.y, f.z, f.w);
+        } else {
+          uint4* v = reinterpret_cast<uint4*>(src + row * LDR + col);
+          *v = make_uint4(relu2(v->x), relu2(v->y), relu2(v->z), relu2(v->w));
+        }
+      }
+    }
+  }
+  // the stage's tile as the products read it
+  __device__ __forceinline__ const T* tile(const unsigned char* raw, const T* cooked) const {
+    if constexpr (ROUND)
+      return cooked;
+    else
+      return reinterpret_cast<const T*>(raw);
+  }
+};
+
+// hd as the B operand of wd2's weight gradient, MN-major: element (n = channel,
+// k = row) formed from rel as Hd::at forms it. A thread keeps channels n0 + 4
+// (thread % 32) .. + 3, their weights and biases read once (setup), and takes
+// rows k0 + thread / 32 + 8 i: fetch reads their rel into registers, prepare
+// forms and stores the values.
+template <class T, class S>
+struct TcHdCols {
+  Hd<S> hd;
+  static constexpr bool K_MAJOR = false, SUMS = false;
+  static constexpr int LD = tile_ld<T, false>();
+  static constexpr int RAW = 0, COOKED = tile_bytes<T, false>();
+  struct Regs {
+    float v[4][3], w[4][3], b[4];
+  };
+  __device__ __forceinline__ void setup(Regs& r, int n0) const {
+    const int c = n0 + (threadIdx.x & 31) * 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cj = min(c + j, hd.d - 1);
+      r.w[j][0] = to_f(hd.wd1[3 * cj]);
+      r.w[j][1] = to_f(hd.wd1[3 * cj + 1]);
+      r.w[j][2] = to_f(hd.wd1[3 * cj + 2]);
+      r.b[j] = hd.bd1[cj];
+    }
+  }
+  __device__ __forceinline__ void issue(unsigned char*, int, int, int) const {}
+  __device__ __forceinline__ void fetch(Regs& r, int, int k0, int k_lim) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = k0 + (threadIdx.x >> 5) + 8 * i;
+      if (rr < k_lim) {
+        hd.row(rr, r.v[i]);
+      } else {
+        r.v[i][0] = r.v[i][1] = r.v[i][2] = 0.f;
+      }
+    }
+  }
+  __device__ __forceinline__ void prepare(unsigned char*, T* cooked, const Regs& r, int n0,
+                                          int k0, int k_lim, float (&)[4]) const {
+    const int cl = (threadIdx.x & 31) * 4;
+    const bool in = n0 + cl < hd.d;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = (threadIdx.x >> 5) + 8 * i;
+      const bool ok = in && k0 + row < k_lim;
+      float h[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        h[j] = ok ? operand(fmaxf(Hd<S>::pre_of(r.v[i], r.w[j][0], r.w[j][1], r.w[j][2], r.b[j]),
+                                  0.f),
+                            hd.rel)
+                  : 0.f;
+      store4(cooked + row * LD + cl, h[0], h[1], h[2], h[3]);
+    }
+  }
+  __device__ __forceinline__ const T* tile(const unsigned char*, const T* cooked) const {
+    return cooked;
+  }
+};
+
+// shared memory: STAGES copies (A then B), two transformed tiles of each
+// operand that has them, or the accumulator tile and the bias sums' partials
+template <class P, class OpA, class OpB>
+constexpr size_t tc_smem_bytes() {
+  const size_t stages = static_cast<size_t>(P::STAGES) * (OpA::RAW + OpB::RAW) +
+                        2ull * (OpA::COOKED + OpB::COOKED);
+  const size_t out = (static_cast<size_t>(BM) * LDC + 8 * BM) * sizeof(float);
+  return stages > out ? stages : out;
+}
+
+// The 16 (mn) x 16 (k) block at (mn, k) of a staged bf16 tile as four 8 x 8
+// fragments, in the A fragment's order: (mn, k), (mn + 8, k), (mn, k + 8),
+// (mn + 8, k + 8); as B fragments, {r0, r2} are columns mn .. mn + 7 and
+// {r1, r3} columns mn + 8 .. mn + 15.
+template <bool KMAJOR>
+__device__ __forceinline__ void frag(uint32_t (&r)[4], const bf16* S, int mn, int k) {
+  constexpr int L = tile_ld<bf16, KMAJOR>();
+  const int lane = threadIdx.x & 31, j = lane >> 3, i = lane & 7;
+  if constexpr (KMAJOR)
+    ldsm_x4(r, S + (mn + (j & 1) * 8 + i) * L + k + (j >> 1) * 8);
+  else
+    ldsm_x4_t(r, S + (k + (j >> 1) * 8 + i) * L + mn + (j & 1) * 8);
+}
+
+// The 16 (mn) x 8 (k) block of a staged f32 tile in the tf32 A fragment's
+// order: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); as B fragments, {r0,
+// r2} are columns mn .. mn + 7 and {r1, r3} columns mn + 8 .. mn + 15.
+template <bool KMAJOR>
+__device__ __forceinline__ void frag(uint32_t (&r)[4], const float* S, int mn, int k) {
+  constexpr int L = tile_ld<float, KMAJOR>();
+  const int lane = threadIdx.x & 31;
+  if constexpr (KMAJOR) {
+    const int j = lane >> 3, i = lane & 7;
+    ldsm_x4(r, S + (mn + (j & 1) * 8 + i) * L + k + (j >> 1) * 4);
+  } else {
+    const float* s = S + (k + (lane & 3)) * L + mn + (lane >> 2);
+    r[0] = __float_as_uint(s[0]);
+    r[1] = __float_as_uint(s[8]);
+    r[2] = __float_as_uint(s[4 * L]);
+    r[3] = __float_as_uint(s[4 * L + 8]);
+  }
+}
+
+// acc += one stage's products for this warp's 64 x 32 outputs: acc[mi][nj] is
+// the C fragment of rows 16 mi, columns 8 nj of the warp's tile
+template <class P, bool KA, bool KB>
+__device__ __forceinline__ void tc_products(const typename P::T* As, const typename P::T* Bs,
+                                            float (&acc)[4][4][4]) {
+  const int w = threadIdx.x >> 5, wm = (w >> 2) * 64, wn = (w & 3) * 32;
+  if constexpr (std::is_same<typename P::T, bf16>::value) {
+#pragma unroll
+    for (int k = 0; k < TBK; k += 16) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t r[4];
+        frag<KB>(r, Bs, wn + 16 * p, k);
+        b[2 * p][0] = r[0];
+        b[2 * p][1] = r[2];
+        b[2 * p + 1][0] = r[1];
+        b[2 * p + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t a[4];
+        frag<KA>(a, As, wm + 16 * mi, k);
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], a, b[nj]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < TBK; k += 8) {
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t r[4];
+        frag<KB>(r, Bs, wn + 16 * p, k);
+        split(__uint_as_float(r[0]), bb[2 * p][0], bs[2 * p][0]);
+        split(__uint_as_float(r[2]), bb[2 * p][1], bs[2 * p][1]);
+        split(__uint_as_float(r[1]), bb[2 * p + 1][0], bs[2 * p + 1][0]);
+        split(__uint_as_float(r[3]), bb[2 * p + 1][1], bs[2 * p + 1][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t r[4], ab[4], as[4];
+        frag<KA>(r, As, wm + 16 * mi, k);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(__uint_as_float(r[e]), ab[e], as[e]);
+        // the three passes of these 8 contraction rows from zero, the small
+        // terms first, consecutive products on different accumulators; then
+        // one f32 add (round to nearest) into acc. The tensor core's own f32
+        // additions truncate: over a weight gradient's chunk of 16,384 rows
+        // they drifted 1e-4 of the largest value when they carried the sum.
+        float part[4][4] = {};
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) mma_tf32(part[nj], as, bb[nj]);
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) mma_tf32(part[nj], ab, bs[nj]);
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) mma_tf32(part[nj], ab, bb[nj]);
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][nj][e] = __fadd_rn(acc[mi][nj][e], part[nj][e]);
+      }
+    }
+  }
+}
+
+// One 128 x 128 tile of C = sum_k A(m, k) B(n, k) over k in [kb, ke), with
+// tile_rows rows a tile (the epilogue may take fewer than BM), ncol column
+// tiles (blockIdx.x = row tile * ncol + column tile), chunk rows of the
+// contraction per blockIdx.z. Where OpA sums (a weight gradient's left
+// factor), the first column tile's blocks also hand the epilogue the sums of A
+// over k for each row m (the bias gradient), added in a fixed order. Stage s:
+// issue (copies started, STAGES - 1 stages ahead), fetch (registers, one
+// stage ahead), prepare (once the thread's copies have landed, one stage
+// ahead), products.
+template <class P, class OpA, class OpB, class Epi>
+__global__ void __launch_bounds__(THREADS, P::MIN_BLOCKS)
+va_tc_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, int chunk) {
+  using T = typename P::T;
+  constexpr int STAGES = P::STAGES, RAW = OpA::RAW + OpB::RAW;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  T* const cooked_a = reinterpret_cast<T*>(tc_smem + STAGES * RAW);
+  T* const cooked_b = reinterpret_cast<T*>(tc_smem + STAGES * RAW + 2 * OpA::COOKED);
+  const int mt = blockIdx.x / ncol, nt = blockIdx.x % ncol;
+  const int m0 = mt * tile_rows, n0 = nt * BN;
+  const int kb = blockIdx.z * chunk, ke = min(kb + chunk, k_len);
+  const int nk = ke > kb ? (ke - kb + TBK - 1) / TBK : 0;
+  auto raw_a = [&](int s) { return tc_smem + (s % STAGES) * RAW; };
+  auto raw_b = [&](int s) { return tc_smem + (s % STAGES) * RAW + OpA::RAW; };
+  auto cook_a = [&](int s) { return cooked_a + (s & 1) * (OpA::COOKED / sizeof(T)); };
+  auto cook_b = [&](int s) { return cooked_b + (s & 1) * (OpB::COOKED / sizeof(T)); };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float asum[4] = {0.f, 0.f, 0.f, 0.f}, unused[4];
+  typename OpA::Regs ra;
+  typename OpB::Regs rb;
+  opa.setup(ra, m0);
+  opb.setup(rb, n0);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      opa.issue(raw_a(s), m0, kb + s * TBK, ke);
+      opb.issue(raw_b(s), n0, kb + s * TBK, ke);
+    }
+    cp_commit();
+  }
+  if (nk > 0) {
+    opa.fetch(ra, m0, kb, ke);
+    opb.fetch(rb, n0, kb, ke);
+    cp_wait<STAGES - 2>();
+    opa.prepare(raw_a(0), cook_a(0), ra, m0, kb, ke, asum);
+    opb.prepare(raw_b(0), cook_b(0), rb, n0, kb, ke, unused);
+  }
+  for (int it = 0; it < nk; ++it) {
+    // each thread's copies of stage it have landed (the wait before its
+    // prepare): now all are visible, and every thread is done with stage it - 1
+    __syncthreads();
+    const int nx = it + STAGES - 1;
+    if (nx < nk) {
+      opa.issue(raw_a(nx), m0, kb + nx * TBK, ke);
+      opb.issue(raw_b(nx), n0, kb + nx * TBK, ke);
+    }
+    cp_commit();
+    const bool more = it + 1 < nk;
+    const int k1 = kb + (it + 1) * TBK;
+    if (more) {
+      opa.fetch(ra, m0, k1, ke);
+      opb.fetch(rb, n0, k1, ke);
+    }
+    tc_products<P, OpA::K_MAJOR, OpB::K_MAJOR>(opa.tile(raw_a(it), cook_a(it)),
+                                               opb.tile(raw_b(it), cook_b(it)), acc);
+    if (more) {
+      cp_wait<STAGES - 2>();
+      opa.prepare(raw_a(it + 1), cook_a(it + 1), ra, m0, k1, ke, asum);
+      opb.prepare(raw_b(it + 1), cook_b(it + 1), rb, n0, k1, ke, unused);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // the accumulators to the tile C [BM][LDC], the thread's column sums to
+  // part[warp][m]; then each thread takes its acc[8][8] and row sums
+  float* C = reinterpret_cast<float*>(tc_smem);
+  float* part = C + BM * LDC;
+  {
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r0 = (w >> 2) * 64 + (lane >> 2), c0 = (w & 3) * 32 + 2 * (lane & 3);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        float* c = C + (r0 + 16 * mi) * LDC + c0 + 8 * nj;
+        *reinterpret_cast<float2*>(c) = make_float2(acc[mi][nj][0], acc[mi][nj][1]);
+        *reinterpret_cast<float2*>(c + 8 * LDC) = make_float2(acc[mi][nj][2], acc[mi][nj][3]);
+      }
+    if constexpr (OpA::SUMS)
+      *reinterpret_cast<float4*>(part + w * BM + lane * 4) =
+          make_float4(asum[0], asum[1], asum[2], asum[3]);
+  }
+  __syncthreads();
+  float out[8][8], osum[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    osum[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(C + row_of(i) * LDC + col_of(4 * h));
+      out[i][4 * h + 0] = v.x;
+      out[i][4 * h + 1] = v.y;
+      out[i][4 * h + 2] = v.z;
+      out[i][4 * h + 3] = v.w;
+    }
+  }
+  const bool sum_a = OpA::SUMS && nt == 0 && (threadIdx.x & 15) == 0;
+  if (sum_a) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int w = 0; w < 8; ++w) osum[i] = __fadd_rn(osum[i], part[w * BM + row_of(i)]);
+  }
+  epi(out, osum, sum_a, m0, n0, tile_rows, C);
 }
 
 // the softmax backward, one thread per (point, channel): gl = a (g u - sum_K(a g
@@ -686,34 +1091,57 @@ __global__ void va_rel_grad_kernel(const float* __restrict__ ghd, const T* __res
 
 int first_error(int err) { return err ? err : static_cast<int>(cudaGetLastError()); }
 
-// C[rows, n] = A B^T tiles over row tiles of tile_rows rows, contraction k_len
+// C[rows, n] = A B^T tiles over row tiles of tile_rows rows, contraction k_len,
+// on the forward's f32 FMA core
 template <class OpA, class OpB, class Epi>
 int gemm(OpA a, OpB b, Epi epi, int rows, int tile_rows, int n, int k_len, size_t smem,
          cudaStream_t stream) {
-  auto kernel = va_gemm_kernel<OpA, OpB, Epi, false>;
+  auto kernel = va_gemm_kernel<OpA, OpB, Epi>;
   int err = 0;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err) return err;
   const int ncol = (n + BN - 1) / BN, nrow = (rows + tile_rows - 1) / tile_rows;
-  kernel<<<dim3(nrow * ncol, 1, 1), THREADS, smem, stream>>>(a, b, epi, tile_rows, ncol, k_len,
-                                                             k_len);
+  kernel<<<dim3(nrow * ncol, 1, 1), THREADS, smem, stream>>>(a, b, epi, tile_rows, ncol, k_len);
   return static_cast<int>(cudaGetLastError());
 }
 
+// va_tc_gemm_kernel over a grid (blockIdx.z: chunks of `chunk` contraction rows)
+template <class P, class OpA, class OpB, class Epi>
+int tc_launch(OpA a, OpB b, Epi epi, dim3 grid, int tile_rows, int ncol, int k_len, int chunk,
+              cudaStream_t stream) {
+  auto kernel = va_tc_gemm_kernel<P, OpA, OpB, Epi>;
+  constexpr size_t smem = tc_smem_bytes<P, OpA, OpB>();
+  const int err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (err) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(a, b, epi, tile_rows, ncol, k_len, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the backward's row GEMMs: C[rows, n] = A B^T on the tensor cores, A the f32
+// scratch [rows, d] (K-major), B a weight read transposed (MN-major)
+template <class P, class OpB, class Epi>
+int tc_gemm(const float* a, OpB b, Epi epi, int rows, int tile_rows, int n, int d,
+            cudaStream_t stream) {
+  const int ncol = (n + BN - 1) / BN, nrow = (rows + tile_rows - 1) / tile_rows;
+  return tc_launch<P>(TcRows<typename P::T, float, true>{a, d, rows}, b, epi, dim3(nrow * ncol),
+                      tile_rows, ncol, d, d, stream);
+}
+
 // a weight gradient g^T x over `rows` rows in chunks, and the bias gradient, then
-// the chunk sums in order: gw [d, n], gb [d]. ROUND_A: the products take g
-// rounded to bf16, the bias gradient sums g as it is.
-template <class OpX, bool ROUND_A = false>
+// the chunk sums in order: gw [d, n], gb [d]; g [rows, d] f32 (rounded to bf16
+// for the products on the bf16 route, summed as it is for the bias gradient)
+template <class P, class OpX>
 int wgrad(const float* g, OpX x, int rows, int d, int n, int chunk, float* partial, float* gw,
           float* gb, cudaStream_t stream) {
-  auto kernel = va_gemm_kernel<MRows<>, OpX, VaEpiPartial, true, ROUND_A>;
   const int chunks = (rows + chunk - 1) / chunk;
   const int ncol = (n + BN - 1) / BN, nrow = (d + BM - 1) / BM;
-  kernel<<<dim3(nrow * ncol, 1, chunks), THREADS, STAGE_BYTES, stream>>>(
-      MRows<>{g, d, d}, x, VaEpiPartial{partial, d, n}, BM, ncol, rows, chunk);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = tc_launch<P>(TcRows<typename P::T, float, false, false, true>{g, d, d}, x,
+                         VaEpiPartial{partial, d, n}, dim3(nrow * ncol, 1, chunks), BM, ncol,
+                         rows, chunk, stream);
+  if (err) return err;
   const long long stride = static_cast<long long>(d) * n + d;
   const long long nw = static_cast<long long>(d) * n;
   va_sum_chunks_kernel<<<static_cast<unsigned>((nw + 255) / 256), 256, 0, stream>>>(
@@ -722,7 +1150,6 @@ int wgrad(const float* g, OpX x, int rows, int d, int n, int chunk, float* parti
   va_sum_chunks_kernel<<<(d + 255) / 256, 256, 0, stream>>>(partial + nw, chunks, stride, d, gb);
   return first_error(err);
 }
-
 
 // ===========================================================================
 // The bf16 route: the in-kernel-gather chain (fused_vector_attention, its
@@ -735,9 +1162,9 @@ int wgrad(const float* g, OpX x, int rows, int d, int n, int chunk, float* parti
 // biases in f32.
 //
 // The TPU kernel's precision policy, exactly: every product takes operands
-// rounded to bf16 and sums in f32 (a bf16 x bf16 product is exact in f32, so
-// the f32 FMA core computes it: the loaders round, the accumulators stay f32);
-// biases, ReLU, softmax, x = q - k + pos and u = v + pos are f32; out is
+// rounded to bf16 and sums in f32 (a bf16 x bf16 product is exact in f32: the
+// forward's f32 FMA core computes it with rounding loaders, the backward's
+// tensor-core core with bf16 mma.sync on the same operands); biases, ReLU, softmax, x = q - k + pos and u = v + pos are f32; out is
 // rounded once at the end. k and v rows are read by index in the pos GEMM's
 // epilogue (nothing [B, N, K, D] is an input); an index outside [0, N) reads a
 // zero row and scatters nowhere, as the one-hot product does. The operands,
@@ -749,8 +1176,9 @@ int wgrad(const float* g, OpX x, int rows, int d, int n, int chunk, float* parti
 // (exact for what reads them: the next GEMM's operand and the ReLU's sign), u
 // in f32 for the sum over K. Training keeps x, u, hg_pre and a in bf16 (the
 // _resid saves); the recompute backward runs the forward keeping u and a in
-// f32. Backward: the f32 route's steps with rounded operands; the bias
-// gradients sum the f32 values, the weight gradients their bf16 roundings.
+// f32. Backward: the f32 route's steps with rounded operands, on bf16 tensor
+// cores; the bias gradients sum the f32 values, the weight gradients their
+// bf16 roundings.
 // gk_all and gv_all sum the rounded row gradients bf16(-g_x) and bf16(a g) of
 // every (point, neighbour) row that names a point: an inverse index (a stable
 // counting sort of idx per batch element, integer counts only) then a sum over
@@ -918,27 +1346,26 @@ int vag_backward(const int* idx, const bf16* rel, const bf16* const* wh,
       g, a, u, s1, nullptr, npts, kk, d, scale);
   err = first_error(err);
   // gwg2 = bf16(gl)^T relu(hg_pre), gbg2; g_hg = (bf16(gl) wg2) [hg_pre > 0] -> s2
+  using P = Bf16Mma;
+  using Cols = TcRows<bf16, bf16, false>;
   if (!err)
-    err = wgrad<MRows<bf16, RELU>, true>(s1, MRows<bf16, RELU>{hgp16, d, d}, rows, d, d, chunk,
-                                         partial, gw[6], gw[7], stream);
+    err = wgrad<P>(s1, TcRows<bf16, bf16, false, true>{hgp16, d, d}, rows, d, d, chunk, partial,
+                   gw[6], gw[7], stream);
   if (!err)
-    err = gemm(KRows<float, ROUND>{s1, d, rows}, MRows<bf16>{wh[3], d, d},
-               VaEpiMask<bf16>{hgp16, s2, rows, d}, rows, BM, d, d, STAGE_BYTES, stream);
+    err = tc_gemm<P>(s1, Cols{wh[3], d, d}, VaEpiMask<bf16>{hgp16, s2, rows, d}, rows, BM, d, d,
+                     stream);
   // gwg1 = bf16(g_hg)^T x, gbg1; g_x = bf16(g_hg) wg1: gkr, g_pos -> s1, gq
   if (!err)
-    err = wgrad<MRows<bf16>, true>(s2, MRows<bf16>{x16, d, d}, rows, d, d, chunk, partial, gw[4],
-                                   gw[5], stream);
+    err = wgrad<P>(s2, Cols{x16, d, d}, rows, d, d, chunk, partial, gw[4], gw[5], stream);
   if (!err)
-    err = gemm(KRows<float, ROUND>{s2, d, rows}, MRows<bf16>{wh[2], d, d},
-               VaEpiGx<GvProduct<TR>, bf16>{GvProduct<TR>{a, g}, gkr, gq, s1, npts, d, kk}, rows,
-               tile_rows, d, d, GROUP_BYTES, stream);
+    err = tc_gemm<P>(s2, Cols{wh[2], d, d},
+                     VaEpiGx<GvProduct<TR>, bf16>{GvProduct<TR>{a, g}, gkr, gq, s1, npts, d, kk},
+                     rows, tile_rows, d, d, stream);
   // gwd2 = bf16(g_pos)^T hd, gbd2; g_hd = (bf16(g_pos) wd2) [hd_pre > 0] -> s2
   if (!err)
-    err = wgrad<HdByChannel<bf16>, true>(s1, HdByChannel<bf16>{hd}, rows, d, d, chunk, partial,
-                                         gw[2], gw[3], stream);
+    err = wgrad<P>(s1, TcHdCols<bf16, bf16>{hd}, rows, d, d, chunk, partial, gw[2], gw[3], stream);
   if (!err)
-    err = gemm(KRows<float, ROUND>{s1, d, rows}, MRows<bf16>{wh[1], d, d},
-               VaEpiHdMask<bf16>{hd, s2}, rows, BM, d, d, STAGE_BYTES, stream);
+    err = tc_gemm<P>(s1, Cols{wh[1], d, d}, VaEpiHdMask<bf16>{hd, s2}, rows, BM, d, d, stream);
   // gwd1 = bf16(g_hd)^T rel, gbd1; grel = bf16(bf16(g_hd) wd1)
   const int rel_chunk = chunk / 8, rel_chunks = (rows + rel_chunk - 1) / rel_chunk;
   if (!err) {
@@ -1022,22 +1449,24 @@ int s3f_va_bwd(const float* rel, const float* const* w, const float* x, const fl
                                                                      d, scale);
   err = first_error(err);
   // gwg2 = gl^T hg, gbg2; g_hg = (gl wg2) [hg > 0] -> s2
-  if (!err) err = wgrad(s1, MRows<>{hg, d, d}, rows, d, d, chunk, partial, gw[6], gw[7], stream);
+  using P = Tf32x3;
+  using Cols = TcRows<float, float, false>;
+  if (!err) err = wgrad<P>(s1, Cols{hg, d, d}, rows, d, d, chunk, partial, gw[6], gw[7], stream);
   if (!err)
-    err = gemm(KRows<>{s1, d, rows}, MRows<>{w[6], d, d}, VaEpiMask<float>{hg, s2, rows, d}, rows,
-               BM, d, d, STAGE_BYTES, stream);
+    err = tc_gemm<P>(s1, Cols{w[6], d, d}, VaEpiMask<float>{hg, s2, rows, d}, rows, BM, d, d,
+                     stream);
   // gwg1 = g_hg^T x, gbg1; g_x = g_hg wg1: gk, g_pos -> s1, gq
-  if (!err) err = wgrad(s2, MRows<>{x, d, d}, rows, d, d, chunk, partial, gw[4], gw[5], stream);
+  if (!err) err = wgrad<P>(s2, Cols{x, d, d}, rows, d, d, chunk, partial, gw[4], gw[5], stream);
   if (!err)
-    err = gemm(KRows<>{s2, d, rows}, MRows<>{w[4], d, d},
-               VaEpiGx<GvRows, float>{GvRows{gv}, gk, gq, s1, npts, d, kk}, rows, tile_rows, d, d,
-               GROUP_BYTES, stream);
+    err = tc_gemm<P>(s2, Cols{w[4], d, d},
+                     VaEpiGx<GvRows, float>{GvRows{gv}, gk, gq, s1, npts, d, kk}, rows, tile_rows,
+                     d, d, stream);
   // gwd2 = g_pos^T hd, gbd2; g_hd = (g_pos wd2) [hd > 0] -> s2
   if (!err)
-    err = wgrad(s1, HdByChannel<float>{hd}, rows, d, d, chunk, partial, gw[2], gw[3], stream);
+    err = wgrad<P>(s1, TcHdCols<float, float>{hd}, rows, d, d, chunk, partial, gw[2], gw[3],
+                   stream);
   if (!err)
-    err = gemm(KRows<>{s1, d, rows}, MRows<>{w[2], d, d}, VaEpiHdMask<float>{hd, s2}, rows, BM, d,
-               d, STAGE_BYTES, stream);
+    err = tc_gemm<P>(s1, Cols{w[2], d, d}, VaEpiHdMask<float>{hd, s2}, rows, BM, d, d, stream);
   // gwd1 = g_hd^T rel, gbd1 (chunks of chunk / 8 rows: one thread a channel and
   // chunk walks its rows); grel = g_hd wd1
   const int rel_chunk = chunk / 8, rel_chunks = (rows + rel_chunk - 1) / rel_chunk;

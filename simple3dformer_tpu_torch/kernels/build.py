@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds). Libraries go to ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing here runs at
-import time: the first call that needs a library builds it.
+so a build takes seconds). The sources may include the shared headers
+``csrc/*.cuh``. Libraries go to ``build/kernels/`` at the root of the
+checkout, named by a hash of the source, every shared header and the flags,
+so an edited source or header is rebuilt and an unchanged tree is reused.
+Nothing here runs at import time: the first call that needs a library
+builds it.
 """
 
 from __future__ import annotations
@@ -39,9 +41,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed by source and flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the build of ``csrc/<name>.cu`` lives, keyed by the source, every
+    ``csrc/*.cuh`` header (by name and content) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -27,7 +27,9 @@ launches over the [B*N*K, D] rows with f32 intermediates in device memory
 (fc_delta's first layer formed while the pos GEMM stages its operand, the
 softmax over K and the sum over K in the epilogue of the logits GEMM), and it
 writes x, u = v + pos, relu(hg) and a, which the backward reads in place of a
-recompute (the TPU ``_resid`` variant's four tensors). The weight gradients
+recompute (the TPU ``_resid`` variant's four tensors). The forward's GEMMs are
+f32 FMA; the backward's six run on the tensor cores, in 3-pass TF32 (about
+21 bits of each operand; one pass keeps about 10). The weight gradients
 sum over all rows in fixed chunks of rows, one partial per chunk, and a
 second pass adds the partials in chunk order: no float atomics, two runs give
 the same bits. Against the plain version on the card: within 1e-4 of each
@@ -41,8 +43,9 @@ forward; a backward is six GEMMs and their reductions).
 The bf16 route takes q, k_all, v_all [B, N, D] and idx [B, N, K] and reads the
 neighbours' k and v rows by index inside the kernels, under the TPU kernel's
 precision policy: every product takes operands rounded to bf16 and sums in
-f32; biases, ReLU, softmax, x and u are f32; out, gq, gk_all, gv_all and grel
-are rounded to bf16 once; the weight and bias gradients are f32. The
+f32 (the backward's on bf16 tensor cores); biases, ReLU, softmax, x and u are
+f32; out, gq, gk_all, gv_all and grel are rounded to bf16 once; the weight and
+bias gradients are f32. The
 residual-saving forward keeps x, u, hg_pre and a as [B, N*K, D] bf16 and its
 backward reads them (u and a rounded: gradients O(bf16 eps) from the
 recompute backward's, as in the JAX package); the recompute backward runs the
@@ -66,6 +69,7 @@ WNAMES = ("wd1", "bd1", "wd2", "bd2", "wg1", "bg1", "wg2", "bg2")
 MAX_K = 128  # a GEMM row tile (128 rows) holds whole groups of K neighbours
 RESIDUALS = ("x", "u", "hg", "a")
 WGRAD_CHUNKS = 64  # the weight gradients' row sums split into at most this many chunks
+WGRAD_STEP = 32  # rows a stage of the tensor-core GEMM core: a chunk is a multiple of it
 
 
 def weight_shapes(d: int) -> dict[str, tuple]:
@@ -189,11 +193,12 @@ def _check_weights(weights: dict, d: int, device: torch.device) -> list[torch.Te
 
 
 def wgrad_chunk(rows: int) -> int:
-    """Rows per chunk of the weight gradients' sums: a multiple of 8, at least
-    256, at most WGRAD_CHUNKS chunks. A function of the row count alone, so a
-    rerun sums in the same order."""
+    """Rows per chunk of the weight gradients' sums: a multiple of WGRAD_STEP
+    (no stage of the GEMM core straddles two chunks), at least 256, at most
+    WGRAD_CHUNKS chunks. A function of the row count alone, so a rerun sums in
+    the same order."""
     per_chunk = -(-rows // WGRAD_CHUNKS)
-    return max(256, -(-per_chunk // 8) * 8)
+    return max(256, -(-per_chunk // WGRAD_STEP) * WGRAD_STEP)
 
 
 def vector_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel: torch.Tensor,
