@@ -9,7 +9,7 @@ Phases, one line each (and a line per kernel shape):
   1. device   the card's name and power limit; TF32 off for the plain versions
   2. build    every csrc/*.cu with nvcc (all started together), seconds; the
               registers and spills of each tensor-core GEMM of the
-              vector-attention backward
+              vector-attention forwards and backwards
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serving path's shapes and at the limits; time of both at the
               flagship shape
@@ -56,9 +56,11 @@ Phases, one line each (and a line per kernel shape):
  11. vector attention  the forward and backward against their plain versions
               (the Hengshuang step's levels 0, 1 and 4 at B=64, N=255 and 256, a
               D other than 512, D=8 and D=136, duplicated neighbours), the
-              backward twice bit-equal; times of kernel and plain version at
-              level 0; the level-0 backward's device time by GEMM kind (row
-              GEMMs, weight-gradient GEMMs) with TFLOP/s, all on the tensor cores
+              forward and the backward twice bit-equal; times of kernel and plain
+              version at level 0; the level-0 forward's device time by GEMM (pos,
+              hg, logits) and the backward's by GEMM kind (row GEMMs,
+              weight-gradient GEMMs) with TFLOP/s, every GEMM on the tensor-core
+              core in 3-pass TF32
  12. Hengshuang  the Point Transformer cls model (D=512, 4 blocks, 16
               neighbours, N=1024 with normals, 40 classes, f32, SGD): 3 steps on
               the card against the CPU's plain path at B=4; the train_cls CLI on
@@ -68,10 +70,12 @@ Phases, one line each (and a line per kernel shape):
  13. vector attention bf16  the in-kernel-gather forward, the recompute
               backward and the residual-saving pair against their plain versions
               (level 0 and level 4 of the bf16 step, N=1000, K=1, K=128 with
-              duplicated neighbours, D=200, D=8 and D=136), each backward twice
-              bit-equal, the residual backward against the recompute backward;
-              times of kernel and plain version at level 0; both backwards'
-              device time by GEMM kind with TFLOP/s
+              duplicated neighbours, D=200, D=8 and D=136), each forward and each
+              backward twice bit-equal, the residual backward against the
+              recompute backward; times of kernel and plain version at level 0;
+              each call's device time by GEMM (the forwards' pos, hg, logits; the
+              backwards' by kind) with TFLOP/s, every GEMM on the tensor-core
+              core in bf16
  14. Hengshuang bf16  the same model at dtype=bf16 (parameters f32): 3 steps on
               the card against the CPU's plain path at B=4; the train_cls CLI at
               dtype=bf16 (its lines, a checkpoint, the resume, launch counts: the
@@ -161,14 +165,25 @@ def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
     return out
 
 
+# a vector-attention GEMM by its epilogue: the forwards' pos, hg and logits
+# GEMMs; the backwards' row GEMMs and weight-gradient GEMMs
+GEMM_KIND = {"VaEpiPartial": "weight-gradient GEMMs", "VaEpiHdMask": "row GEMMs",
+             "VaEpiMask": "row GEMMs", "VaEpiGx": "row GEMMs", "VagEpiPos": "pos",
+             "VaEpiPos": "pos", "VaEpiBias": "hg", "VaEpiSoftmax": "logits"}
+GEMM_KINDS = {"forward": ("pos", "hg", "logits"),
+              "backward": ("row GEMMs", "weight-gradient GEMMs")}
+# TcRows<..., KMAJOR, RELU = true, SUM = false>, demangled and mangled
+RELU_OPERAND = ("false, true, false>", "true, true, false>", "Lb0ELb1ELb0E", "Lb1ELb1ELb0E")
+
+
 def tc_label(kernel: str) -> str:
-    """A tensor-core GEMM instantiation by route, epilogue and, for a weight
-    gradient, its right operand (x, hg, hd, or relu(hg_pre)); from a mangled or
-    a demangled name."""
+    """A tensor-core GEMM instantiation by route, epilogue and an operand formed
+    on the way (hd from rel, or relu(hg_pre)); from a mangled or a demangled
+    name."""
     route = "bf16" if "Bf16Mma" in kernel else "tf32x3"
-    epi = next(e for e in ("VaEpiPartial", "VaEpiHdMask", "VaEpiMask", "VaEpiGx") if e in kernel)
-    relu = "false, true, false>" in kernel or "Lb0ELb1ELb0E" in kernel
-    return f"{route} {epi}" + (" hd" if "TcHdCols" in kernel else " relu" if relu else "")
+    epi = next(e for e in GEMM_KIND if e in kernel)
+    relu = any(p in kernel for p in RELU_OPERAND)
+    return f"{route} {epi}" + (" hd" if "TcHd" in kernel else " relu" if relu else "")
 
 
 def block_inputs(torch, b, n, d, dtype, seed, device):
@@ -1310,65 +1325,86 @@ def va_inputs(torch, b, n, kk, d, seed, device, duplicates=False):
     return q, k, v, rel, w
 
 
-def gemm_split(torch, fn, b, n, kk, d, label, forward_in_call=False, iters=3):
-    """Device time of one backward call by kind (torch.profiler): the three row
-    GEMMs and the three weight-gradient GEMMs on the tensor-core core, each kind
-    with its TFLOP/s (2 R D^2 a GEMM), then the other kernels. A kernel's time
-    per call is its mean time per launch times its launches per call: the
-    profiler can miss launches (the recorded ones are printed beside the
-    expected ones for the GEMMs). Fails where a GEMM of the backward ran
-    on the forward's FMA core (va_gemm_kernel; with ``forward_in_call`` the call
-    runs a forward first, whose three do) or none ran on the tensor cores.
+def gemm_split(torch, fn, b, n, kk, d, label, route, parts, iters=3, rounds=3):
+    """Device time of one vector-attention call by GEMM (torch.profiler): a
+    forward's ("forward" in ``parts``) pos, hg and logits GEMMs, a backward's
+    three row GEMMs and three weight-gradient GEMMs by kind, each with its
+    TFLOP/s (2 R D^2 a GEMM), then the other kernels. A kernel's time per call
+    is its mean time per launch times its launches per call: the profiler can
+    miss launches (the recorded ones are printed beside the expected ones), so
+    it profiles ``iters`` calls again, up to ``rounds`` times, until every GEMM
+    of ``parts`` was recorded. Fails where a GEMM of the call ran on anything
+    but va_tc_gemm_kernel with ``route``'s products ("bf16": Bf16Mma,
+    "tf32x3": Tf32x3), or a GEMM of ``parts`` was never recorded.
     Informational when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kinds = {"row GEMMs": 0.0, "weight-gradient GEMMs": 0.0}
+    kinds = {k: 0.0 for p in parts for k in GEMM_KINDS[p]}
+    recorded: dict[str, list] = {}  # kernel name -> [device us, launches]
+    for calls in range(iters, iters * rounds + 1, iters):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0.0)
+            if us > 0 and str(getattr(e, "device_type", "")).split(".")[-1] == "CUDA":
+                seen = recorded.setdefault(e.key, [0.0, 0])
+                seen[0] += us
+                seen[1] += e.count
+        gemms = {GEMM_KIND[tc_label(key).split()[1]] for key in recorded
+                 if "va_tc_gemm_kernel" in key}
+        if gemms >= set(kinds):
+            break
     rest: dict[str, float] = {}
     each: dict[str, tuple[float, int, int]] = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us <= 0 or str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
-            continue
-        per_launch = us / e.count / 1e3
-        if "va_tc_gemm_kernel" in e.key:
-            name = tc_label(e.key)
+    strays = []
+    for key, (us, count) in recorded.items():
+        per_launch = us / count / 1e3
+        if "va_tc_gemm_kernel" in key:
+            name = tc_label(key)
+            kind = GEMM_KIND[name.split()[1]]
+            if not name.startswith(f"{route} ") or kind not in kinds:
+                strays.append(name)
+                continue
             # the f32 route's x and hg weight gradients are one instantiation
             per_call = 2 if name == "tf32x3 VaEpiPartial" else 1
-            kinds["weight-gradient GEMMs" if "VaEpiPartial" in e.key else "row GEMMs"] += (
-                per_launch * per_call)
+            kinds[kind] += per_launch * per_call
             ms, seen, want = each.get(name, (0.0, 0, 0))
-            each[name] = (ms + per_launch * per_call, seen + e.count, want + per_call * iters)
+            each[name] = (ms + per_launch * per_call, seen + count, want + per_call * calls)
         else:
-            name = ("va_gemm_kernel (the forward's FMA core)" if "va_gemm_kernel" in e.key
-                    else next((g for g in KERNEL_GROUPS if g in e.key), e.key[:40]))
-            rest[name] = rest.get(name, 0.0) + per_launch * max(1, round(e.count / iters))
-    if not kinds["row GEMMs"] and not rest:
+            if "gemm" in key.lower():
+                strays.append(key[:60])
+            name = next((g for g in KERNEL_GROUPS if g in key), key[:40])
+            rest[name] = rest.get(name, 0.0) + per_launch * max(1, round(count / calls))
+    if not any(kinds.values()) and not rest and not strays:
         print(f"{label}: the profiler recorded no device time")
         return
-    flops = 3 * 2 * b * n * kk * d * d
-    parts = ", ".join(f"{k} {v:.3f} ms ({flops / v / 1e9:.1f} TFLOP/s)" if v else f"{k} 0 ms"
+    gemm = 2 * b * n * kk * d * d
+    flops = {k: gemm * (1 if k in GEMM_KINDS["forward"] else 3) for k in kinds}
+    shown = ", ".join(f"{k} {v:.3f} ms ({flops[k] / v / 1e9:.1f} TFLOP/s)" if v else f"{k} 0 ms"
                       for k, v in kinds.items())
     others = ", ".join(f"{k} {v:.3f}" for k, v in sorted(rest.items(), key=lambda kv: -kv[1]))
     gemms = ", ".join(f"{k} {ms:.3f} ({seen} of {want} launches recorded)"
                       for k, (ms, seen, want) in each.items())
-    print(f"{label} device time by kind, ms per call (profiler, {iters} calls): {parts}; "
+    print(f"{label} device time by GEMM, ms per call (profiler, {calls} calls): {shown}; "
           f"each GEMM: {gemms}; the rest: {others}")
-    fma = rest.get("va_gemm_kernel (the forward's FMA core)", 0.0)
-    if not kinds["row GEMMs"] or not kinds["weight-gradient GEMMs"] or (fma and not forward_in_call):
-        raise AssertionError(f"{label}: backward GEMMs not all on the tensor-core core: {kinds}, "
-                             f"{rest}")
+    missing = [k for k, v in kinds.items() if not v]
+    if strays or missing:
+        raise AssertionError(f"{label}: GEMMs not all on the {route} tensor-core core: ran "
+                             f"elsewhere {strays}, not recorded in {calls} calls {missing}")
 
 
 def phase_va_kernels(torch):
     """The vector-attention forward and backward against their plain versions
-    at the Hengshuang step's shapes; the backward twice, bit-equal; times of
-    kernel and plain version at level 0 (no PyTorch call computes the chain)."""
+    at the Hengshuang step's shapes: the forward's output and kept residuals
+    against the plain chain's, the backward against the plain backward from the
+    forward's residuals (and, reported, against a backward through a
+    recomputed plain chain, with the hg ReLUs that fall on the other side of
+    zero there); each twice, bit-equal; times of kernel and plain version at
+    level 0 (no PyTorch call computes the chain)."""
     from simple3dformer_tpu_torch.kernels import vector_attention as va
 
     report = {}
@@ -1377,31 +1413,45 @@ def phase_va_kernels(torch):
         g = torch.randn(b, n, d, generator=torch.Generator("cuda").manual_seed(n), device="cuda")
         out, res = va.vector_attention_fwd(q, k, v, rel, w, save=True)
         out_inf, _ = va.vector_attention_fwd(q, k, v, rel, w)
+        out2, res2 = va.vector_attention_fwd(q, k, v, rel, w, save=True)
+        torch.cuda.synchronize()
+        same = (torch.equal(out, out_inf) and torch.equal(out, out2)
+                and all(torch.equal(res[key], res2[key]) for key in res))
+        del out2, res2
         grads = va.vector_attention_bwd(g, rel, w, res)
         again = va.vector_attention_bwd(g, rel, w, res)
         torch.cuda.synchronize()
         flat = lambda gr: [*gr[:4], *[gr[4][name] for name in va.WNAMES]]  # noqa: E731
-        same = (torch.equal(out, out_inf)
-                and all(torch.equal(a, c) for a, c in zip(flat(grads), flat(again))))
+        same = same and all(torch.equal(a, c) for a, c in zip(flat(grads), flat(again)))
         del again
-        out_ref = va.vector_attention_reference(q, k, v, rel, w)
-        fwd_err = va_err("out", out, out_ref)
+        out_ref, res_ref = va.vector_attention_resid_reference(q, k, v, rel, w)
+        fwd_errs = {"out": va_err("out", out, out_ref),
+                    **{name: va_err(name, res[name], res_ref[name]) for name in va.RESIDUALS}}
         fwd_abs = float((out - out_ref).abs().max())
-        del out_ref
-        want = va.vector_attention_backward_reference(q, k, v, rel, w, g)
+        flips = int(((res["hg"] > 0) != (res_ref["hg"] > 0)).sum())
+        del out_ref, res_ref
+        names = ("gq", "gk", "gv", "grel", *va.WNAMES)
+        want = va.vector_attention_resid_backward_reference(rel, w, res, g)
         torch.cuda.synchronize()
-        errs = {name: va_err(name, a, c) for name, a, c in
-                zip(("gq", "gk", "gv", "grel", *va.WNAMES), flat(grads), flat(want))}
+        errs = {name: va_err(name, a, c) for name, a, c in zip(names, flat(grads), flat(want))}
         bwd_abs = max(float((a - c).abs().max()) for a, c in zip(flat(grads), flat(want)))
         del want
+        want = va.vector_attention_backward_reference(q, k, v, rel, w, g)
+        recomputed = {name: va_err(name, a, c)
+                      for name, a, c in zip(names, flat(grads), flat(want))}
+        del want
         ok = all(bool(torch.isfinite(t).all()) for t in (out, *flat(grads)))
-        worst = max(errs, key=errs.get)
+        fwd_worst, worst = max(fwd_errs, key=fwd_errs.get), max(errs, key=errs.get)
+        far = max(recomputed, key=recomputed.get)
         print(f"kernel vector_attention {label} B={b} N={n} K={kk} D={d}: error relative to "
-              f"each output's largest value (bg2's gradient: max(1, it)): forward {fwd_err:.3e}, backward {errs[worst]:.3e} "
-              f"({worst}) (tolerance {VA_REL}); forward kept/not kept and two backward runs "
-              f"bit-equal {same}; finite {ok}")
-        if max(fwd_err, errs[worst]) > VA_REL or not same or not ok:
-            raise AssertionError(f"vector attention {label}: forward {fwd_err}, backward "
+              f"each output's largest value (bg2's gradient: max(1, it)): forward "
+              f"{fwd_errs[fwd_worst]:.3e} ({fwd_worst}; out {fwd_errs['out']:.3e}), backward from "
+              f"its residuals {errs[worst]:.3e} ({worst}) (tolerance {VA_REL}); forward kept/not "
+              f"kept, two forward runs and two backward runs bit-equal {same}; finite {ok}; "
+              f"against a backward through a recomputed plain chain {recomputed[far]:.3e} ({far}),"
+              f" {flips} of {res['hg'].numel()} hg ReLUs on the other side of zero there")
+        if max(fwd_errs[fwd_worst], errs[worst]) > VA_REL or not same or not ok:
+            raise AssertionError(f"vector attention {label}: forward {fwd_errs}, backward "
                                  f"{errs}, bit-equal {same}, finite {ok}")
         if label == "level 0":
             ws = [w[name] for name in va.WNAMES]
@@ -1411,15 +1461,17 @@ def phase_va_kernels(torch):
             report["vector_attention_fwd"] = point_report(
                 "vector_attention_fwd", fwd_abs, times, nbytes(q, k, v, rel, *ws, out), ops,
                 "", iters=10)
+            gemm_split(torch, lambda: va.vector_attention_fwd(q, k, v, rel, w, save=True), b, n,
+                       kk, d, "kernel vector_attention_fwd level 0", "tf32x3", ("forward",))
             gq, gk, gv, grel, gw = grads
             times = timed(torch, lambda: va.vector_attention_bwd(g, rel, w, res),
-                          lambda: va.vector_attention_backward_reference(q, k, v, rel, w, g),
+                          lambda: va.vector_attention_resid_backward_reference(rel, w, res, g),
                           iters=10)
             report["vector_attention_bwd"] = point_report(
                 "vector_attention_bwd", bwd_abs, times,
                 nbytes(q, k, v, rel, *ws, g, gq, gk, gv, grel, gw), 2 * ops, "", iters=10)
             gemm_split(torch, lambda: va.vector_attention_bwd(g, rel, w, res), b, n, kk, d,
-                       "kernel vector_attention_bwd level 0")
+                       "kernel vector_attention_bwd level 0", "tf32x3", ("backward",))
             torch.cuda.synchronize()
             print(f"vector_attention level 0: peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (kernel and plain "
@@ -1703,24 +1755,32 @@ def vag_flat(grads) -> dict:
 
 def vag_check(torch, b, n, kk, d, dup, seed, device="cuda") -> dict:
     """The four bf16 kernels on one input against their plain versions (the
-    residual backward fed the kernel's own saves), each backward run twice, the
-    residual backward against the recompute backward. Returns the inputs, the
-    kernels' outputs, the errors by check and output, the bit-equality of the
-    reruns and whether every check held."""
+    residual backward fed the kernel's own saves, the recompute backward's
+    plain chain the kernel forward's x and hg_pre: each ReLU of hg_pre on the
+    kernel's side of zero), each run twice, the residual backward against the
+    recompute backward; reported, the recompute backward against a wholly
+    plain chain and its hg_pre signs that differ from the kernel's. Returns the
+    inputs, the kernels' outputs, the errors by check and output, the
+    bit-equality of the reruns and whether every check held."""
     from simple3dformer_tpu_torch.kernels import vector_attention as va
 
     inputs = vag_inputs(torch, b, n, kk, d, seed, device, dup)
     idx, rel, w = inputs[3:]
     g = torch.randn(b, n, d, generator=torch.Generator(device).manual_seed(seed),
                     device=device).bfloat16()
-    out = va.gather_attention_fwd(*inputs)
+    out, out_again = (va.gather_attention_fwd(*inputs) for _ in range(2))
     out_res, saves = va.gather_attention_resid_fwd(*inputs)
+    out_res2, saves2 = va.gather_attention_resid_fwd(*inputs)
+    torch.cuda.synchronize()
+    same = {"forwards": torch.equal(out, out_res), "forward twice": torch.equal(out, out_again),
+            "residual forward twice": (torch.equal(out_res, out_res2)
+                                       and all(torch.equal(saves[k], saves2[k]) for k in saves))}
+    del out_again, out_res2, saves2
     rec = [vag_flat(va.gather_attention_bwd(*inputs, g)) for _ in range(2)]
     res = [vag_flat(va.gather_attention_resid_bwd(idx, rel, w, saves, g)) for _ in range(2)]
     torch.cuda.synchronize()
-    same = {"forwards": torch.equal(out, out_res),
-            "recompute backward": all(torch.equal(rec[0][k], rec[1][k]) for k in rec[0]),
-            "residual backward": all(torch.equal(res[0][k], res[1][k]) for k in res[0])}
+    same |= {"recompute backward": all(torch.equal(rec[0][k], rec[1][k]) for k in rec[0]),
+             "residual backward": all(torch.equal(res[0][k], res[1][k]) for k in res[0])}
     rec, res = rec[0], res[0]
 
     def errs(got, want):
@@ -1736,9 +1796,13 @@ def vag_check(torch, b, n, kk, d, dup, seed, device="cuda") -> dict:
            "resid_fwd": errs({"out": out_res, **saves}, {"out": want_out, **want_saves})}
     absolute = {"fwd": abs_err({"out": out}, {"out": want_out}),
                 "resid_fwd": abs_err({"out": out_res, **saves}, {"out": want_out, **want_saves})}
+    flips = int(((saves["hg"] > 0) != (want_saves["hg"] > 0)).sum())
     del want_saves
-    want = vag_flat(va.gather_attention_backward_reference(*inputs, g))
+    want = vag_flat(va.gather_attention_backward_reference(*inputs, g, state=saves))
     err["bwd"], absolute["bwd"] = errs(rec, want), abs_err(rec, want)
+    del want
+    want = vag_flat(va.gather_attention_backward_reference(*inputs, g))
+    recomputed = errs(rec, want)
     del want
     want = vag_flat(va.gather_attention_resid_backward_reference(idx, rel, w, saves, g))
     err["resid_bwd"], absolute["resid_bwd"] = errs(res, want), abs_err(res, want)
@@ -1750,7 +1814,8 @@ def vag_check(torch, b, n, kk, d, dup, seed, device="cuda") -> dict:
     limit = {k: VAG_RESID_REL if k == "resid vs recompute" else VAG_REL for k in err}
     ok = all(worst[k] <= limit[k] for k in err) and all(same.values()) and finite
     return dict(inputs=inputs, g=g, out=out, saves=saves, rec=rec, res=res, err=err,
-                abs=absolute, worst=worst, same=same, finite=finite, ok=ok)
+                abs=absolute, worst=worst, same=same, finite=finite, ok=ok,
+                recomputed=recomputed, flips=flips)
 
 
 def phase_vag_kernels(torch):
@@ -1764,10 +1829,13 @@ def phase_vag_kernels(torch):
         r = vag_check(torch, b, n, kk, d, dup, seed=b * n + kk + d)
         worst = ", ".join(f"{k} {v:.3e} ({max(r['err'][k], key=r['err'][k].get)})"
                           for k, v in r["worst"].items())
+        far = max(r["recomputed"], key=r["recomputed"].get)
         print(f"kernel vector_attention bf16 {label} B={b} N={n} K={kk} D={d}: error relative "
               f"to each output's largest value (bg2's gradient: max(1, it)): {worst} "
               f"(tolerance {VAG_REL}, resid vs recompute {VAG_RESID_REL}); bit-equal "
-              f"{r['same']}; finite {r['finite']}")
+              f"{r['same']}; finite {r['finite']}; the recompute backward against a wholly "
+              f"plain chain {r['recomputed'][far]:.3e} ({far}), {r['flips']} of "
+              f"{r['saves']['hg'].numel()} hg_pre on the other side of zero there")
         if not r["ok"]:
             raise AssertionError(f"bf16 vector attention {label}: {r['err']}, {r['same']}, "
                                  f"finite {r['finite']}")
@@ -1795,9 +1863,9 @@ def phase_vag_kernels(torch):
                 times = timed(torch, kernel, plain, iters=5)
                 report[name] = point_report(name, r["abs"][key], times, moved, work, "", iters=5,
                                             peak=PEAK_BF16)
-                if key in ("bwd", "resid_bwd"):
-                    gemm_split(torch, kernel, b, n, kk, d, f"kernel {name} level 0",
-                               forward_in_call=key == "bwd")
+                parts = {"fwd": ("forward",), "resid_fwd": ("forward",),
+                         "bwd": ("forward", "backward"), "resid_bwd": ("backward",)}[key]
+                gemm_split(torch, kernel, b, n, kk, d, f"kernel {name} level 0", "bf16", parts)
                 torch.cuda.empty_cache()
             torch.cuda.synchronize()
             print(f"vector_attention bf16 level 0: peak device memory "

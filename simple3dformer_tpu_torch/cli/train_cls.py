@@ -10,14 +10,15 @@ and the same recipe and printed lines: ``model=3DViT`` (the default, PointViT
 cls) or ``model=Hengshuang`` (PointTransformerCls: transformer_dim 512, 4
 blocks, 16 neighbours), 1024 points with normals (``normal`` picks input 6 or
 3), 40 classes, batch 64; per-step point dropout, then a random scale and shift
-of xyz, on the device; the reference's optimizer block (SGD momentum 0.9 at the
-hard-coded lr 0.01, or Adam with the config's lr and weight decay) and
-StepLR(50, 0.3) per epoch; instance and class accuracy on the test split, a
-checkpoint at each best instance accuracy, and the resume from the latest
-("Use pretrain model"). The corpus sits on the device and each epoch runs from
-one index matrix; its metrics are fetched once. The trainer sets
-``torch.backends.cuda.matmul.allow_tf32 = False``: the Linear layers run in
-full f32, as the kernels do and as the JAX trainer computes.
+of xyz, on the device, drawn from the seed and the optimizer step (a resumed
+run draws what an unbroken one draws at the same step); the reference's
+optimizer block (SGD momentum 0.9 at the hard-coded lr 0.01, or Adam with the
+config's lr and weight decay) and StepLR(50, 0.3) per epoch; instance and
+class accuracy on the test split, a checkpoint at each best instance accuracy,
+and the resume from the latest ("Use pretrain model"). The corpus sits on the
+device and each epoch runs from one index matrix; its metrics are fetched once.
+The trainer sets ``torch.backends.cuda.matmul.allow_tf32 = False``: the Linear
+layers run in full f32, as the kernels do and as the JAX trainer computes.
 
 It runs on the card (``device=cuda``, the default) and on the CPU only when
 asked (``device=cpu``). Without the ``modelnet40_normal_resampled`` corpus,
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core import checkpoint as ckpt_lib
-from ..core.rng import generator
+from ..core.rng import generator, step_seed
 from ..data import augment, datasets
 from ..data.pipeline import DeviceResidentDataset
 from ..models.registry import make_point_model
@@ -87,9 +88,13 @@ def main(argv=None):
     print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     optimizer, base_lr = C.reference_optimizer(cfg, dict(model.named_parameters()))
     state = TrainState(model, optimizer)
-    aug_gen = torch.Generator(device=device).manual_seed(int(cfg.seed))
-    train_run = make_scanned_train_steps(
-        state, train_ds, augment_fn=lambda x: augment.device_cls_augment(aug_gen, x))
+    aug_gen = torch.Generator(device=device)
+
+    def augment_fn(x):
+        aug_gen.manual_seed(step_seed(int(cfg.seed), state.step))
+        return augment.device_cls_augment(aug_gen, x)
+
+    train_run = make_scanned_train_steps(state, train_ds, augment_fn=augment_fn)
     eval_run = make_scanned_eval(model, test_ds)
     sched = C.lr_schedule(cfg, base_lr)
 

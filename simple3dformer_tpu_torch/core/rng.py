@@ -16,3 +16,11 @@ DEFAULT_SEED = 9
 def generator(seed: int = DEFAULT_SEED) -> torch.Generator:
     """A CPU generator seeded with ``seed``, for parameter init."""
     return torch.Generator().manual_seed(seed)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of optimizer step ``step``'s draws in a run seeded with ``seed``,
+    as the JAX step folds ``state.step`` into its key: a function of the two
+    only, so a run resumed from a checkpoint (which restores the step) draws
+    what an unbroken run draws at the same step."""
+    return (seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)

@@ -24,9 +24,9 @@
 // The TPU kernel runs the whole chain per tile of 32 points in VMEM, its four
 // weight matrices resident. Here D = 512 makes each weight matrix 1 MB in f32
 // and a block has 227 KB of shared memory, so the chain is a sequence of tiled
-// GEMM launches with f32 [R, D] intermediates in device memory:
+// GEMM launches with [R, D] intermediates in device memory:
 //
-//   forward   pos GEMM (hd formed from rel while the operand is staged; x and u
+//   forward   pos GEMM (hd formed from rel as its operand is staged; x and u
 //             written by the epilogue), hg GEMM, logits GEMM whose epilogue takes
 //             the softmax over K and the sum over K of a * u: its row tile holds
 //             whole groups of K rows (128 / K points). x, u, hg and (for training)
@@ -37,14 +37,11 @@
 //             sum gq in its epilogue, g_hd), four weight-gradient GEMMs, and
 //             fc_delta's first layer (grel, gwd1, gbd1) by row reductions.
 //
-// Every product is a GEMM tile of 128 x 128 outputs, 256 threads. The forward's
-// run on va_gemm_kernel, f32 FMA with 8 x 8 outputs a thread, the contraction
-// staged 8 at a time in shared memory and double-buffered (the next tile's
-// loads in flight during the current one's products). The backward's run on
-// va_tc_gemm_kernel, mma.sync on the tensor cores (3-pass TF32 on this route,
-// bf16 on the bf16 route; see its section). At B=64, N=1024, K=16, D=512 the
-// products are 1.65 TFLOP a forward against 4.4 GB of inputs: the operation
-// count bounds it on this card, not bytes.
+// Every product is a GEMM tile of 128 x 128 outputs, 256 threads, on one core,
+// va_tc_gemm_kernel: mma.sync on the tensor cores, 3-pass TF32 on this route
+// and bf16 on the bf16 route (see its section). At B=64, N=1024, K=16, D=512
+// the products are 1.65 TFLOP a forward against 4.4 GB of inputs: the
+// operation count bounds it on this card, not bytes.
 //
 // The weight gradients sum over all R rows (1,048,576 at level 0) into D x D
 // outputs: one block per output tile would give 16 blocks at D = 512. So each
@@ -103,51 +100,9 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-constexpr int BM = 128, BN = 128, BK = 8, THREADS = 256;
-constexpr int LDS = BM + 4;  // a staged row of 128: 16-byte aligned, conflict-free stores
-constexpr int LDE = BN + 4;  // a row of the epilogue tile
-constexpr int STAGE_FLOATS = 2 * 2 * BK * LDS;  // A and B, two buffers each
-constexpr size_t STAGE_BYTES = STAGE_FLOATS * sizeof(float);
+constexpr int BM = 128, BN = 128, THREADS = 256;
+constexpr int LDE = BN + 4;  // a row of the epilogues' group tile
 constexpr size_t GROUP_BYTES = static_cast<size_t>(BM) * LDE * sizeof(float);
-
-// ---------------------------------------------------------------------------
-// The forward's GEMM operands. Each fills one staged tile S[BK][LDS] with
-// S[kk][m] = element(m0 + m, k0 + kk), zero outside the matrix, in two steps:
-// fetch (device memory to four registers a thread) and put (registers to
-// shared memory).
-// ---------------------------------------------------------------------------
-
-// what a loader does to its values before they are staged
-enum Load { AS_IS = 0, RELU = 1 };
-template <int MODE>
-__device__ __forceinline__ float4 staged(float4 r) {
-  if (MODE == RELU)
-    return make_float4(fmaxf(r.x, 0.f), fmaxf(r.y, 0.f), fmaxf(r.z, 0.f), fmaxf(r.w, 0.f));
-  return r;
-}
-
-// element (m, k) = p[m * ld + k] of type T, MODE applied: the contraction
-// contiguous (rows of activations, weights as Linear layers hold them). k0 + 8
-// <= the contraction length, a multiple of 8.
-template <class T = float, int MODE = AS_IS>
-struct KRows {
-  const T* p;
-  long long ld;
-  int m_lim;
-  __device__ __forceinline__ void fetch(float4& r, int m0, int k0, int) const {
-    const int m = threadIdx.x >> 1, kk = (threadIdx.x & 1) * 4;
-    r = m0 + m < m_lim ? load4(p + static_cast<long long>(m0 + m) * ld + k0 + kk)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  __device__ __forceinline__ void put(float* S, const float4& v) const {
-    const int m = threadIdx.x >> 1, kk = (threadIdx.x & 1) * 4;
-    const float4 r = staged<MODE>(v);
-    S[(kk + 0) * LDS + m] = r.x;
-    S[(kk + 1) * LDS + m] = r.y;
-    S[(kk + 2) * LDS + m] = r.z;
-    S[(kk + 3) * LDS + m] = r.w;
-  }
-};
 
 // fc_delta's first layer from rel [R, 3] and wd1 [D, 3] of type T, bd1 [D] f32:
 // hd_pre in f32, the same expression wherever it is formed (the pos GEMM's
@@ -169,99 +124,18 @@ struct Hd {
                                                  float b) {
     return __fadd_rn(fmaf(v[2], w2, fmaf(v[1], w1, __fmul_rn(v[0], w0))), b);
   }
-  __device__ __forceinline__ float pre(const float (&v)[3], int i) const {
-    const T* w = wd1 + 3 * i;
-    return pre_of(v, to_f(w[0]), to_f(w[1]), to_f(w[2]), bd1[i]);
-  }
-  __device__ __forceinline__ float at(const float (&v)[3], int i) const {
-    return operand(fmaxf(pre(v, i), 0.f), rel);
-  }
+  // hd as a product's operand, from hd_pre
+  __device__ __forceinline__ float op(float pre) const { return operand(fmaxf(pre, 0.f), rel); }
 };
 
-// hd as the A operand of the pos GEMM: element (m = row, k = channel)
-template <class T>
-struct HdByRow : Hd<T> {
-  __device__ __forceinline__ void fetch(float4& r, int m0, int k0, int) const {
-    const int m = threadIdx.x >> 1, kk = (threadIdx.x & 1) * 4;
-    const int rr = m0 + m, i = k0 + kk;
-    if (rr < this->rows) {
-      float v[3];
-      this->row(rr, v);
-      r = make_float4(this->at(v, i), this->at(v, i + 1), this->at(v, i + 2), this->at(v, i + 3));
-    } else {
-      r = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __device__ __forceinline__ void put(float* S, const float4& r) const { KRows<>{}.put(S, r); }
-};
-
-// A thread's outputs: rows (i < 4 ? 0 : 64) + 4 ty + i % 4 and columns
-// (j < 4 ? 0 : 64) + 4 tx + j % 4 of the tile, ty = thread / 16, tx = thread % 16.
+// An epilogue's outputs a thread, acc[i][j]: rows (i < 4 ? 0 : 64) + 4 ty + i %
+// 4 and columns (j < 4 ? 0 : 64) + 4 tx + j % 4 of the tile, ty = thread / 16,
+// tx = thread % 16.
 __device__ __forceinline__ int row_of(int i) {
   return (i < 4 ? 0 : 64) + (threadIdx.x >> 4) * 4 + (i & 3);
 }
 __device__ __forceinline__ int col_of(int j) {
   return (j < 4 ? 0 : 64) + (threadIdx.x & 15) * 4 + (j & 3);
-}
-
-// One 128 x 128 tile of C = sum_k A(m, k) B(n, k) over k in [0, k_len), with
-// tile_rows rows a tile (the epilogue may take fewer than BM) and ncol column
-// tiles (blockIdx.x = row tile * ncol + column tile): the forward's f32 FMA core.
-template <class OpA, class OpB, class Epi>
-__global__ void __launch_bounds__(THREADS)
-va_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;
-  float* Bs = smem + 2 * BK * LDS;
-  const int mt = blockIdx.x / ncol, nt = blockIdx.x % ncol;
-  const int m0 = mt * tile_rows, n0 = nt * BN;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  float acc[8][8];
-  float asum[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    asum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  float4 ra, rb;
-  opa.fetch(ra, m0, 0, k_len);
-  opb.fetch(rb, n0, 0, k_len);
-  opa.put(As, ra);
-  opb.put(Bs, rb);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < k_len; k0 += BK) {
-    const bool more = k0 + BK < k_len;
-    if (more) {
-      opa.fetch(ra, m0, k0 + BK, k_len);
-      opb.fetch(rb, n0, k0 + BK, k_len);
-    }
-    const float* as = As + buf * BK * LDS;
-    const float* bs = Bs + buf * BK * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * LDS + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * LDS + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * LDS + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * LDS + 64 + tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    if (more) {
-      opa.put(As + (buf ^ 1) * BK * LDS, ra);
-      opb.put(Bs + (buf ^ 1) * BK * LDS, rb);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-  epi(acc, asum, false, m0, n0, tile_rows, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -335,7 +209,7 @@ struct VaEpiBias {
 };
 
 // the tile's values (rows below tile_rows) to the shared tile E [BM][LDE], after
-// every thread is done with the staging buffers it overlays
+// every thread is done with the core's accumulator tile it overlays
 template <class F>
 __device__ __forceinline__ void to_group_tile(float (&acc)[8][8], int n0, int tile_rows, int d,
                                               float* E, F value) {
@@ -563,15 +437,16 @@ __global__ void va_sum_chunks_kernel(const float* __restrict__ partial, int chun
 }
 
 // ===========================================================================
-// The backward's GEMM core on the tensor cores: va_tc_gemm_kernel. The same
-// 128 x 128 output tiles, row chunks, operands and epilogues as the forward's
-// va_gemm_kernel, the products on mma.sync with f32 sums in registers:
+// The GEMM core on the tensor cores, va_tc_gemm_kernel: every GEMM of both
+// routes' forwards and backwards. 128 x 128 output tiles (a row tile may hand
+// its epilogue fewer rows: whole groups of K), the weight gradients' rows in
+// chunks (blockIdx.z), the products on mma.sync with f32 sums in registers:
 //
-//   bf16 route  m16n8k16 .bf16, the operands exactly the FMA core's (the saves
-//               and weights in bf16, the f32 scratch s1, s2 rounded to bf16 as
-//               it is staged, ReLU applied to hg_pre): a bf16 x bf16 product
-//               is exact in f32, so only the order of the f32 sums changes.
-//               Bound: 989 TFLOP/s.
+//   bf16 route  m16n8k16 .bf16 on the TPU kernel's operands (the inputs, saves
+//               and weights in bf16, hd and the f32 scratch s1, s2 rounded to
+//               bf16 as they are staged, ReLU applied to hg_pre): a bf16 x bf16
+//               product is exact in f32, so the f32 sums differ from a plain
+//               version's in their order only. Bound: 989 TFLOP/s.
 //   f32 route   m16n8k8 .tf32 in 3 passes (tensor_core.cuh's split: a product
 //               is a_small b_big + a_big b_small + a_big b_big), the split made
 //               where a fragment leaves shared memory. One pass keeps about 10
@@ -584,17 +459,20 @@ __global__ void va_sum_chunks_kernel(const float* __restrict__ partial, int chun
 // 1 stages ahead. An operand transformed on the way (f32 scratch rounded to
 // bf16, ReLU, the bias gradients' sums of the unrounded f32 values) is
 // transformed in shared memory by the thread that copied it, once its copy
-// has landed, a stage before its products; fc_delta's hidden layer, formed
-// from rel, goes through registers a stage ahead. (Every transformed operand
-// through registers, loaded a stage ahead, was slower in both backwards.) A
+// has landed, a stage before its products; fc_delta's hidden layer is formed
+// from rel held in registers (TcHdCols reads a stage's rel a stage ahead,
+// TcHdRows its block's rows once). (Every transformed operand through
+// registers, loaded a stage ahead, was slower in both backwards.) A
 // tile keeps its device-memory layout: K-major [128][TBK + pad] (the
-// contraction contiguous: an activation's rows) or MN-major [TBK][128 + 8] (a
-// weight read transposed, and both operands of a weight gradient, whose
-// contraction is the row axis);
-// ldmatrix reads the fragments (.trans for MN-major bf16; MN-major f32 by
-// 32-bit loads on banks 8 t + g), the pads keeping each conflict-free. The
-// accumulators go through shared memory into the FMA core's per-thread
-// acc[8][8] layout (row_of, col_of), so both cores share the epilogues.
+// contraction contiguous: an activation's rows, and a weight in the Linear
+// layout as the right factor of a forward GEMM, x W^T) or MN-major [TBK][128 +
+// 8] (a weight read transposed in the backward's row GEMMs, and both operands
+// of a weight gradient, whose contraction is the row axis); ldmatrix reads the
+// fragments (.trans for MN-major bf16; MN-major f32 by 32-bit loads on banks 8
+// t + g), the pads keeping each conflict-free. The accumulators go through
+// shared memory into the epilogues' per-thread acc[8][8] layout (row_of,
+// col_of); the epilogues that take sums over a group of K rows then build
+// their group tile in the same shared memory.
 // ===========================================================================
 
 struct Bf16Mma {  // the bf16 route's products
@@ -748,10 +626,63 @@ struct TcHdCols {
       float h[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        h[j] = ok ? operand(fmaxf(Hd<S>::pre_of(r.v[i], r.w[j][0], r.w[j][1], r.w[j][2], r.b[j]),
-                                  0.f),
-                            hd.rel)
-                  : 0.f;
+        h[j] = ok ? hd.op(Hd<S>::pre_of(r.v[i], r.w[j][0], r.w[j][1], r.w[j][2], r.b[j])) : 0.f;
+      store4(cooked + row * LD + cl, h[0], h[1], h[2], h[3]);
+    }
+  }
+  __device__ __forceinline__ const T* tile(const unsigned char*, const T* cooked) const {
+    return cooked;
+  }
+};
+
+// hd as the A operand of the pos GEMM, K-major: element (m = row, k = channel)
+// formed from rel as Hd forms it. A block's rows are fixed: a thread
+// keeps rows m0 + thread / 8 + 32 i (i < 4), their rel read once (setup), and
+// takes channels k0 + 4 (thread % 8) .. + 3: prepare reads their weights and
+// biases (small, L1-resident), then forms and stores the values.
+template <class T, class S>
+struct TcHdRows {
+  Hd<S> hd;
+  static constexpr bool K_MAJOR = true, SUMS = false;
+  static constexpr int LD = tile_ld<T, true>();
+  static constexpr int RAW = 0, COOKED = tile_bytes<T, true>();
+  struct Regs {
+    float v[4][3];
+  };
+  __device__ __forceinline__ void setup(Regs& r, int m0) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = m0 + (threadIdx.x >> 3) + 32 * i;
+      if (rr < hd.rows) {
+        hd.row(rr, r.v[i]);
+      } else {
+        r.v[i][0] = r.v[i][1] = r.v[i][2] = 0.f;
+      }
+    }
+  }
+  __device__ __forceinline__ void issue(unsigned char*, int, int, int) const {}
+  __device__ __forceinline__ void fetch(Regs&, int, int, int) const {}
+  __device__ __forceinline__ void prepare(unsigned char*, T* cooked, const Regs& r, int m0,
+                                          int k0, int k_lim, float (&)[4]) const {
+    const int cl = (threadIdx.x & 7) * 4;
+    const bool in = k0 + cl < k_lim;  // k_lim (D) is a multiple of 4
+    float w[4][3], b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = min(k0 + cl + j, hd.d - 1);
+      w[j][0] = to_f(hd.wd1[3 * c]);
+      w[j][1] = to_f(hd.wd1[3 * c + 1]);
+      w[j][2] = to_f(hd.wd1[3 * c + 2]);
+      b[j] = hd.bd1[c];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = (threadIdx.x >> 3) + 32 * i;
+      const bool ok = in && m0 + row < hd.rows;
+      float h[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        h[j] = ok ? hd.op(Hd<S>::pre_of(r.v[i], w[j][0], w[j][1], w[j][2], b[j])) : 0.f;
       store4(cooked + row * LD + cl, h[0], h[1], h[2], h[3]);
     }
   }
@@ -1091,28 +1022,13 @@ __global__ void va_rel_grad_kernel(const float* __restrict__ ghd, const T* __res
 
 int first_error(int err) { return err ? err : static_cast<int>(cudaGetLastError()); }
 
-// C[rows, n] = A B^T tiles over row tiles of tile_rows rows, contraction k_len,
-// on the forward's f32 FMA core
-template <class OpA, class OpB, class Epi>
-int gemm(OpA a, OpB b, Epi epi, int rows, int tile_rows, int n, int k_len, size_t smem,
-         cudaStream_t stream) {
-  auto kernel = va_gemm_kernel<OpA, OpB, Epi>;
-  int err = 0;
-  if (smem > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err) return err;
-  const int ncol = (n + BN - 1) / BN, nrow = (rows + tile_rows - 1) / tile_rows;
-  kernel<<<dim3(nrow * ncol, 1, 1), THREADS, smem, stream>>>(a, b, epi, tile_rows, ncol, k_len);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // va_tc_gemm_kernel over a grid (blockIdx.z: chunks of `chunk` contraction rows)
 template <class P, class OpA, class OpB, class Epi>
 int tc_launch(OpA a, OpB b, Epi epi, dim3 grid, int tile_rows, int ncol, int k_len, int chunk,
               cudaStream_t stream) {
   auto kernel = va_tc_gemm_kernel<P, OpA, OpB, Epi>;
   constexpr size_t smem = tc_smem_bytes<P, OpA, OpB>();
+  static_assert(smem >= GROUP_BYTES, "an epilogue's group tile overlays the core's shared memory");
   const int err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (err) return err;
@@ -1120,15 +1036,18 @@ int tc_launch(OpA a, OpB b, Epi epi, dim3 grid, int tile_rows, int ncol, int k_l
   return static_cast<int>(cudaGetLastError());
 }
 
-// the backward's row GEMMs: C[rows, n] = A B^T on the tensor cores, A the f32
-// scratch [rows, d] (K-major), B a weight read transposed (MN-major)
-template <class P, class OpB, class Epi>
-int tc_gemm(const float* a, OpB b, Epi epi, int rows, int tile_rows, int n, int d,
-            cudaStream_t stream) {
+// a row GEMM: C[rows, n] = A B^T over row tiles of tile_rows rows, contraction
+// d, A [rows, d] K-major; B a weight: K-major in the forwards (x W^T, the
+// Linear layout), MN-major in the backwards (g W)
+template <class P, class OpA, class OpB, class Epi>
+int tc_gemm(OpA a, OpB b, Epi epi, int rows, int tile_rows, int n, int d, cudaStream_t stream) {
   const int ncol = (n + BN - 1) / BN, nrow = (rows + tile_rows - 1) / tile_rows;
-  return tc_launch<P>(TcRows<typename P::T, float, true>{a, d, rows}, b, epi, dim3(nrow * ncol),
-                      tile_rows, ncol, d, d, stream);
+  return tc_launch<P>(a, b, epi, dim3(nrow * ncol), tile_rows, ncol, d, d, stream);
 }
+
+// the f32 scratch s1, s2 [rows, d] as the A operand of a backward row GEMM
+template <class P>
+using Scratch = TcRows<typename P::T, float, true>;
 
 // a weight gradient g^T x over `rows` rows in chunks, and the bias gradient, then
 // the chunk sums in order: gw [d, n], gb [d]; g [rows, d] f32 (rounded to bf16
@@ -1162,23 +1081,22 @@ int wgrad(const float* g, OpX x, int rows, int d, int n, int chunk, float* parti
 // biases in f32.
 //
 // The TPU kernel's precision policy, exactly: every product takes operands
-// rounded to bf16 and sums in f32 (a bf16 x bf16 product is exact in f32: the
-// forward's f32 FMA core computes it with rounding loaders, the backward's
-// tensor-core core with bf16 mma.sync on the same operands); biases, ReLU, softmax, x = q - k + pos and u = v + pos are f32; out is
-// rounded once at the end. k and v rows are read by index in the pos GEMM's
-// epilogue (nothing [B, N, K, D] is an input); an index outside [0, N) reads a
-// zero row and scatters nowhere, as the one-hot product does. The operands,
-// epilogues and helper kernels are the f32 route's, instantiated with bf16
-// element types; only the by-index pos epilogue, the inverse index and the
-// scatter are the bf16 route's own.
+// rounded to bf16 and sums in f32 (a bf16 x bf16 product is exact in f32; the
+// core's bf16 mma.sync forms it); biases, ReLU, softmax, x = q - k + pos and u
+// = v + pos are f32; out is rounded once at the end. k and v rows are read by
+// index in the pos GEMM's epilogue (nothing [B, N, K, D] is an input); an
+// index outside [0, N) reads a zero row and scatters nowhere, as the one-hot
+// product does. The operands, epilogues and helper kernels are the f32
+// route's, instantiated with bf16 element types; only the by-index pos
+// epilogue, the inverse index and the scatter are the bf16 route's own.
 //
-// Forward (three GEMMs, as the f32 route): x and hg_pre are written in bf16
-// (exact for what reads them: the next GEMM's operand and the ReLU's sign), u
-// in f32 for the sum over K. Training keeps x, u, hg_pre and a in bf16 (the
-// _resid saves); the recompute backward runs the forward keeping u and a in
-// f32. Backward: the f32 route's steps with rounded operands, on bf16 tensor
-// cores; the bias gradients sum the f32 values, the weight gradients their
-// bf16 roundings.
+// Forward (three GEMMs, as the f32 route, on bf16 tensor cores): hd rounded to
+// bf16 as it is formed; x and hg_pre written in bf16 (exact for what reads
+// them: the next GEMM's operand and the ReLU's sign), u in f32 for the sum
+// over K. Training keeps x, u, hg_pre and a in bf16 (the _resid saves); the
+// recompute backward runs the forward keeping u and a in f32. Backward: the
+// f32 route's steps with rounded operands, on bf16 tensor cores; the bias
+// gradients sum the f32 values, the weight gradients their bf16 roundings.
 // gk_all and gv_all sum the rounded row gradients bf16(-g_x) and bf16(a g) of
 // every (point, neighbour) row that names a point: an inverse index (a stable
 // counting sort of idx per batch element, integer counts only) then a sum over
@@ -1310,19 +1228,20 @@ int vag_forward(const bf16* q, const bf16* kall, const bf16* vall, const int* id
                 int npts, int n, int kk, int d, cudaStream_t stream) {
   const int rows = npts * kk;
   const Hd<bf16> hd{rel, wh[0], bias[0], rows, d};
-  int err = gemm(HdByRow<bf16>{hd}, KRows<bf16>{wh[1], d, d},
-                 VagEpiPos{q, kall, vall, idx, bias[1], x16, u32, rows, d, kk, n}, rows, BM, d,
-                 d, STAGE_BYTES, stream);
+  using P = Bf16Mma;
+  using Rows = TcRows<bf16, bf16, true>;
+  int err = tc_gemm<P>(TcHdRows<bf16, bf16>{hd}, Rows{wh[1], d, d},
+                       VagEpiPos{q, kall, vall, idx, bias[1], x16, u32, rows, d, kk, n}, rows, BM,
+                       d, d, stream);
   if (!err)
-    err = gemm(KRows<bf16>{x16, d, rows}, KRows<bf16>{wh[2], d, d},
-               VaEpiBias<bf16, false>{bias[2], hgp16, rows, d}, rows, BM, d, d, STAGE_BYTES,
-               stream);
+    err = tc_gemm<P>(Rows{x16, d, rows}, Rows{wh[2], d, d},
+                     VaEpiBias<bf16, false>{bias[2], hgp16, rows, d}, rows, BM, d, d, stream);
   const int tile_rows = (BM / kk) * kk;
   if (!err)
-    err = gemm(KRows<bf16, RELU>{hgp16, d, rows}, KRows<bf16>{wh[3], d, d},
-               VaEpiSoftmax<bf16>{bias[3], u32, a32, a16, u16, out16, npts, d, kk,
-                                  1.0f / sqrtf(static_cast<float>(d))},
-               rows, tile_rows, d, d, GROUP_BYTES, stream);
+    err = tc_gemm<P>(TcRows<bf16, bf16, true, true>{hgp16, d, rows}, Rows{wh[3], d, d},
+                     VaEpiSoftmax<bf16>{bias[3], u32, a32, a16, u16, out16, npts, d, kk,
+                                        1.0f / sqrtf(static_cast<float>(d))},
+                     rows, tile_rows, d, d, stream);
   return err;
 }
 
@@ -1352,20 +1271,21 @@ int vag_backward(const int* idx, const bf16* rel, const bf16* const* wh,
     err = wgrad<P>(s1, TcRows<bf16, bf16, false, true>{hgp16, d, d}, rows, d, d, chunk, partial,
                    gw[6], gw[7], stream);
   if (!err)
-    err = tc_gemm<P>(s1, Cols{wh[3], d, d}, VaEpiMask<bf16>{hgp16, s2, rows, d}, rows, BM, d, d,
-                     stream);
+    err = tc_gemm<P>(Scratch<P>{s1, d, rows}, Cols{wh[3], d, d},
+                     VaEpiMask<bf16>{hgp16, s2, rows, d}, rows, BM, d, d, stream);
   // gwg1 = bf16(g_hg)^T x, gbg1; g_x = bf16(g_hg) wg1: gkr, g_pos -> s1, gq
   if (!err)
     err = wgrad<P>(s2, Cols{x16, d, d}, rows, d, d, chunk, partial, gw[4], gw[5], stream);
   if (!err)
-    err = tc_gemm<P>(s2, Cols{wh[2], d, d},
+    err = tc_gemm<P>(Scratch<P>{s2, d, rows}, Cols{wh[2], d, d},
                      VaEpiGx<GvProduct<TR>, bf16>{GvProduct<TR>{a, g}, gkr, gq, s1, npts, d, kk},
                      rows, tile_rows, d, d, stream);
   // gwd2 = bf16(g_pos)^T hd, gbd2; g_hd = (bf16(g_pos) wd2) [hd_pre > 0] -> s2
   if (!err)
     err = wgrad<P>(s1, TcHdCols<bf16, bf16>{hd}, rows, d, d, chunk, partial, gw[2], gw[3], stream);
   if (!err)
-    err = tc_gemm<P>(s1, Cols{wh[1], d, d}, VaEpiHdMask<bf16>{hd, s2}, rows, BM, d, d, stream);
+    err = tc_gemm<P>(Scratch<P>{s1, d, rows}, Cols{wh[1], d, d}, VaEpiHdMask<bf16>{hd, s2}, rows,
+                     BM, d, d, stream);
   // gwd1 = bf16(g_hd)^T rel, gbd1; grel = bf16(bf16(g_hd) wd1)
   const int rel_chunk = chunk / 8, rel_chunks = (rows + rel_chunk - 1) / rel_chunk;
   if (!err) {
@@ -1411,18 +1331,19 @@ int s3f_va_fwd(const float* q, const float* k, const float* v, const float* rel,
   const int rows = npts * kk;
   const Hd<float> hd{rel, w[0], w[1], rows, d};
   if (npts <= 0) return 0;
-  int err = gemm(HdByRow<float>{hd}, KRows<>{w[2], d, d},
-                 VaEpiPos{q, k, v, w[3], x, u, rows, d, kk}, rows, BM, d, d, STAGE_BYTES, stream);
-  err = first_error(err);
+  using P = Tf32x3;
+  using Rows = TcRows<float, float, true>;
+  int err = tc_gemm<P>(TcHdRows<float, float>{hd}, Rows{w[2], d, d},
+                       VaEpiPos{q, k, v, w[3], x, u, rows, d, kk}, rows, BM, d, d, stream);
   if (!err)
-    err = gemm(KRows<>{x, d, rows}, KRows<>{w[4], d, d}, VaEpiBias<float, true>{w[5], hg, rows, d},
-               rows, BM, d, d, STAGE_BYTES, stream);
+    err = tc_gemm<P>(Rows{x, d, rows}, Rows{w[4], d, d},
+                     VaEpiBias<float, true>{w[5], hg, rows, d}, rows, BM, d, d, stream);
   const int tile_rows = (BM / kk) * kk;
   if (!err)
-    err = gemm(KRows<>{hg, d, rows}, KRows<>{w[6], d, d},
-               VaEpiSoftmax<float>{w[7], u, a, nullptr, nullptr, out, npts, d, kk,
-                                   1.0f / sqrtf(static_cast<float>(d))},
-               rows, tile_rows, d, d, GROUP_BYTES, stream);
+    err = tc_gemm<P>(Rows{hg, d, rows}, Rows{w[6], d, d},
+                     VaEpiSoftmax<float>{w[7], u, a, nullptr, nullptr, out, npts, d, kk,
+                                         1.0f / sqrtf(static_cast<float>(d))},
+                     rows, tile_rows, d, d, stream);
   return err;
 }
 
@@ -1453,12 +1374,12 @@ int s3f_va_bwd(const float* rel, const float* const* w, const float* x, const fl
   using Cols = TcRows<float, float, false>;
   if (!err) err = wgrad<P>(s1, Cols{hg, d, d}, rows, d, d, chunk, partial, gw[6], gw[7], stream);
   if (!err)
-    err = tc_gemm<P>(s1, Cols{w[6], d, d}, VaEpiMask<float>{hg, s2, rows, d}, rows, BM, d, d,
-                     stream);
+    err = tc_gemm<P>(Scratch<P>{s1, d, rows}, Cols{w[6], d, d},
+                     VaEpiMask<float>{hg, s2, rows, d}, rows, BM, d, d, stream);
   // gwg1 = g_hg^T x, gbg1; g_x = g_hg wg1: gk, g_pos -> s1, gq
   if (!err) err = wgrad<P>(s2, Cols{x, d, d}, rows, d, d, chunk, partial, gw[4], gw[5], stream);
   if (!err)
-    err = tc_gemm<P>(s2, Cols{w[4], d, d},
+    err = tc_gemm<P>(Scratch<P>{s2, d, rows}, Cols{w[4], d, d},
                      VaEpiGx<GvRows, float>{GvRows{gv}, gk, gq, s1, npts, d, kk}, rows, tile_rows,
                      d, d, stream);
   // gwd2 = g_pos^T hd, gbd2; g_hd = (g_pos wd2) [hd > 0] -> s2
@@ -1466,7 +1387,8 @@ int s3f_va_bwd(const float* rel, const float* const* w, const float* x, const fl
     err = wgrad<P>(s1, TcHdCols<float, float>{hd}, rows, d, d, chunk, partial, gw[2], gw[3],
                    stream);
   if (!err)
-    err = tc_gemm<P>(s1, Cols{w[2], d, d}, VaEpiHdMask<float>{hd, s2}, rows, BM, d, d, stream);
+    err = tc_gemm<P>(Scratch<P>{s1, d, rows}, Cols{w[2], d, d}, VaEpiHdMask<float>{hd, s2}, rows,
+                     BM, d, d, stream);
   // gwd1 = g_hd^T rel, gbd1 (chunks of chunk / 8 rows: one thread a channel and
   // chunk walks its rows); grel = g_hd wd1
   const int rel_chunk = chunk / 8, rel_chunks = (rows + rel_chunk - 1) / rel_chunk;

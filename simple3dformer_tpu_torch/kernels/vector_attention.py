@@ -27,13 +27,17 @@ launches over the [B*N*K, D] rows with f32 intermediates in device memory
 (fc_delta's first layer formed while the pos GEMM stages its operand, the
 softmax over K and the sum over K in the epilogue of the logits GEMM), and it
 writes x, u = v + pos, relu(hg) and a, which the backward reads in place of a
-recompute (the TPU ``_resid`` variant's four tensors). The forward's GEMMs are
-f32 FMA; the backward's six run on the tensor cores, in 3-pass TF32 (about
-21 bits of each operand; one pass keeps about 10). The weight gradients
-sum over all rows in fixed chunks of rows, one partial per chunk, and a
-second pass adds the partials in chunk order: no float atomics, two runs give
-the same bits. Against the plain version on the card: within 1e-4 of each
-output's largest value (sums in another order).
+recompute (the TPU ``_resid`` variant's four tensors). Every GEMM, the
+forward's three and the backward's six, runs on the tensor cores in 3-pass
+TF32 (about 21 bits of each operand; one pass keeps about 10). The weight
+gradients sum over all rows in fixed chunks of rows, one partial per chunk,
+and a second pass adds the partials in chunk order: no float atomics, two
+runs give the same bits. Against the plain versions on the card: the
+forward's output and residuals, and the backward from those residuals
+(``vector_attention_resid_backward_reference``), within 1e-4 of each
+output's largest value (sums in another order). A backward through a chain
+recomputed in plain PyTorch can differ by more: where an hg_pre lies within
+rounding of zero, the two sums can put its ReLU on opposite sides.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernels or raise. ``vector_attention_fwd.launches`` and
@@ -43,7 +47,7 @@ forward; a backward is six GEMMs and their reductions).
 The bf16 route takes q, k_all, v_all [B, N, D] and idx [B, N, K] and reads the
 neighbours' k and v rows by index inside the kernels, under the TPU kernel's
 precision policy: every product takes operands rounded to bf16 and sums in
-f32 (the backward's on bf16 tensor cores); biases, ReLU, softmax, x and u are
+f32 (on bf16 tensor cores); biases, ReLU, softmax, x and u are
 f32; out, gq, gk_all, gv_all and grel are rounded to bf16 once; the weight and
 bias gradients are f32. The
 residual-saving forward keeps x, u, hg_pre and a as [B, N*K, D] bf16 and its
@@ -114,23 +118,31 @@ def vector_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _chain(q, k, v, rel, weights)[-1]
 
 
+def vector_attention_resid_reference(q, k, v, rel, weights):
+    """Plain version of the forward that keeps its residuals
+    (``vector_attention_fwd(..., save=True)`` on the card): (out, {"x", "u",
+    "hg" (relu(hg_pre)), "a"}, each [B*N*K, D] f32)."""
+    _, _, _, x, _, hg, a, u, out = _chain(q, k, v, rel, weights)
+    d = q.shape[-1]
+    return out, {name: t.reshape(-1, d) for name, t in (("x", x), ("u", u), ("hg", hg), ("a", a))}
+
+
 def _rows_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum over every row of a[row, o] b[row, i] -> [O, I] (a weight gradient)."""
     return a.reshape(-1, a.shape[-1]).t() @ b.reshape(-1, b.shape[-1])
 
 
-def vector_attention_backward_reference(q, k, v, rel, weights, g, need_rel_grad=True):
-    """Plain version of the backward, ``_bwd_kernel_pg``'s steps in order on a
-    recomputed chain: (gq, gk, gv, grel or None, {name: grad})."""
-    d = q.shape[-1]
-    w = weights
-    hd_pre, hd, pos, x, hg_pre, hg, a, u, _ = _chain(q, k, v, rel, w)
+def _backward(rel, w, hd_pre, x, hg, a, u, g, need_rel_grad):
+    """``_bwd_kernel_pg``'s steps in order from the forward's x, hg = relu(hg_pre),
+    a and u: (gq, gk, gv, grel or None, {name: grad})."""
+    d = g.shape[-1]
+    hd = torch.relu(hd_pre)
     g3 = g.float()[:, :, None, :]
     g_a = g3 * u
     g_u = a * g3
     g_z = a * (g_a - (a * g_a).sum(2, keepdim=True))
     g_logits = g_z * (1.0 / d ** 0.5)
-    g_hg = (g_logits @ w["wg2"]) * (hg_pre > 0)
+    g_hg = (g_logits @ w["wg2"]) * (hg > 0)
     gw = {"wg2": _rows_t(g_logits, hg), "bg2": g_logits.sum((0, 1, 2))}
     g_x = g_hg @ w["wg1"]
     gw.update(wg1=_rows_t(g_hg, x), bg1=g_hg.sum((0, 1, 2)))
@@ -140,6 +152,26 @@ def vector_attention_backward_reference(q, k, v, rel, weights, g, need_rel_grad=
     grel = g_hd @ w["wd1"] if need_rel_grad else None
     gw.update(wd1=_rows_t(g_hd, rel), bd1=g_hd.sum((0, 1, 2)))
     return g_x.sum(2), -g_x, g_u, grel, {name: gw[name] for name in WNAMES}
+
+
+def vector_attention_backward_reference(q, k, v, rel, weights, g, need_rel_grad=True):
+    """Plain version of the backward, ``_bwd_kernel_pg``'s steps in order on a
+    recomputed chain: (gq, gk, gv, grel or None, {name: grad})."""
+    hd_pre, _, _, x, _, hg, a, u, _ = _chain(q, k, v, rel, weights)
+    return _backward(rel, weights, hd_pre, x, hg, a, u, g, need_rel_grad)
+
+
+def vector_attention_resid_backward_reference(rel, weights, residuals, g, need_rel_grad=True):
+    """Plain version of the kernel's backward (``vector_attention_bwd`` on the
+    card): the same steps from the forward's kept x, u, relu(hg) and a ([B*N*K,
+    D] each), fc_delta's hidden layer recomputed. Each ReLU of hg then takes
+    the kernel forward's side of zero, which a recomputed chain, summed in
+    another order, can leave for an hg_pre within rounding of it."""
+    b, n, kk, _ = rel.shape
+    d = g.shape[-1]
+    x, u, hg, a = (residuals[name].reshape(b, n, kk, d) for name in RESIDUALS)
+    hd_pre = F.linear(rel, weights["wd1"], weights["bd1"])
+    return _backward(rel, weights, hd_pre, x, hg, a, u, g, need_rel_grad)
 
 
 @functools.cache
@@ -366,14 +398,20 @@ def _scatter_rows(rows: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor
     return out.reshape(b, n, d)
 
 
-def _chain_bf16(q, k_all, v_all, idx, rel, w):
+def _chain_bf16(q, k_all, v_all, idx, rel, w, state=None):
     """The forward chain under the TPU kernel's bf16 policy: (hd_pre, x, hg_pre,
-    a, u, out), all f32 but out (bf16)."""
+    a, u, out), all f32 but out (bf16). With ``state`` (a residual-saving
+    forward's saves), x and hg_pre are its bf16 values and the chain goes on
+    from them."""
+    b, n, kk = idx.shape
     d = q.shape[-1]
     hd_pre = _mm(rel, w["wd1"]) + w["bd1"]
     pos = _mm(torch.relu(hd_pre), w["wd2"]) + w["bd2"]
-    x = q.float()[:, :, None, :] - _gather_rows(k_all, idx) + pos
-    hg_pre = _mm(x, w["wg1"]) + w["bg1"]
+    if state is None:
+        x = q.float()[:, :, None, :] - _gather_rows(k_all, idx) + pos
+        hg_pre = _mm(x, w["wg1"]) + w["bg1"]
+    else:
+        x, hg_pre = (state[name].float().reshape(b, n, kk, d) for name in ("x", "hg"))
     z = (_mm(torch.relu(hg_pre), w["wg2"]) + w["bg2"]) * (1.0 / d ** 0.5)
     e = torch.exp(z - z.amax(2, keepdim=True))
     a = e / e.sum(2, keepdim=True)
@@ -419,9 +457,14 @@ def _gather_backward(hd_pre, x, hg_pre, a, u, idx, rel, w, g, need_rel_grad):
 
 
 def gather_attention_backward_reference(q, k_all, v_all, idx, rel, weights, g,
-                                        need_rel_grad=True):
-    """Plain version of the recompute backward (``_bwd_kernel``): u and a in f32."""
-    hd_pre, x, hg_pre, a, u, _ = _chain_bf16(q, k_all, v_all, idx, rel, weights)
+                                        need_rel_grad=True, state=None):
+    """Plain version of the recompute backward (``_bwd_kernel``): u and a in f32.
+    With ``state``, the saves of ``gather_attention_resid_fwd`` on the same
+    inputs, x and hg_pre are the kernel forward's bf16 values (the recompute
+    backward's own forward computes them bit for bit), so each ReLU of hg_pre
+    takes the kernel's side of zero, which a chain summed in another order can
+    leave where a bf16 rounding of x or hg_pre falls the other way."""
+    hd_pre, x, hg_pre, a, u, _ = _chain_bf16(q, k_all, v_all, idx, rel, weights, state)
     return _gather_backward(hd_pre, x, hg_pre, a, u, idx, rel, weights, g, need_rel_grad)
 
 

@@ -309,22 +309,31 @@ def _va_flat(grads):
 @pytest.mark.parametrize("label,b,n,kk,d,dup", VA_SHAPES, ids=[s[0] for s in VA_SHAPES])
 def test_vector_attention_kernels_match_plain_and_repeat_bit_for_bit(device, label, b, n, kk, d,
                                                                      dup):
+    """The f32 forward (its output and kept residuals) against the plain chain
+    and the backward against the plain backward from those residuals, within
+    VA_REL of each output's largest value; each twice bit-equal."""
     q, k, v, rel, w = va_inputs(torch, b, n, kk, d, b * n + kk + d, device, dup)
     g = torch.randn(b, n, d, generator=torch.Generator(device).manual_seed(n), device=device)
     before = (va.vector_attention_fwd.launches, va.vector_attention_bwd.launches)
     out, res = va.vector_attention_fwd(q, k, v, rel, w, save=True)
+    out2, res2 = va.vector_attention_fwd(q, k, v, rel, w, save=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and all(torch.equal(res[key], res2[key]) for key in res)
+    del out2, res2
     grads = va.vector_attention_bwd(g, rel, w, res)
     again = va.vector_attention_bwd(g, rel, w, res)
     torch.cuda.synchronize()
     assert (va.vector_attention_fwd.launches, va.vector_attention_bwd.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
     assert all(torch.equal(a, c) for a, c in zip(_va_flat(grads), _va_flat(again)))
     del again
-    want = va.vector_attention_reference(q, k, v, rel, w)
+    want, want_res = va.vector_attention_resid_reference(q, k, v, rel, w)
     assert va_err("out", out, want) <= VA_REL
-    del want
+    for name in va.RESIDUALS:
+        assert va_err(name, res[name], want_res[name]) <= VA_REL, name
+    del want, want_res
     for name, a, c in zip(("gq", "gk", "gv", "grel", *va.WNAMES), _va_flat(grads),
-                          _va_flat(va.vector_attention_backward_reference(q, k, v, rel, w, g))):
+                          _va_flat(va.vector_attention_resid_backward_reference(rel, w, res, g))):
         assert a.shape == c.shape
         assert va_err(name, a, c) <= VA_REL, name
 
@@ -382,11 +391,11 @@ def test_bf16_vector_attention_kernels_match_plain_and_repeat_bit_for_bit(device
                                                                           d, dup):
     """The four bf16 kernels (forward, residual-saving forward, recompute and
     residual backward) against their plain versions within VAG_REL of each
-    output's largest value, the backwards twice bit-equal, the residual backward
-    within VAG_RESID_REL of the recompute backward."""
+    output's largest value, each twice bit-equal, the residual backward within
+    VAG_RESID_REL of the recompute backward."""
     before = _vag_launches()
     r = vag_check(torch, b, n, kk, d, dup, seed=b * n + kk + d + 1, device=device)
-    assert _vag_launches() == (before[0] + 1, before[1] + 1, before[2] + 2, before[3] + 2)
+    assert _vag_launches() == tuple(count + 2 for count in before)
     assert all(r["same"].values()), r["same"]
     assert r["finite"]
     for check, errs in r["err"].items():

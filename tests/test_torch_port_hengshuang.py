@@ -499,6 +499,37 @@ def test_cli_trains_hengshuang_at_bf16_on_the_cpu_and_resumes(tmp_path, capsys):
         range(latest + 2, 4))
 
 
+def test_cli_resumed_run_draws_the_unbroken_runs_augmentation(tmp_path, monkeypatch):
+    """A run stopped after one epoch and resumed draws, step by step, the
+    augmentation an unbroken run draws at the same optimizer steps: each draw is
+    the augmentation of one fixed probe batch from a copy of the generator as
+    the step hands it over (the batches differ: both packages restart the host
+    shuffle from the seed)."""
+    real = augment.device_cls_augment
+    probe = torch.from_numpy(np.random.RandomState(3).randn(8, 64, 6).astype(np.float32))
+    draws = []
+
+    def recording(gen, x):
+        copy_gen = torch.Generator(device=gen.device)
+        copy_gen.set_state(gen.get_state())
+        draws.append(real(copy_gen, probe))
+        return real(gen, x)
+
+    monkeypatch.setattr(augment, "device_cls_augment", recording)
+    argv = ["device=cpu", "model=Hengshuang", "synthetic=16", "num_point=64", "batch_size=8",
+            "model.nblocks=2", "model.nneighbor=8", "model.transformer_dim=64"]
+    cli.main(argv + ["epoch=2", f"out_dir={tmp_path / 'unbroken'}"])
+    unbroken, draws[:] = list(draws), []
+    stopped = argv + [f"out_dir={tmp_path / 'stopped'}"]
+    cli.main(stopped + ["epoch=1"])
+    first, draws[:] = list(draws), []
+    cli.main(stopped + ["epoch=2"])
+    resumed = list(draws)
+    assert len(unbroken) == 4 and len(first) == len(resumed) == 2  # 2 steps an epoch
+    assert all(torch.equal(a, b) for a, b in zip(first + resumed, unbroken))
+    assert not torch.equal(unbroken[0], unbroken[2])  # the epochs' draws differ
+
+
 def test_cli_refuses_bf16_and_does_not_move_to_the_cpu_by_itself():
     with pytest.raises(NotImplementedError, match="bf16"):
         cli.main(["device=cpu", "synthetic=8", "num_point=16", "dtype=bf16"])

@@ -1,19 +1,24 @@
-"""Why the f32 vector-attention backward takes three TF32 passes on the tensor cores.
+"""Why the f32 vector attention takes three TF32 passes on the tensor cores.
 
-The kernel (``csrc/vector_attention.cu``, ``va_tc_gemm_kernel`` on its f32
-route) splits each f32 operand x into big = tf32(x), rounded to nearest with
-ties away on the bit pattern, and small = x - big, which the tensor core reads
-truncated to TF32; a product is a_small b_big + a_big b_small + a_big b_big,
-each pass exact in f32 and summed in f32. Here the same rounding is emulated in
-plain torch on the CPU for the six products of
-``vector_attention_backward_reference`` (three row GEMMs against the weights,
-three weight gradients summed over all B*N*K rows), at a shape with a long row
-contraction, and held against float64 products of the same f32 operands: three
-passes stay within the chip check's VA_REL of each output's largest value (about
-3e-7 here), one pass misses it for five of the six (3e-4 to 5e-4). For wd2's
-gradient one pass measured 7.5e-5 here, under VA_REL: its right factor hd is a
-ReLU's output, and its errors average out; the test holds it to ten times the
-three-pass error instead.
+The kernels (``csrc/vector_attention.cu``, ``va_tc_gemm_kernel`` on its f32
+route, forward and backward) split each f32 operand x into big = tf32(x),
+rounded to nearest with ties away on the bit pattern, and small = x - big,
+which the tensor core reads truncated to TF32; a product is a_small b_big +
+a_big b_small + a_big b_big, each pass exact in f32 and summed in f32. Here the
+same rounding is emulated in plain torch on the CPU for the three products of
+the forward chain (pos, hg_pre and the logits, each against a weight) and the
+six of ``vector_attention_backward_reference`` (three row GEMMs against the
+weights, three weight gradients summed over all B*N*K rows), at a shape with a
+long row contraction, and held against float64 products of the same f32
+operands: three passes stay within the chip check's VA_REL of each output's
+largest value (1e-7 to 4e-7 here), one pass misses it for eight of the nine
+(3e-4 to 5e-4). For wd2's gradient one pass measured 7.5e-5 here, under
+VA_REL: its right factor hd is a ReLU's output, and its errors average out;
+the test holds it to ten times the three-pass error instead. The forward's
+output, every product of the chain so emulated, measured 2.1e-7 (three
+passes) and 1.0e-4 (one pass) of its largest value against the float64 chain:
+the softmax and the sum over K damp the products' errors, so one pass is held
+to ten times the three-pass error there too.
 """
 
 import numpy as np
@@ -59,10 +64,11 @@ def product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
 
 @pytest.fixture(scope="module")
 def operands():
-    """The f32 operands of the backward's six products, from a float64 chain on
-    inputs made with numpy as the chip check makes them (unit-gain Linear
-    weights, rel of unit-sphere scale): name -> (left, right) with the product
-    left @ right."""
+    """The f32 operands of the forward's three products and the backward's six,
+    from a float64 chain on inputs made with numpy as the chip check makes them
+    (unit-gain Linear weights, rel of unit-sphere scale): name -> (left, right)
+    with the product left @ right; "chain": the inputs, the f32 weights and
+    the float64 output."""
     rs = np.random.RandomState(10)
 
     def t(*shape, scale=1.0):
@@ -73,26 +79,31 @@ def operands():
     w = {name: t(*shape, scale=shape[1] ** -0.5 if len(shape) == 2 else 0.1)
          for name, shape in va.weight_shapes(D).items()}
     g = t(B, N, D)
-    hd_pre, hd, pos, x, hg_pre, hg, a, u, _ = va._chain(q, k, v, rel, w)
+    hd_pre, hd, pos, x, hg_pre, hg, a, u, out = va._chain(q, k, v, rel, w)
     g3 = g[:, :, None, :]
     g_a = g3 * u
     gl = a * (g_a - (a * g_a).sum(2, keepdim=True)) / D ** 0.5
     g_hg = (gl @ w["wg2"]) * (hg_pre > 0)
     g_pos = g_hg @ w["wg1"] + a * g3
     rows = lambda t: t.reshape(-1, D).float()  # noqa: E731
-    return {"g_hg = gl wg2": (rows(gl), w["wg2"].float()),
+    wf = {name: t.float() for name, t in w.items()}
+    return {"pos = hd wd2^T": (rows(hd), wf["wd2"].t()),
+            "hg_pre = x wg1^T": (rows(x), wf["wg1"].t()),
+            "z = hg wg2^T": (rows(hg), wf["wg2"].t()),
+            "g_hg = gl wg2": (rows(gl), w["wg2"].float()),
             "g_x = g_hg wg1": (rows(g_hg), w["wg1"].float()),
             "g_hd = g_pos wd2": (rows(g_pos), w["wd2"].float()),
             "gwg2 = gl^T hg": (rows(gl).t(), rows(hg)),
             "gwg1 = g_hg^T x": (rows(g_hg).t(), rows(x)),
-            "gwd2 = g_pos^T hd": (rows(g_pos).t(), rows(hd))}
+            "gwd2 = g_pos^T hd": (rows(g_pos).t(), rows(hd)),
+            "chain": ((q.float(), k.float(), v.float(), rel.float(), wf), out)}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.double() - want).abs().max() / want.abs().max())
 
 
-PRODUCTS = ["g_hg = gl wg2", "g_x = g_hg wg1", "g_hd = g_pos wd2", "gwg2 = gl^T hg",
+PRODUCTS = ["pos = hd wd2^T", "hg_pre = x wg1^T", "z = hg wg2^T", "g_hg = gl wg2", "g_x = g_hg wg1", "g_hd = g_pos wd2", "gwg2 = gl^T hg",
             "gwg1 = g_hg^T x", "gwd2 = g_pos^T hd"]
 ONE_PASS_HOLDS = {"gwd2 = g_pos^T hd"}  # measured 7.5e-5 at this shape (the docstring)
 
@@ -107,6 +118,28 @@ def test_three_tf32_passes_hold_va_rel_and_one_does_not(operands, name):
         assert one > 10 * three, f"{name}: 1-pass error {one:.3e}, 3-pass {three:.3e}"
     else:
         assert one > VA_REL, f"{name}: 1-pass error {one:.3e}"
+
+
+def test_three_tf32_passes_hold_the_forwards_output_within_va_rel(operands):
+    """The forward chain in f32 with its three products emulated against the
+    float64 chain: three passes within VA_REL of the output's largest value,
+    one pass over ten times their error (the module docstring)."""
+    (q, k, v, rel, w), exact = operands["chain"]
+
+    def out(passes):
+        def linear(a, weight, bias):
+            flat = product(a.reshape(-1, a.shape[-1]), weight.t(), passes)
+            return flat.reshape(*a.shape[:-1], weight.shape[0]) + bias
+
+        pos = linear(torch.relu(torch.nn.functional.linear(rel, w["wd1"], w["bd1"])), w["wd2"],
+                     w["bd2"])
+        hg = torch.relu(linear(q[:, :, None, :] - k + pos, w["wg1"], w["bg1"]))
+        a = torch.softmax(linear(hg, w["wg2"], w["bg2"]) / D ** 0.5, dim=2)
+        return (a * (v + pos)).sum(2)
+
+    three, one = (rel_err(out(p), exact) for p in (3, 1))
+    assert three <= VA_REL, f"3-pass error {three:.3e}"
+    assert one > 10 * three, f"1-pass error {one:.3e}, 3-pass {three:.3e}"
 
 
 def test_the_emulated_rounding_is_the_kernels():

@@ -82,6 +82,23 @@ def test_plain_versions_match_the_pallas_kernel(b, n, kk, d):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("b,n,kk,d", SHAPES, ids=["B2N64K8", "B3N27K5", "N1K1"])
+def test_backward_from_the_residuals_is_the_recompute_backward(b, n, kk, d):
+    """The plain versions of the pair as the card runs it, the forward keeping
+    x, u, relu(hg) and a and the backward from them, give the plain forward's
+    output and the recompute backward's gradients bit for bit."""
+    q, k, v, rel, w, g = _inputs(b, n, kk, d, seed=b * n + kk + 1)
+    args = [torch.from_numpy(a) for a in (q, k, v, rel)]
+    tw, gt = _torch_weights(w), torch.from_numpy(g)
+    out, res = va.vector_attention_resid_reference(*args, tw)
+    assert torch.equal(out, va.vector_attention_reference(*args, tw))
+    assert all(res[name].shape == (b * n * kk, d) for name in va.RESIDUALS)
+    gq, gk, gv, grel, gw = va.vector_attention_resid_backward_reference(args[3], tw, res, gt)
+    want = va.vector_attention_backward_reference(*args, tw, gt)
+    for a, c in zip([gq, gk, gv, grel, *gw.values()], [*want[:4], *want[4].values()]):
+        assert torch.equal(a, c)
+
+
 def test_autograd_function_runs_the_plain_backward_on_the_cpu():
     q, k, v, rel, w, g = _inputs(2, 20, 6, 32, seed=5)
     tw = {name: t.requires_grad_() for name, t in _torch_weights(w).items()}

@@ -169,6 +169,21 @@ def test_resid_backward_matches_the_recompute_backward(n):
     _assert_close(res, rec, 2e-2)
 
 
+@pytest.mark.parametrize("n", NS)
+def test_recompute_backward_from_a_forward_state_is_the_recompute_backward(n):
+    """With ``state`` (the residual forward's saves), the plain recompute
+    backward takes x and hg_pre as their bf16 values; on its own chain's saves
+    it gives what it gives without them, bit for bit: x enters the backward
+    only rounded to bf16, hg_pre only rounded or by its sign."""
+    q, k_all, v_all, idx, rel, w, g = _inputs(n, seed=n + 3)
+    targs = _port_args(q, k_all, v_all, idx, rel, w)
+    gt = torch.from_numpy(g).to(BF)
+    _, saves = va.gather_attention_resid_reference(*targs)
+    got = _port_grads(va.gather_attention_backward_reference(*targs, gt, state=saves))
+    want = _port_grads(va.gather_attention_backward_reference(*targs, gt))
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
 def test_gate_and_autograd_pairs():
     assert va.gather_unsupported(64, 1024, 16, 512, BF) is None
     assert "bfloat16" in va.gather_unsupported(2, 64, 16, 512, torch.float32)
