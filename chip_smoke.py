@@ -8,11 +8,12 @@ Run from the root of a checkout on a machine with a Hopper card and nvcc:
 Phases, one line each (and a line per kernel shape):
   1. device   the card's name and power limit; TF32 off for the plain versions
   2. build    every csrc/*.cu with nvcc (all started together), seconds; the
-              registers and spills of each tensor-core GEMM of the
-              vector-attention forwards and backwards
+              registers and spills of each instantiation of the tensor-core GEMM
+              core (tc_gemm_kernel): the vector-attention forwards' and
+              backwards', and the ViT block's (by GEMM and route)
   3. kernels  each kernel against its plain PyTorch version on the card, at the
-              serving path's shapes and at the limits; time of both at the
-              flagship shape
+              serving path's shapes and at the limits; time of both and of
+              torch.nn.TransformerEncoderLayer at the flagship shape
   4. serving  the flagship VoxelViT (deit_small, VoxelEmbed cell 6 / patch 5 on
               30^3 grids, 40 classes, seeded random weights) behind Predictor
               (batch 32) and ModelServer on 127.0.0.1: real HTTP requests, logits
@@ -20,7 +21,10 @@ Phases, one line each (and a line per kernel shape):
               counts read from the kernels' counters, latency and samples/s
   5. training kernels  the training forward, both block backwards and Adam against
               their plain versions on the card; each backward run twice, bit-equal;
-              times of kernel, plain version and (Adam) torch.optim.Adam(fused=True)
+              times of kernel, plain version and library call
+              (torch.nn.TransformerEncoderLayer; torch.optim.Adam(fused=True)); the
+              block forward's and backward's device time by kernel at the flagship
+              and partseg shapes, each GEMM with its grid and TFLOP/s
   6. training the flagship (deit_small, B=32, f32) through the port's trainer:
               3 steps on the card against 3 on the CPU's plain path from the same
               weights and batches; the CLI on a synthetic corpus held on the card
@@ -116,6 +120,7 @@ KERNEL_SHAPES = [
     ("B=1", 1, 26, 384, 6, "float32"),
     ("B=33", 33, 26, 384, 6, "float32"),
     ("partseg N=257", 16, 257, 192, 3, "float32"),
+    ("partseg N=257 bf16", 16, 257, 192, 3, "bfloat16"),
 ]
 # f32: the same f32 products summed in another order.
 # bf16: the same bf16-rounded operands, but a last-bit difference in an f32 sum
@@ -147,8 +152,9 @@ def phase_build():
         print(f"build {name}: {seconds:.1f} s nvcc, {len(regs)} kernels, "
               f"max {max(regs, default=0)} registers, {spills} bytes spill stores, {path.name}")
         for kernel, nregs, nspill in ptxas_entries(log):
-            if "va_tc_gemm_kernel" in kernel:
-                print(f"build {name}: va_tc_gemm_kernel {tc_label(kernel)}: {nregs} registers, "
+            if "tc_gemm_kernel" in kernel:
+                label = tc_label(kernel) if is_va_gemm(kernel) else blk_label(kernel)
+                print(f"build {name}: tc_gemm_kernel {label}: {nregs} registers, "
                       f"{nspill} bytes spill stores")
     print(f"build: {len(names)} sources in {wall:.1f} s")
 
@@ -174,6 +180,31 @@ GEMM_KINDS = {"forward": ("pos", "hg", "logits"),
               "backward": ("row GEMMs", "weight-gradient GEMMs")}
 # TcRows<..., KMAJOR, RELU = true, SUM = false>, demangled and mangled
 RELU_OPERAND = ("false, true, false>", "true, true, false>", "Lb0ELb1ELb0E", "Lb1ELb1ELb0E")
+
+
+def is_va_gemm(kernel: str) -> bool:
+    """Whether a kernel name is a vector-attention GEMM on the tensor-core core."""
+    return "tc_gemm_kernel" in kernel and "VaAcc" in kernel
+
+
+# a ViT block GEMM instantiation by its epilogue (and, for the weight
+# gradients, the transform of the right factor), mangled or demangled; the
+# first match names it
+BLK_GEMMS = (("OutBiasGelu", "fc1"), ("OutBiasRes", "proj/fc2"), ("OutBias", "qkv"),
+             ("OutGeluGrad", "g_a1"), ("OutStore", "g_z2/g_o/g_z1"))
+
+
+def blk_label(kernel: str) -> str:
+    """A ViT block GEMM instantiation by route and the GEMMs it runs."""
+    route = "bf16" if "Bf16Mma" in kernel else "tf32x3"
+    if "BlkEpiWgrad" in kernel:
+        what = ("dW2" if "GeluXf" in kernel else "dW1/dWqkv"
+                if "LnXf<true>" in kernel or "LnXfILb1E" in kernel else "dWproj")
+    else:
+        what = next(v for k, v in BLK_GEMMS if k in kernel)
+        if what == "proj/fc2" and "bfloat16" in kernel.split("OutBiasRes")[1][:40]:
+            what = "fc2 (bf16 y)"
+    return f"{route} {what}"
 
 
 def tc_label(kernel: str) -> str:
@@ -238,11 +269,59 @@ def phase_kernels(torch):
             kernel = [time_ms(torch, lambda: fused_vit_block(x, w, heads)) for _ in range(2)]
             plain.append(time_ms(torch, lambda: vit_block_reference(x, w, heads)))
             report["ms"], report["plain_ms"] = float(np.mean(kernel)), float(np.mean(plain))
+            report["library_ms"] = library_times(torch, x, w, heads)["fwd"]
             print(f"kernel fused_vit_block flagship time: {report['ms']:.4f} ms kernel "
                   f"({kernel[0]:.4f}, {kernel[1]:.4f}), {report['plain_ms']:.4f} ms plain "
-                  f"({plain[0]:.4f}, {plain[1]:.4f}), mean of 50 launches each")
+                  f"({plain[0]:.4f}, {plain[1]:.4f}), {report['library_ms']:.4f} ms "
+                  "torch.nn.TransformerEncoderLayer (no_grad), mean of 50 launches each")
     torch.cuda.synchronize()
     return report
+
+
+def library_layer(torch, w, d, heads):
+    """torch.nn.TransformerEncoderLayer computing the block's function (pre-norm,
+    biases on qkv, proj, fc1 and fc2, LayerNorm eps 1e-6, tanh GELU, no dropout)
+    with the block's weights copied in: the yardstick of rows 1-4, timed here and
+    called nowhere in the port."""
+    layer = torch.nn.TransformerEncoderLayer(
+        d, heads, dim_feedforward=4 * d, dropout=0.0,
+        activation=lambda t: torch.nn.functional.gelu(t, approximate="tanh"),
+        layer_norm_eps=1e-6, batch_first=True, norm_first=True, device="cuda")
+    names = {"norm1.weight": "ln1_s", "norm1.bias": "ln1_b", "self_attn.in_proj_weight": "wqkv",
+             "self_attn.in_proj_bias": "bqkv", "self_attn.out_proj.weight": "wproj",
+             "self_attn.out_proj.bias": "bproj", "norm2.weight": "ln2_s", "norm2.bias": "ln2_b",
+             "linear1.weight": "w1", "linear1.bias": "b1", "linear2.weight": "w2",
+             "linear2.bias": "b2"}
+    layer.load_state_dict({k: w[v] for k, v in names.items()})
+    return layer
+
+
+def library_times(torch, x, w, heads, g=None, iters=50):
+    """ms of the library layer on the block's inputs (an f32 x): its forward under
+    no_grad ("fwd"); with ``g`` also its forward recording for autograd
+    ("train_fwd"), its backward alone ("bwd", the way sdpa_times takes SDPA's)
+    and forward and backward together ("fwd_bwd"). Checks once that its output
+    is the plain version's within 1e-4, so that it is the same function."""
+    from simple3dformer_tpu_torch.kernels.vit_block import vit_block_reference
+
+    layer = library_layer(torch, w, x.shape[-1], heads)
+    with torch.no_grad():
+        err = float((layer(x) - vit_block_reference(x, w, heads)).abs().max())
+        if err > 1e-4:
+            raise AssertionError(f"TransformerEncoderLayer differs from the plain block: {err}")
+        out = {"fwd": time_ms(torch, lambda: layer(x), iters)}
+    if g is not None:
+        xr = x.detach().requires_grad_()
+        leaves = [xr, *layer.parameters()]
+        out["train_fwd"] = time_ms(torch, lambda: layer(xr), iters)
+        y = layer(xr)
+        out["bwd"] = time_ms(torch, lambda: torch.autograd.grad(y, leaves, g, retain_graph=True),
+                             iters)
+        out["fwd_bwd"] = time_ms(torch, lambda: torch.autograd.grad(layer(xr), leaves, g), iters)
+    print(f"library torch.nn.TransformerEncoderLayer B={x.shape[0]} N={x.shape[1]} "
+          f"D={x.shape[2]} H={heads}: output vs the plain block max abs err {err:.3e} "
+          "(tolerance 1e-4); ms " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
 
 
 def post(port, payload: str):
@@ -349,7 +428,7 @@ def phase_serving(torch):
 # the backwards' shapes: (label, B, N, D, heads, dtype name)
 TRAIN_SHAPES = [s for s in KERNEL_SHAPES
                 if s[0] in ("flagship f32", "flagship bf16", "deit_base 3 heads", "N=197",
-                            "B=1", "B=33", "partseg N=257")]
+                            "B=1", "B=33", "partseg N=257", "partseg N=257 bf16")]
 # gradients: an error relative to the largest reference value. f32: sums of
 # up to B*N products in another order; bf16: as TOL, a last-bit difference can
 # round an intermediate to the neighbouring bf16 value.
@@ -433,36 +512,104 @@ def phase_train_kernels(torch):
         if max(errs.values()) > GRAD_REL[dtype] or not same:
             raise AssertionError(f"training block kernels {label}: errors {errs}, "
                                  f"bit-equal {same}")
+        if label in ("flagship f32", "partseg N=257"):
+            block_split(torch, lambda: vb.fused_vit_block_train_fwd(x, w, heads), b, n, d,
+                        f"kernel fused_vit_block_train_fwd {label}", FWD_GEMMS)
+            block_split(torch, lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+                        b, n, d, f"kernel fused_vit_block_train_bwd {label}", BWD_GEMMS)
         if label != "flagship f32":
             continue
+        lib = library_times(torch, x, w, heads, g)
         flops = block_flops(b, n, d, heads)
         ws = [w[k] for k in vb.WNAMES]
         cases = {
             "fused_vit_block_train_fwd": (
                 lambda: vb.fused_vit_block_train_fwd(x, w, heads),
                 lambda: vb.vit_block_train_reference(x, w, heads),
-                nbytes(x, *ws, y, res), flops, abs_errs["fwd"]),
+                nbytes(x, *ws, y, res), flops, abs_errs["fwd"], lib["train_fwd"]),
             "fused_vit_block_train_bwd": (
                 lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
                 lambda: vb.vit_block_backward_reference(x, g, w, heads, residuals=res),
-                nbytes(x, g, *ws, res, gx, gw), 2 * flops, abs_errs["bwd_res"]),
+                nbytes(x, g, *ws, res, gx, gw), 2 * flops, abs_errs["bwd_res"], lib["bwd"]),
             "fused_vit_block_bwd": (
                 lambda: vb.fused_vit_block_bwd(x, g, w, heads),
                 lambda: vb.vit_block_backward_reference(x, g, w, heads),
-                nbytes(x, g, *ws, cx, cw), 3 * flops, abs_errs["bwd"]),
+                nbytes(x, g, *ws, cx, cw), 3 * flops, abs_errs["bwd"], lib["fwd_bwd"]),
         }
-        for name, (kernel, plain, moved, ops, err) in cases.items():
+        for name, (kernel, plain, moved, ops, err, library_ms) in cases.items():
             ms, plain_ms = in_turns(torch, kernel, plain)
             bound_ms, bound_by = bound(moved, ops)
             report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library_ms=None)
+                                bound_by=bound_by, library_ms=library_ms)
             print(f"kernel {name} flagship: max abs err {err:.3e}; {ms:.4f} ms kernel, "
-                  f"{plain_ms:.4f} ms plain, "
+                  f"{plain_ms:.4f} ms plain, {library_ms:.4f} ms TransformerEncoderLayer, "
                   f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.2f} MB, "
                   f"{ops / 1e9:.3f} GFLOP), mean of 50 launches each, in turns")
     report["fused_adam"] = adam_check(torch)
     torch.cuda.synchronize()
     return report
+
+
+# the block's GEMMs in launch order: the forward's, the backward's
+FWD_GEMMS = ("qkv", "proj", "fc1", "fc2")
+BWD_GEMMS = ("g_a1", "dW2", "g_z2", "dW1", "g_o", "dWproj", "g_z1", "dWqkv")
+
+
+def block_split(torch, fn, b, n, d, label, names, calls=5):
+    """Device time of one block call by kernel (torch.profiler, one call a
+    profile, ``calls`` profiles): each GEMM of ``names``, in launch order, with
+    its grid (output tiles x contraction chunks, as the kernels launch it) and
+    TFLOP/s, then the other kernels by group. A profile that missed a GEMM's
+    launch is dropped. Fails where a GEMM ran on anything but the tensor-core
+    core. Informational when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    fn()
+    torch.cuda.synchronize()
+    grids, shapes = vb.gemm_grids(b, n, d), vb.gemm_shapes(b, n, d)
+    gemm_us = {k: 0.0 for k in names}
+    rest: dict[str, float] = {}
+    kept = 0
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if str(getattr(e, "device_type", "")).split(".")[-1] == "CUDA"),
+                         key=lambda e: e.time_range.start)
+        strays = [e.name[:60] for e in kernels if "gemm" in e.name.lower()
+                  and not ("tc_gemm_kernel" in e.name and "BlkEpi" in e.name)]
+        if strays:
+            raise AssertionError(f"{label}: GEMMs off the tensor-core core: {strays}")
+        gemms = [e for e in kernels if "tc_gemm_kernel" in e.name]
+        if len(gemms) != len(names):
+            continue
+        kept += 1
+        for k, e in zip(names, gemms):
+            gemm_us[k] += e.time_range.elapsed_us()
+        for e in kernels:
+            if "tc_gemm_kernel" not in e.name:
+                group = next((g for g in KERNEL_GROUPS if g in e.name), e.name[:40])
+                rest[group] = rest.get(group, 0.0) + e.time_range.elapsed_us()
+    if not kept:
+        print(f"{label}: the profiler recorded no call with all {len(names)} GEMMs")
+        return
+    parts = []
+    for k in names:
+        ms = gemm_us[k] / kept / 1e3
+        rows, cols, kk = shapes[k]
+        tiles, chunks = grids[k]
+        parts.append(f"{k} {ms:.4f} (grid {tiles}x{chunks}, "
+                     f"{2 * rows * cols * kk / ms / 1e9:.1f} TFLOP/s)")
+    gemm_ms = sum(gemm_us.values()) / kept / 1e3
+    rest_ms = {g: v / kept / 1e3 for g, v in rest.items()}
+    total = gemm_ms + sum(rest_ms.values())
+    print(f"{label} device ms per call by kernel ({kept} of {calls} profiled calls): total "
+          f"{total:.4f}, GEMMs {gemm_ms:.4f} ({gemm_ms / total:.0%}): " + ", ".join(parts)
+          + "; the rest: " + ", ".join(f"{g} {v:.4f}" for g, v in
+                                       sorted(rest_ms.items(), key=lambda kv: -kv[1])))
 
 
 def flagship_model(torch, device="cpu"):
@@ -625,14 +772,15 @@ def phase_training(torch):
     return launches, {"ms_per_step": ms_step, "samples_per_s": 50 * BATCH / dt}
 
 
-# the first group named in a kernel's name takes its time: the vector-attention
-# epilogues before "gemm_kernel", which their GEMMs' names contain (an f32 and
-# a bf16 instantiation of one epilogue share its group; a step runs one of them)
+# the first group named in a kernel's name takes its time: the tensor-core
+# GEMMs by epilogue (an f32 and a bf16 instantiation of one epilogue share its
+# group; a step runs one of them): the vector attention's, then the ViT
+# block's weight gradients (BlkEpiWgrad) and row GEMMs (BlkEpi)
 KERNEL_GROUPS = ("VaEpiPos", "VagEpiPos", "VaEpiBias", "VaEpiSoftmax", "VaEpiMask", "VaEpiGx",
                  "VaEpiHdMask", "VaEpiPartial", "va_softmax_bwd_kernel", "va_sum_chunks_kernel",
                  "va_rel_wgrad_kernel", "va_rel_wgrad_sum_kernel", "va_rel_grad_kernel",
-                 "vag_inverse_kernel", "vag_scatter_kernel",
-                 "grad_gemm_kernel", "gemm_kernel", "attention_kernel", "attn_bwd_rows_kernel",
+                 "vag_inverse_kernel", "vag_scatter_kernel", "BlkEpiWgrad", "BlkEpi",
+                 "attention_kernel", "attn_bwd_rows_kernel",
                  "attn_bwd_cols_kernel", "colsum_kernel", "ln_bwd_kernel", "row_stats_kernel",
                  "adam_kernel", "fps_kernel", "knn_kernel", "gather_fwd_kernel",
                  "gather_bwd_sort_kernel", "gather_bwd_sum_kernel", "mhsa_fwd_kernel", "mhsa_go_kernel", "mhsa_delta_kernel",
@@ -1334,7 +1482,7 @@ def gemm_split(torch, fn, b, n, kk, d, label, route, parts, iters=3, rounds=3):
     miss launches (the recorded ones are printed beside the expected ones), so
     it profiles ``iters`` calls again, up to ``rounds`` times, until every GEMM
     of ``parts`` was recorded. Fails where a GEMM of the call ran on anything
-    but va_tc_gemm_kernel with ``route``'s products ("bf16": Bf16Mma,
+    but the tensor-core core with ``route``'s products ("bf16": Bf16Mma,
     "tf32x3": Tf32x3), or a GEMM of ``parts`` was never recorded.
     Informational when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1354,8 +1502,7 @@ def gemm_split(torch, fn, b, n, kk, d, label, route, parts, iters=3, rounds=3):
                 seen = recorded.setdefault(e.key, [0.0, 0])
                 seen[0] += us
                 seen[1] += e.count
-        gemms = {GEMM_KIND[tc_label(key).split()[1]] for key in recorded
-                 if "va_tc_gemm_kernel" in key}
+        gemms = {GEMM_KIND[tc_label(key).split()[1]] for key in recorded if is_va_gemm(key)}
         if gemms >= set(kinds):
             break
     rest: dict[str, float] = {}
@@ -1363,7 +1510,7 @@ def gemm_split(torch, fn, b, n, kk, d, label, route, parts, iters=3, rounds=3):
     strays = []
     for key, (us, count) in recorded.items():
         per_launch = us / count / 1e3
-        if "va_tc_gemm_kernel" in key:
+        if is_va_gemm(key):
             name = tc_label(key)
             kind = GEMM_KIND[name.split()[1]]
             if not name.startswith(f"{route} ") or kind not in kinds:
@@ -1957,8 +2104,7 @@ def main() -> int:
     block_src = "simple3dformer_tpu_torch/csrc/vit_block.cu"
     kernels = [dict(name="fused_vit_block", route="cuda", source=block_src,
                     replaces="simple3dformer_tpu/kernels/vit_block.py:264",
-                    launches=launches, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                    **report)]
+                    launches=launches, bound_ms=bound_ms, bound_by=bound_by, **report)]
     for name, replaces, source in [
             ("fused_vit_block_bwd", "simple3dformer_tpu/kernels/vit_block.py:290", block_src),
             ("fused_vit_block_train_fwd", "simple3dformer_tpu/kernels/vit_block.py:366",

@@ -1,5 +1,5 @@
 // Tensor-core and cp.async primitives shared by the port's Hopper (sm_90a)
-// kernels: mhsa.cu and vector_attention.cu. Device functions only, each
+// kernels: mhsa.cu, and through tc_gemm.cuh vector_attention.cu and vit_block.cu. Device functions only, each
 // translation unit's own copy (an unnamed namespace).
 
 #pragma once

@@ -37,9 +37,9 @@
 //             sum gq in its epilogue, g_hd), four weight-gradient GEMMs, and
 //             fc_delta's first layer (grel, gwd1, gbd1) by row reductions.
 //
-// Every product is a GEMM tile of 128 x 128 outputs, 256 threads, on one core,
-// va_tc_gemm_kernel: mma.sync on the tensor cores, 3-pass TF32 on this route
-// and bf16 on the bf16 route (see its section). At B=64, N=1024, K=16, D=512
+// Every product is a GEMM tile of 128 x 128 outputs, 256 threads, on the
+// tensor-core core of tc_gemm.cuh (tc_gemm_kernel): mma.sync, 3-pass TF32 on
+// this route and bf16 on the bf16 route. At B=64, N=1024, K=16, D=512
 // the products are 1.65 TFLOP a forward against 4.4 GB of inputs: the
 // operation count bounds it on this card, not bytes.
 //
@@ -57,14 +57,9 @@
 
 #include <type_traits>
 
-#include "tensor_core.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
-
-// x rounded to the nearest bf16 (ties to even), as a float
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // Element types: f32 on the f32 route, bf16 (with f32 scratch) on the bf16 route.
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -80,27 +75,19 @@ __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_
 __device__ __forceinline__ float operand(float x, const float*) { return x; }
 __device__ __forceinline__ float operand(float x, const bf16*) { return bf16r(x); }
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned*>(&lo);
-  raw.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
+// out[e] = sum over s of partial[s * stride + e], s in order
+__global__ void va_sum_chunks_kernel(const float* __restrict__ partial, int chunks,
+                                  long long stride, long long count, float* __restrict__ out) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) s = __fadd_rn(s, partial[c * stride + e]);
+  out[e] = s;
 }
 
-constexpr int BM = 128, BN = 128, THREADS = 256;
+// the core's tile here: 128 x 128 outputs, 8 warps of 64 x 32, two blocks an SM
+using VaTile = TcTile<128, 2, 4, 2>;
+constexpr int BM = VaTile::BM, BN = VaTile::BN, THREADS = VaTile::THREADS;
 constexpr int LDE = BN + 4;  // a row of the epilogues' group tile
 constexpr size_t GROUP_BYTES = static_cast<size_t>(BM) * LDE * sizeof(float);
 
@@ -426,157 +413,26 @@ struct VaEpiPartial {
   }
 };
 
-// out[e] = sum over s of partial[s * stride + e], s in order
-__global__ void va_sum_chunks_kernel(const float* __restrict__ partial, int chunks,
-                                  long long stride, long long count, float* __restrict__ out) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= count) return;
-  float s = 0.f;
-  for (int c = 0; c < chunks; ++c) s = __fadd_rn(s, partial[c * stride + e]);
-  out[e] = s;
-}
-
 // ===========================================================================
-// The GEMM core on the tensor cores, va_tc_gemm_kernel: every GEMM of both
-// routes' forwards and backwards. 128 x 128 output tiles (a row tile may hand
-// its epilogue fewer rows: whole groups of K), the weight gradients' rows in
-// chunks (blockIdx.z), the products on mma.sync with f32 sums in registers:
-//
-//   bf16 route  m16n8k16 .bf16 on the TPU kernel's operands (the inputs, saves
-//               and weights in bf16, hd and the f32 scratch s1, s2 rounded to
-//               bf16 as they are staged, ReLU applied to hg_pre): a bf16 x bf16
-//               product is exact in f32, so the f32 sums differ from a plain
-//               version's in their order only. Bound: 989 TFLOP/s.
-//   f32 route   m16n8k8 .tf32 in 3 passes (tensor_core.cuh's split: a product
-//               is a_small b_big + a_big b_small + a_big b_big), the split made
-//               where a fragment leaves shared memory. One pass keeps about 10
-//               bits of each operand, and the weight gradients sum over all R
-//               rows (1,048,576 at level 0): tests/test_torch_port_va_tf32.py
-//               measures what one pass loses. Bound: 495 / 3 = 165 TFLOP/s.
-//
-// A block is 8 warps (2 x 4, a warp 64 x 32 outputs) and stages the
-// contraction TBK = 32 rows at a time, its cp.async copies in flight STAGES -
-// 1 stages ahead. An operand transformed on the way (f32 scratch rounded to
-// bf16, ReLU, the bias gradients' sums of the unrounded f32 values) is
-// transformed in shared memory by the thread that copied it, once its copy
-// has landed, a stage before its products; fc_delta's hidden layer is formed
-// from rel held in registers (TcHdCols reads a stage's rel a stage ahead,
-// TcHdRows its block's rows once). (Every transformed operand through
-// registers, loaded a stage ahead, was slower in both backwards.) A
-// tile keeps its device-memory layout: K-major [128][TBK + pad] (the
-// contraction contiguous: an activation's rows, and a weight in the Linear
-// layout as the right factor of a forward GEMM, x W^T) or MN-major [TBK][128 +
-// 8] (a weight read transposed in the backward's row GEMMs, and both operands
-// of a weight gradient, whose contraction is the row axis); ldmatrix reads the
-// fragments (.trans for MN-major bf16; MN-major f32 by 32-bit loads on banks 8
-// t + g), the pads keeping each conflict-free. The accumulators go through
-// shared memory into the epilogues' per-thread acc[8][8] layout (row_of,
-// col_of); the epilogues that take sums over a group of K rows then build
-// their group tile in the same shared memory.
+// Every GEMM of both routes' forwards and backwards runs on the tensor-core
+// core of tc_gemm.cuh (tc_gemm_kernel) at 128 x 128 output tiles (a row tile
+// may hand its epilogue fewer rows: whole groups of K), the weight gradients'
+// rows in chunks (blockIdx.z). bf16 route: the TPU kernel's operands (the
+// inputs, saves and weights in bf16, hd and the f32 scratch s1, s2 rounded to
+// bf16 as they are staged, ReLU applied to hg_pre). f32 route: 3-pass TF32;
+// the weight gradients sum over all R rows (1,048,576 at level 0):
+// tests/test_torch_port_va_tf32.py measures what one pass loses.
+// fc_delta's hidden layer is formed from rel held in registers (TcHdCols reads
+// a stage's rel a stage ahead, TcHdRows its block's rows once). (Every
+// transformed operand through registers, loaded a stage ahead, was slower in
+// both backwards.) The accumulators go through shared memory into the
+// epilogues' per-thread acc[8][8] layout (row_of, col_of: VaAcc); the
+// epilogues that take sums over a group of K rows then build their group tile
+// in the same shared memory.
 // ===========================================================================
 
-struct Bf16Mma {  // the bf16 route's products
-  using T = bf16;
-  static constexpr int STAGES = 3, MIN_BLOCKS = 2;
-};
-struct Tf32x3 {  // the f32 route's products
-  using T = float;
-  static constexpr int STAGES = 3, MIN_BLOCKS = 2;
-};
-
-constexpr int TBK = 32;      // contraction rows a stage
-constexpr int LDC = BN + 8;  // a row of the accumulator tile: conflict-free float2 stores
-
-// a staged row: K-major rows 16 bytes longer than TBK values, MN-major rows 8
-// values longer than BM (either way consecutive rows start 4 banks apart)
-template <class T, bool KMAJOR>
-__host__ __device__ constexpr int tile_ld() {
-  return KMAJOR ? TBK + 16 / static_cast<int>(sizeof(T)) : BM + 8;
-}
-// bytes of a staged tile
-template <class T, bool KMAJOR>
-__host__ __device__ constexpr int tile_bytes() {
-  return (KMAJOR ? BM : TBK) * tile_ld<T, KMAJOR>() * static_cast<int>(sizeof(T));
-}
-
-__device__ __forceinline__ uint32_t relu2(uint32_t x) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  const __nv_bfloat162 r = __floats2bfloat162_rn(fmaxf(f.x, 0.f), fmaxf(f.y, 0.f));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// An operand from rows of type S: element (m, k) = p[m * ld + k] (KMAJOR) or
-// p[k * ld + m], zero at m >= m_lim or k >= k_lim, staged as T (an f32 value
-// staged as bf16 is rounded), through ReLU where RELU. SUM: the f32 values
-// before rounding go into the bias gradient's sums (an MN-major f32 operand,
-// whose thread keeps columns 4 (thread % 32) .. + 3 throughout). A stage is
-// copied as it is (RAW bytes), then, where it is transformed, each thread
-// transforms what it copied: in place, or (rounding) into a bf16 tile of
-// COOKED bytes. Copies are 16 bytes of the source; copy i of a thread is tile
-// row (a / PER_ROW), column (a % PER_ROW) E, a = thread + i THREADS.
 template <class T, class S, bool KMAJOR, bool RELU = false, bool SUM = false>
-struct TcRows {
-  const S* p;
-  long long ld;
-  int m_lim;
-  static constexpr bool K_MAJOR = KMAJOR, SUMS = SUM;
-  static constexpr bool ROUND = !std::is_same<T, S>::value;
-  static constexpr int LD = tile_ld<T, KMAJOR>(), LDR = tile_ld<S, KMAJOR>();
-  static constexpr int RAW = tile_bytes<S, KMAJOR>();
-  static constexpr int COOKED = ROUND ? tile_bytes<T, KMAJOR>() : 0;
-  static constexpr int E = 16 / static_cast<int>(sizeof(S));
-  static constexpr int PER_ROW = (KMAJOR ? TBK : BM) / E;
-  static constexpr int N = BM * TBK / E / THREADS;
-  static_assert(!SUM || (!KMAJOR && E == 4), "the bias sums take an MN-major f32 operand");
-  static_assert(!RELU || std::is_same<S, bf16>::value, "ReLU is applied to bf16 rows");
-  static_assert(!ROUND || (std::is_same<T, bf16>::value && E == 4), "f32 rows round to bf16");
-  struct Regs {};
-
-  __device__ __forceinline__ void setup(Regs&, int) const {}
-  __device__ __forceinline__ void issue(unsigned char* raw, int m0, int k0, int k_lim) const {
-    S* dst = reinterpret_cast<S*>(raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int a = threadIdx.x + i * THREADS, row = a / PER_ROW, col = a % PER_ROW * E;
-      const int m = m0 + (KMAJOR ? row : col), k = k0 + (KMAJOR ? col : row);
-      const bool in = m < m_lim && k < k_lim;
-      const long long off = KMAJOR ? static_cast<long long>(m) * ld + k
-                                   : static_cast<long long>(k) * ld + m;
-      cp_async16(dst + row * LDR + col, in ? p + off : p, in);
-    }
-  }
-  __device__ __forceinline__ void fetch(Regs&, int, int, int) const {}
-  __device__ __forceinline__ void prepare(unsigned char* raw, T* cooked, const Regs&, int, int,
-                                          int, float (&asum)[4]) const {
-    if constexpr (ROUND || RELU || SUM) {
-      S* src = reinterpret_cast<S*>(raw);
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const int a = threadIdx.x + i * THREADS, row = a / PER_ROW, col = a % PER_ROW * E;
-        if constexpr (E == 4) {
-          const float4 f = *reinterpret_cast<const float4*>(src + row * LDR + col);
-          if constexpr (SUM) {
-            asum[0] = __fadd_rn(asum[0], f.x);
-            asum[1] = __fadd_rn(asum[1], f.y);
-            asum[2] = __fadd_rn(asum[2], f.z);
-            asum[3] = __fadd_rn(asum[3], f.w);
-          }
-          if constexpr (ROUND) store4(cooked + row * LD + col, f.x, f.y, f.z, f.w);
-        } else {
-          uint4* v = reinterpret_cast<uint4*>(src + row * LDR + col);
-          *v = make_uint4(relu2(v->x), relu2(v->y), relu2(v->z), relu2(v->w));
-        }
-      }
-    }
-  }
-  // the stage's tile as the products read it
-  __device__ __forceinline__ const T* tile(const unsigned char* raw, const T* cooked) const {
-    if constexpr (ROUND)
-      return cooked;
-    else
-      return reinterpret_cast<const T*>(raw);
-  }
-};
+using VaRows = TcRows<VaTile, T, S, KMAJOR, RELU, SUM>;
 
 // hd as the B operand of wd2's weight gradient, MN-major: element (n = channel,
 // k = row) formed from rel as Hd::at forms it. A thread keeps channels n0 + 4
@@ -587,8 +443,8 @@ template <class T, class S>
 struct TcHdCols {
   Hd<S> hd;
   static constexpr bool K_MAJOR = false, SUMS = false;
-  static constexpr int LD = tile_ld<T, false>();
-  static constexpr int RAW = 0, COOKED = tile_bytes<T, false>();
+  static constexpr int LD = tile_ld<VaTile, T, false>();
+  static constexpr int RAW = 0, COOKED = tile_bytes<VaTile, T, false>();
   struct Regs {
     float v[4][3], w[4][3], b[4];
   };
@@ -644,8 +500,8 @@ template <class T, class S>
 struct TcHdRows {
   Hd<S> hd;
   static constexpr bool K_MAJOR = true, SUMS = false;
-  static constexpr int LD = tile_ld<T, true>();
-  static constexpr int RAW = 0, COOKED = tile_bytes<T, true>();
+  static constexpr int LD = tile_ld<VaTile, T, true>();
+  static constexpr int RAW = 0, COOKED = tile_bytes<VaTile, T, true>();
   struct Regs {
     float v[4][3];
   };
@@ -691,238 +547,40 @@ struct TcHdRows {
   }
 };
 
-// shared memory: STAGES copies (A then B), two transformed tiles of each
-// operand that has them, or the accumulator tile and the bias sums' partials
-template <class P, class OpA, class OpB>
-constexpr size_t tc_smem_bytes() {
-  const size_t stages = static_cast<size_t>(P::STAGES) * (OpA::RAW + OpB::RAW) +
-                        2ull * (OpA::COOKED + OpB::COOKED);
-  const size_t out = (static_cast<size_t>(BM) * LDC + 8 * BM) * sizeof(float);
-  return stages > out ? stages : out;
-}
-
-// The 16 (mn) x 16 (k) block at (mn, k) of a staged bf16 tile as four 8 x 8
-// fragments, in the A fragment's order: (mn, k), (mn + 8, k), (mn, k + 8),
-// (mn + 8, k + 8); as B fragments, {r0, r2} are columns mn .. mn + 7 and
-// {r1, r3} columns mn + 8 .. mn + 15.
-template <bool KMAJOR>
-__device__ __forceinline__ void frag(uint32_t (&r)[4], const bf16* S, int mn, int k) {
-  constexpr int L = tile_ld<bf16, KMAJOR>();
-  const int lane = threadIdx.x & 31, j = lane >> 3, i = lane & 7;
-  if constexpr (KMAJOR)
-    ldsm_x4(r, S + (mn + (j & 1) * 8 + i) * L + k + (j >> 1) * 8);
-  else
-    ldsm_x4_t(r, S + (k + (j >> 1) * 8 + i) * L + mn + (j & 1) * 8);
-}
-
-// The 16 (mn) x 8 (k) block of a staged f32 tile in the tf32 A fragment's
-// order: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); as B fragments, {r0,
-// r2} are columns mn .. mn + 7 and {r1, r3} columns mn + 8 .. mn + 15.
-template <bool KMAJOR>
-__device__ __forceinline__ void frag(uint32_t (&r)[4], const float* S, int mn, int k) {
-  constexpr int L = tile_ld<float, KMAJOR>();
-  const int lane = threadIdx.x & 31;
-  if constexpr (KMAJOR) {
-    const int j = lane >> 3, i = lane & 7;
-    ldsm_x4(r, S + (mn + (j & 1) * 8 + i) * L + k + (j >> 1) * 4);
-  } else {
-    const float* s = S + (k + (lane & 3)) * L + mn + (lane >> 2);
-    r[0] = __float_as_uint(s[0]);
-    r[1] = __float_as_uint(s[8]);
-    r[2] = __float_as_uint(s[4 * L]);
-    r[3] = __float_as_uint(s[4 * L + 8]);
-  }
-}
-
-// acc += one stage's products for this warp's 64 x 32 outputs: acc[mi][nj] is
-// the C fragment of rows 16 mi, columns 8 nj of the warp's tile
-template <class P, bool KA, bool KB>
-__device__ __forceinline__ void tc_products(const typename P::T* As, const typename P::T* Bs,
-                                            float (&acc)[4][4][4]) {
-  const int w = threadIdx.x >> 5, wm = (w >> 2) * 64, wn = (w & 3) * 32;
-  if constexpr (std::is_same<typename P::T, bf16>::value) {
+// A vector-attention epilogue (acc, asum, has_asum, m0, n0, tile_rows, shared
+// memory) fed by the core: each thread takes its acc[8][8] from the tile C and,
+// in the first column tile where A sums, its rows' sums from the partials,
+// added in a fixed order
+template <class Epi>
+struct VaAcc {
+  Epi epi;
+  __device__ __forceinline__ void operator()(float* C, const float* part, bool sums, int m0,
+                                             int n0, int nt, int tile_rows) const {
+    constexpr int LDC = VaTile::LDC;
+    float out[8][8], osum[8];
 #pragma unroll
-    for (int k = 0; k < TBK; k += 16) {
-      uint32_t b[4][2];
+    for (int i = 0; i < 8; ++i) {
+      osum[i] = 0.f;
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        frag<KB>(r, Bs, wn + 16 * p, k);
-        b[2 * p][0] = r[0];
-        b[2 * p][1] = r[2];
-        b[2 * p + 1][0] = r[1];
-        b[2 * p + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        uint32_t a[4];
-        frag<KA>(a, As, wm + 16 * mi, k);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], a, b[nj]);
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(C + row_of(i) * LDC + col_of(4 * h));
+        out[i][4 * h + 0] = v.x;
+        out[i][4 * h + 1] = v.y;
+        out[i][4 * h + 2] = v.z;
+        out[i][4 * h + 3] = v.w;
       }
     }
-  } else {
+    const bool sum_a = sums && nt == 0 && (threadIdx.x & 15) == 0;
+    if (sum_a) {
 #pragma unroll
-    for (int k = 0; k < TBK; k += 8) {
-      uint32_t bb[4][2], bs[4][2];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        frag<KB>(r, Bs, wn + 16 * p, k);
-        split(__uint_as_float(r[0]), bb[2 * p][0], bs[2 * p][0]);
-        split(__uint_as_float(r[2]), bb[2 * p][1], bs[2 * p][1]);
-        split(__uint_as_float(r[1]), bb[2 * p + 1][0], bs[2 * p + 1][0]);
-        split(__uint_as_float(r[3]), bb[2 * p + 1][1], bs[2 * p + 1][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        uint32_t r[4], ab[4], as[4];
-        frag<KA>(r, As, wm + 16 * mi, k);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split(__uint_as_float(r[e]), ab[e], as[e]);
-        // the three passes of these 8 contraction rows from zero, the small
-        // terms first, consecutive products on different accumulators; then
-        // one f32 add (round to nearest) into acc. The tensor core's own f32
-        // additions truncate: over a weight gradient's chunk of 16,384 rows
-        // they drifted 1e-4 of the largest value when they carried the sum.
-        float part[4][4] = {};
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_tf32(part[nj], as, bb[nj]);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_tf32(part[nj], ab, bs[nj]);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_tf32(part[nj], ab, bb[nj]);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][nj][e] = __fadd_rn(acc[mi][nj][e], part[nj][e]);
-      }
+        for (int w = 0; w < VaTile::GROUPS; ++w)
+          osum[i] = __fadd_rn(osum[i], part[w * BM + row_of(i)]);
     }
+    epi(out, osum, sum_a, m0, n0, tile_rows, C);
   }
-}
-
-// One 128 x 128 tile of C = sum_k A(m, k) B(n, k) over k in [kb, ke), with
-// tile_rows rows a tile (the epilogue may take fewer than BM), ncol column
-// tiles (blockIdx.x = row tile * ncol + column tile), chunk rows of the
-// contraction per blockIdx.z. Where OpA sums (a weight gradient's left
-// factor), the first column tile's blocks also hand the epilogue the sums of A
-// over k for each row m (the bias gradient), added in a fixed order. Stage s:
-// issue (copies started, STAGES - 1 stages ahead), fetch (registers, one
-// stage ahead), prepare (once the thread's copies have landed, one stage
-// ahead), products.
-template <class P, class OpA, class OpB, class Epi>
-__global__ void __launch_bounds__(THREADS, P::MIN_BLOCKS)
-va_tc_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, int chunk) {
-  using T = typename P::T;
-  constexpr int STAGES = P::STAGES, RAW = OpA::RAW + OpB::RAW;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  T* const cooked_a = reinterpret_cast<T*>(tc_smem + STAGES * RAW);
-  T* const cooked_b = reinterpret_cast<T*>(tc_smem + STAGES * RAW + 2 * OpA::COOKED);
-  const int mt = blockIdx.x / ncol, nt = blockIdx.x % ncol;
-  const int m0 = mt * tile_rows, n0 = nt * BN;
-  const int kb = blockIdx.z * chunk, ke = min(kb + chunk, k_len);
-  const int nk = ke > kb ? (ke - kb + TBK - 1) / TBK : 0;
-  auto raw_a = [&](int s) { return tc_smem + (s % STAGES) * RAW; };
-  auto raw_b = [&](int s) { return tc_smem + (s % STAGES) * RAW + OpA::RAW; };
-  auto cook_a = [&](int s) { return cooked_a + (s & 1) * (OpA::COOKED / sizeof(T)); };
-  auto cook_b = [&](int s) { return cooked_b + (s & 1) * (OpB::COOKED / sizeof(T)); };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  float asum[4] = {0.f, 0.f, 0.f, 0.f}, unused[4];
-  typename OpA::Regs ra;
-  typename OpB::Regs rb;
-  opa.setup(ra, m0);
-  opb.setup(rb, n0);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) {
-      opa.issue(raw_a(s), m0, kb + s * TBK, ke);
-      opb.issue(raw_b(s), n0, kb + s * TBK, ke);
-    }
-    cp_commit();
-  }
-  if (nk > 0) {
-    opa.fetch(ra, m0, kb, ke);
-    opb.fetch(rb, n0, kb, ke);
-    cp_wait<STAGES - 2>();
-    opa.prepare(raw_a(0), cook_a(0), ra, m0, kb, ke, asum);
-    opb.prepare(raw_b(0), cook_b(0), rb, n0, kb, ke, unused);
-  }
-  for (int it = 0; it < nk; ++it) {
-    // each thread's copies of stage it have landed (the wait before its
-    // prepare): now all are visible, and every thread is done with stage it - 1
-    __syncthreads();
-    const int nx = it + STAGES - 1;
-    if (nx < nk) {
-      opa.issue(raw_a(nx), m0, kb + nx * TBK, ke);
-      opb.issue(raw_b(nx), n0, kb + nx * TBK, ke);
-    }
-    cp_commit();
-    const bool more = it + 1 < nk;
-    const int k1 = kb + (it + 1) * TBK;
-    if (more) {
-      opa.fetch(ra, m0, k1, ke);
-      opb.fetch(rb, n0, k1, ke);
-    }
-    tc_products<P, OpA::K_MAJOR, OpB::K_MAJOR>(opa.tile(raw_a(it), cook_a(it)),
-                                               opb.tile(raw_b(it), cook_b(it)), acc);
-    if (more) {
-      cp_wait<STAGES - 2>();
-      opa.prepare(raw_a(it + 1), cook_a(it + 1), ra, m0, k1, ke, asum);
-      opb.prepare(raw_b(it + 1), cook_b(it + 1), rb, n0, k1, ke, unused);
-    }
-  }
-  cp_wait<0>();
-  __syncthreads();
-
-  // the accumulators to the tile C [BM][LDC], the thread's column sums to
-  // part[warp][m]; then each thread takes its acc[8][8] and row sums
-  float* C = reinterpret_cast<float*>(tc_smem);
-  float* part = C + BM * LDC;
-  {
-    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r0 = (w >> 2) * 64 + (lane >> 2), c0 = (w & 3) * 32 + 2 * (lane & 3);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        float* c = C + (r0 + 16 * mi) * LDC + c0 + 8 * nj;
-        *reinterpret_cast<float2*>(c) = make_float2(acc[mi][nj][0], acc[mi][nj][1]);
-        *reinterpret_cast<float2*>(c + 8 * LDC) = make_float2(acc[mi][nj][2], acc[mi][nj][3]);
-      }
-    if constexpr (OpA::SUMS)
-      *reinterpret_cast<float4*>(part + w * BM + lane * 4) =
-          make_float4(asum[0], asum[1], asum[2], asum[3]);
-  }
-  __syncthreads();
-  float out[8][8], osum[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    osum[i] = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float4 v = *reinterpret_cast<const float4*>(C + row_of(i) * LDC + col_of(4 * h));
-      out[i][4 * h + 0] = v.x;
-      out[i][4 * h + 1] = v.y;
-      out[i][4 * h + 2] = v.z;
-      out[i][4 * h + 3] = v.w;
-    }
-  }
-  const bool sum_a = OpA::SUMS && nt == 0 && (threadIdx.x & 15) == 0;
-  if (sum_a) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int w = 0; w < 8; ++w) osum[i] = __fadd_rn(osum[i], part[w * BM + row_of(i)]);
-  }
-  epi(out, osum, sum_a, m0, n0, tile_rows, C);
-}
+};
 
 // the softmax backward, one thread per (point, channel): gl = a (g u - sum_K(a g
 // u)) * scale, and gv = a g where gv is not null; g of type TG, u and a of type TR
@@ -1022,18 +680,14 @@ __global__ void va_rel_grad_kernel(const float* __restrict__ ghd, const T* __res
 
 int first_error(int err) { return err ? err : static_cast<int>(cudaGetLastError()); }
 
-// va_tc_gemm_kernel over a grid (blockIdx.z: chunks of `chunk` contraction rows)
+// tc_gemm_kernel at VaTile over a grid (blockIdx.z: chunks of `chunk` contraction rows)
 template <class P, class OpA, class OpB, class Epi>
-int tc_launch(OpA a, OpB b, Epi epi, dim3 grid, int tile_rows, int ncol, int k_len, int chunk,
+int va_launch(OpA a, OpB b, Epi epi, dim3 grid, int tile_rows, int ncol, int k_len, int chunk,
               cudaStream_t stream) {
-  auto kernel = va_tc_gemm_kernel<P, OpA, OpB, Epi>;
-  constexpr size_t smem = tc_smem_bytes<P, OpA, OpB>();
-  static_assert(smem >= GROUP_BYTES, "an epilogue's group tile overlays the core's shared memory");
-  const int err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (err) return err;
-  kernel<<<grid, THREADS, smem, stream>>>(a, b, epi, tile_rows, ncol, k_len, chunk);
-  return static_cast<int>(cudaGetLastError());
+  static_assert(tc_smem_bytes<P, VaTile, OpA, OpB>() >= GROUP_BYTES,
+                "an epilogue's group tile overlays the core's shared memory");
+  return tc_launch<P, VaTile>(a, b, VaAcc<Epi>{epi}, grid, tile_rows, ncol, k_len, chunk,
+                              stream);
 }
 
 // a row GEMM: C[rows, n] = A B^T over row tiles of tile_rows rows, contraction
@@ -1042,12 +696,12 @@ int tc_launch(OpA a, OpB b, Epi epi, dim3 grid, int tile_rows, int ncol, int k_l
 template <class P, class OpA, class OpB, class Epi>
 int tc_gemm(OpA a, OpB b, Epi epi, int rows, int tile_rows, int n, int d, cudaStream_t stream) {
   const int ncol = (n + BN - 1) / BN, nrow = (rows + tile_rows - 1) / tile_rows;
-  return tc_launch<P>(a, b, epi, dim3(nrow * ncol), tile_rows, ncol, d, d, stream);
+  return va_launch<P>(a, b, epi, dim3(nrow * ncol), tile_rows, ncol, d, d, stream);
 }
 
 // the f32 scratch s1, s2 [rows, d] as the A operand of a backward row GEMM
 template <class P>
-using Scratch = TcRows<typename P::T, float, true>;
+using Scratch = VaRows<typename P::T, float, true>;
 
 // a weight gradient g^T x over `rows` rows in chunks, and the bias gradient, then
 // the chunk sums in order: gw [d, n], gb [d]; g [rows, d] f32 (rounded to bf16
@@ -1057,7 +711,7 @@ int wgrad(const float* g, OpX x, int rows, int d, int n, int chunk, float* parti
           float* gb, cudaStream_t stream) {
   const int chunks = (rows + chunk - 1) / chunk;
   const int ncol = (n + BN - 1) / BN, nrow = (d + BM - 1) / BM;
-  int err = tc_launch<P>(TcRows<typename P::T, float, false, false, true>{g, d, d}, x,
+  int err = va_launch<P>(VaRows<typename P::T, float, false, false, true>{g, d, d}, x,
                          VaEpiPartial{partial, d, n}, dim3(nrow * ncol, 1, chunks), BM, ncol,
                          rows, chunk, stream);
   if (err) return err;
@@ -1229,7 +883,7 @@ int vag_forward(const bf16* q, const bf16* kall, const bf16* vall, const int* id
   const int rows = npts * kk;
   const Hd<bf16> hd{rel, wh[0], bias[0], rows, d};
   using P = Bf16Mma;
-  using Rows = TcRows<bf16, bf16, true>;
+  using Rows = VaRows<bf16, bf16, true>;
   int err = tc_gemm<P>(TcHdRows<bf16, bf16>{hd}, Rows{wh[1], d, d},
                        VagEpiPos{q, kall, vall, idx, bias[1], x16, u32, rows, d, kk, n}, rows, BM,
                        d, d, stream);
@@ -1238,7 +892,7 @@ int vag_forward(const bf16* q, const bf16* kall, const bf16* vall, const int* id
                      VaEpiBias<bf16, false>{bias[2], hgp16, rows, d}, rows, BM, d, d, stream);
   const int tile_rows = (BM / kk) * kk;
   if (!err)
-    err = tc_gemm<P>(TcRows<bf16, bf16, true, true>{hgp16, d, rows}, Rows{wh[3], d, d},
+    err = tc_gemm<P>(VaRows<bf16, bf16, true, true>{hgp16, d, rows}, Rows{wh[3], d, d},
                      VaEpiSoftmax<bf16>{bias[3], u32, a32, a16, u16, out16, npts, d, kk,
                                         1.0f / sqrtf(static_cast<float>(d))},
                      rows, tile_rows, d, d, stream);
@@ -1266,9 +920,9 @@ int vag_backward(const int* idx, const bf16* rel, const bf16* const* wh,
   err = first_error(err);
   // gwg2 = bf16(gl)^T relu(hg_pre), gbg2; g_hg = (bf16(gl) wg2) [hg_pre > 0] -> s2
   using P = Bf16Mma;
-  using Cols = TcRows<bf16, bf16, false>;
+  using Cols = VaRows<bf16, bf16, false>;
   if (!err)
-    err = wgrad<P>(s1, TcRows<bf16, bf16, false, true>{hgp16, d, d}, rows, d, d, chunk, partial,
+    err = wgrad<P>(s1, VaRows<bf16, bf16, false, true>{hgp16, d, d}, rows, d, d, chunk, partial,
                    gw[6], gw[7], stream);
   if (!err)
     err = tc_gemm<P>(Scratch<P>{s1, d, rows}, Cols{wh[3], d, d},
@@ -1332,7 +986,7 @@ int s3f_va_fwd(const float* q, const float* k, const float* v, const float* rel,
   const Hd<float> hd{rel, w[0], w[1], rows, d};
   if (npts <= 0) return 0;
   using P = Tf32x3;
-  using Rows = TcRows<float, float, true>;
+  using Rows = VaRows<float, float, true>;
   int err = tc_gemm<P>(TcHdRows<float, float>{hd}, Rows{w[2], d, d},
                        VaEpiPos{q, k, v, w[3], x, u, rows, d, kk}, rows, BM, d, d, stream);
   if (!err)
@@ -1371,7 +1025,7 @@ int s3f_va_bwd(const float* rel, const float* const* w, const float* x, const fl
   err = first_error(err);
   // gwg2 = gl^T hg, gbg2; g_hg = (gl wg2) [hg > 0] -> s2
   using P = Tf32x3;
-  using Cols = TcRows<float, float, false>;
+  using Cols = VaRows<float, float, false>;
   if (!err) err = wgrad<P>(s1, Cols{hg, d, d}, rows, d, d, chunk, partial, gw[6], gw[7], stream);
   if (!err)
     err = tc_gemm<P>(Scratch<P>{s1, d, rows}, Cols{w[6], d, d},

@@ -4,28 +4,49 @@
 //   h = x + proj(MHA(LN1(x)))      qkv = LN1(x) Wqkv^T + bqkv
 //   y = h + fc2(gelu_tanh(fc1(LN2(h))))
 //
-// Forward: a chain of five launches from one entry point:
-//   1. gemm<LN, BIAS>        qkv = LN1(x) Wqkv^T + bqkv             -> f32 [M, 3D]
-//   2. attention<DH>         one block per (query tile, head, sample) -> f32 [M, D]
-//   3. gemm<-, BIAS_RES>     h = x + (o Wproj^T + bproj)             -> f32 [M, D]
-//   4. gemm<LN, BIAS_GELU>   g = gelu_tanh(LN2(h) W1^T + b1)          -> f32 [M, 4D]
-//   5. gemm<-, BIAS_RES>     y = h + (g W2^T + b2)                   -> x.dtype [M, D]
-// The training forward is the same chain that also keeps a1 = LN2(h) W1^T + b1
-// (fc1 before GELU) and the softmax probabilities [B, H, N, N].
+// Replaces the TPU kernels of simple3dformer_tpu/kernels/vit_block.py: the
+// forward (_fwd_kernel :145, pallas_call :264), the recompute backward
+// (_bwd_kernel :153, :290), the training forward keeping its residuals
+// (_fwd_kernel_res :336, :366) and the backward from them (_bwd_kernel_res
+// :394, :477).
+//
+// Forward: a chain of launches from one entry point:
+//   row_stats(x)                  LayerNorm statistics of each token row, once
+//   qkv  = LN1(x) Wqkv^T + bqkv                                      -> f32 [M, 3D]
+//   attention<DH>                 one block per (query tile, head, sample) -> f32 [M, D]
+//   h1   = x + (o Wproj^T + bproj)                                   -> f32 [M, D]
+//   row_stats(h1)
+//   g1   = gelu_tanh(LN2(h1) W1^T + b1)                              -> f32 [M, 4D]
+//   y    = h1 + (g1 W2^T + b2)                                       -> x.dtype [M, D]
+// The training forward is the same chain that also keeps a1 = LN2(h1) W1^T +
+// b1 (fc1 before GELU) and the softmax probabilities [B, H, N, N].
 //
 // Backward from those residuals (the TPU kernel's _bwd_kernel_res): LayerNorm
-// statistics are re-derived from x and h1, then each product of the chain
-// runs as a grad_gemm (dX = dY W, and dW = dY^T X summed over the M token
-// rows in one block per output tile), the attention backward runs per (tile,
-// head, sample) in two passes (query rows, then key rows), and bias and
-// LayerNorm gradients are column sums in a fixed order. No float atomics: two
-// runs give the same bits. The recompute backward runs the training forward
-// into scratch first and then the same backward.
+// statistics are re-derived from x and h1, then each product of the chain runs
+// as a GEMM (dX = dY W; dW = dY^T X summed over the M token rows in fixed row
+// chunks, the bias gradient, the column sum of dY, in the same pass), the
+// attention backward runs per (tile, head, sample) in two passes (query rows,
+// then key rows), and the LayerNorm gradients are column sums in a fixed order.
+// No float atomics: two runs give the same bits. The recompute backward runs
+// the training forward into scratch first and then the same backward.
 //
-// M = B*N token rows. Weights are f32 in nn.Linear layout [out, in]; LayerNorm
-// statistics, softmax, GELU, residuals and every sum are f32. Matmul operands
-// are rounded to bf16 (round to nearest even) when the compute dtype is bf16,
-// and products accumulate in f32 FMA (no TF32, no tensor cores).
+// Every GEMM runs on the tensor-core core of tc_gemm.cuh (tc_gemm_kernel, 64 x
+// 64 output tiles, 8 warps of 32 x 16): 3-pass TF32 mma.sync when the compute
+// dtype is f32, bf16 mma.sync when it is bf16 (the operands rounded to nearest
+// even where they are staged, as the plain version rounds them; the f32 sums
+// differ in order only). The operands are read where they lie: activations
+// K-major, a weight K-major in its Linear layout [out, in] in the forward and
+// MN-major in the backward's row GEMMs, and both factors of a weight gradient
+// MN-major with the token rows as the contraction. LayerNorm (from each row's
+// statistics, computed once), GELU and the rounding are applied to a staged
+// tile in shared memory. At the flagship shape (B=32, N=26, D=384) the four
+// forward GEMMs are 2.94 GFLOP on M = 832 rows and 7 MB of weights: the
+// products bound a call on this card (0.018 ms at 165 TFLOP/s of 3-pass TF32),
+// not bytes. Small M makes small grids: where a GEMM's output tiles do not fill
+// a wave of the 132 SMs, its contraction is split in fixed chunks (blockIdx.z),
+// each chunk writes its partial sums, and a second pass adds them in chunk order
+// and applies the epilogue (split_of). LayerNorm statistics, softmax, GELU,
+// residuals and every sum outside the tensor cores are f32; weights are f32.
 //
 // Every entry returns the first CUDA error of its launches (0 on success).
 
@@ -37,6 +58,8 @@
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
+
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -82,121 +105,300 @@ __device__ __forceinline__ float gelu_tanh_grad(float a) {
 }
 
 // ---------------------------------------------------------------------------
-// Tiled GEMM: out[m, n] = epilogue(sum_k prologue(A)[m, k] * W[n, k] + bias[n])
-// A [M, K] row-major; W [Nout, K] (nn.Linear layout); K % BK == 0.
-// 64x64 output tile per block, 256 threads, 4x4 outputs per thread.
-// With EPI_BIAS_GELU and a non-null `pre`, the value before GELU goes there.
+// The GEMMs: tc_gemm_kernel at 64 x 64 output tiles (8 warps of 32 x 16, two
+// blocks an SM), the products' route P (Tf32x3 or Bf16Mma) by the compute dtype.
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
+using BlkTile = TcTile<64, 2, 4, 2>;
+constexpr int kSMs = 132;  // H100 SXM
 
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RES = 2 };
+// LayerNorm of a staged f32 operand from each token row's mean and rstd, the
+// value (v - mean) * rstd * s + b: on K-major rows (m the token row, k the
+// channel) or, COLS, on MN-major rows of a weight gradient (k the token row, m
+// the channel)
+template <bool COLS>
+struct LnXf {
+  static constexpr bool ACTIVE = true;
+  const float *mean, *rstd, *s, *b;
+  __device__ __forceinline__ float4 operator()(float4 v, int m, int k) const {
+    const int row = COLS ? k : m, col = COLS ? m : k;
+    const float mu = mean[row], rs = rstd[row];
+    const float4 sc = load4(s + col), bi = load4(b + col);
+    return make_float4((v.x - mu) * rs * sc.x + bi.x, (v.y - mu) * rs * sc.y + bi.y,
+                       (v.z - mu) * rs * sc.z + bi.z, (v.w - mu) * rs * sc.w + bi.w);
+  }
+};
 
-template <typename TA, typename TR, typename TO, bool LN, int EPI, bool ROUND>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const TA* __restrict__ A, const float* __restrict__ ln_s,
-            const float* __restrict__ ln_b, const float* __restrict__ W,
-            const float* __restrict__ bias, const TR* __restrict__ R,
-            TO* __restrict__ out, float* __restrict__ pre, int M, int Nout, int K) {
-  // +4 keeps each row 16-byte aligned for the float4 reads and staggers banks
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  __shared__ float mean_s[BM];
-  __shared__ float rstd_s[BM];
+// gelu_tanh of a staged f32 operand (a1 as the right factor of W2's gradient)
+struct GeluXf {
+  static constexpr bool ACTIVE = true;
+  __device__ __forceinline__ float4 operator()(float4 v, int, int) const {
+    return make_float4(gelu_tanh(v.x), gelu_tanh(v.y), gelu_tanh(v.z), gelu_tanh(v.w));
+  }
+};
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+// f32 rows [.., ld] as an operand of route P: K-major (activation rows, or a
+// weight in its Linear layout) or MN-major (a weight read transposed, or a
+// weight gradient's factor), transformed by XF; a weight gradient's left
+// factor sums its values for the bias gradient
+template <class P, bool KMAJOR, class XF = NoXf>
+using Rows = TcRows<BlkTile, typename P::T, float, KMAJOR, false, false, XF>;
 
-  if constexpr (LN) {
-    // centred two-pass statistics of this block's rows, one warp per row
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const int m = m0 + r;
-      float mu = 0.f, rs = 0.f;
-      if (m < M) {
-        const TA* row = A + static_cast<size_t>(m) * K;
+// Elementwise epilogues: out(m, n, v) takes the sums of row m, columns n .. n
+// + 3 (n a multiple of 4, all inside the output).
+
+// out = v + bias
+struct OutBias {
+  const float* bias;
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
+    const float4 b = load4(bias + n);
+    store4(out + static_cast<long long>(m) * ld + n, v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
+  }
+};
+
+// a = v + bias (kept in pre where not null), out = gelu_tanh(a)
+struct OutBiasGelu {
+  const float* bias;
+  float* pre;
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
+    const float4 b = load4(bias + n);
+    const float a0 = v.x + b.x, a1 = v.y + b.y, a2 = v.z + b.z, a3 = v.w + b.w;
+    const long long at = static_cast<long long>(m) * ld + n;
+    if (pre != nullptr) store4(pre + at, a0, a1, a2, a3);
+    store4(out + at, gelu_tanh(a0), gelu_tanh(a1), gelu_tanh(a2), gelu_tanh(a3));
+  }
+};
+
+// out = res + (v + bias), out of type TO
+template <class TO>
+struct OutBiasRes {
+  const float* bias;
+  const float* res;
+  TO* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
+    const float4 b = load4(bias + n);
+    const long long at = static_cast<long long>(m) * ld + n;
+    const float4 r = load4(res + at);
+    store4(out + at, r.x + (v.x + b.x), r.y + (v.y + b.y), r.z + (v.z + b.z), r.w + (v.w + b.w));
+  }
+};
+
+// out = v
+struct OutStore {
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
+    store4(out + static_cast<long long>(m) * ld + n, v.x, v.y, v.z, v.w);
+  }
+};
+
+// out = v * gelu_tanh'(aux)
+struct OutGeluGrad {
+  const float* aux;
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
+    const long long at = static_cast<long long>(m) * ld + n;
+    const float4 a = load4(aux + at);
+    store4(out + at, v.x * gelu_tanh_grad(a.x), v.y * gelu_tanh_grad(a.y),
+           v.z * gelu_tanh_grad(a.z), v.w * gelu_tanh_grad(a.w));
+  }
+};
+
+// A split contraction's chunks meet in the last block of a tile to arrive:
+// each block writes its chunk's partial sums, and the block that finds itself
+// the last of its tile's gridDim.z blocks on the tile's arrival counter (an
+// integer atomic) adds the chunks' partials in chunk order and writes the
+// result; it leaves the counter zero again for the next launch. The order of
+// the sums does not depend on the order of arrival: two runs give the same
+// bits.
+__device__ __forceinline__ bool last_to_arrive(unsigned* counter) {
+  __shared__ bool last;
+  __threadfence();  // this block's partial sums, visible before it is counted
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1u) == gridDim.z - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// the sum over the chunks of the partial (a float or 4 consecutive floats, V)
+// at p, chunk stride `stride`, added in chunk order; read past the L1 cache
+// (other blocks wrote them), four chunks' loads in flight at a time
+template <class V>
+__device__ __forceinline__ V chunk_sum(const float* p, long long stride) {
+  V s{};
+  const unsigned n = gridDim.z;
+  unsigned c = 0;
+  for (; c + 4 <= n; c += 4) {
+    V v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = __ldcg(reinterpret_cast<const V*>(p + (c + u) * stride));
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s = add_rn(s, v[u]);
+  }
+  for (; c < n; ++c) s = add_rn(s, __ldcg(reinterpret_cast<const V*>(p + c * stride)));
+  return s;
+}
+
+// The core's epilogue for a row GEMM [rows, cols]: each thread takes float4
+// runs of the tile C and hands them to out; when the contraction is split
+// (gridDim.z > 1), through the chunks' partials [chunks][rows][cols] and the
+// tile's arrival counter (one a column-major tile, blockIdx.x)
+template <class Out>
+struct BlkEpi {
+  Out out;
+  float* partial;
+  unsigned* arrivals;
+  int rows, cols;
+  __device__ __forceinline__ void operator()(float* C, const float*, bool, int m0, int n0, int,
+                                             int) const {
+    constexpr int PER_ROW = BlkTile::BN / 4, RUNS = BlkTile::BM * PER_ROW / BlkTile::THREADS;
+    const long long count = static_cast<long long>(rows) * cols;
+#pragma unroll
+    for (int i = 0; i < RUNS; ++i) {
+      const int a = threadIdx.x + i * BlkTile::THREADS, r = a / PER_ROW, c = a % PER_ROW * 4;
+      const int m = m0 + r, n = n0 + c;
+      if (m >= rows || n >= cols) continue;
+      const float4 v = *reinterpret_cast<const float4*>(C + r * BlkTile::LDC + c);
+      if (gridDim.z == 1)
+        out(m, n, v);
+      else
+        store4(partial + blockIdx.z * count + static_cast<long long>(m) * cols + n, v.x, v.y,
+               v.z, v.w);
+    }
+    if (gridDim.z == 1 || !last_to_arrive(arrivals + blockIdx.x)) return;
+#pragma unroll
+    for (int i = 0; i < RUNS; ++i) {
+      const int a = threadIdx.x + i * BlkTile::THREADS, r = a / PER_ROW, c = a % PER_ROW * 4;
+      const int m = m0 + r, n = n0 + c;
+      if (m >= rows || n >= cols) continue;
+      out(m, n, chunk_sum<float4>(partial + static_cast<long long>(m) * cols + n, count));
+    }
+  }
+};
+
+// The core's epilogue for a weight gradient: gw [d, n] and, from the first
+// column tile, gb [d] (the sums of the left factor's rows, the thread groups'
+// partials added in a fixed order). With a split contraction, each chunk's
+// partial sums go to partial + chunk * (d n + d) (gb's after gw's), and the
+// tile's last block to arrive adds them in chunk order.
+struct BlkEpiWgrad {
+  float *gw, *gb, *partial;
+  unsigned* arrivals;
+  int d, n;
+  __device__ __forceinline__ void operator()(float* C, const float* part, bool sums, int m0,
+                                             int n0, int nt, int) const {
+    constexpr int PER_ROW = BlkTile::BN / 4, RUNS = BlkTile::BM * PER_ROW / BlkTile::THREADS;
+    const long long nw = static_cast<long long>(d) * n, stride = nw + d;
+    const bool split = gridDim.z > 1, bias = sums && nt == 0;
+    float* w = split ? partial + blockIdx.z * stride : gw;
+    float* b = split ? partial + blockIdx.z * stride + nw : gb;
+#pragma unroll
+    for (int i = 0; i < RUNS; ++i) {
+      const int a = threadIdx.x + i * BlkTile::THREADS, r = a / PER_ROW, c = a % PER_ROW * 4;
+      const int o = m0 + r, col = n0 + c;
+      if (o >= d || col >= n) continue;
+      const float4 v = *reinterpret_cast<const float4*>(C + r * BlkTile::LDC + c);
+      store4(w + static_cast<long long>(o) * n + col, v.x, v.y, v.z, v.w);
+    }
+    if (bias) {
+      for (int r = threadIdx.x; r < BlkTile::BM; r += BlkTile::THREADS) {
+        if (m0 + r >= d) continue;
         float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += load(row + k);
-        mu = warp_sum(s) / K;
-        float v = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float d = load(row + k) - mu;
-          v += d * d;
-        }
-        rs = rsqrtf(warp_sum(v) / K + kEps);
-      }
-      if (lane == 0) {
-        mean_s[r] = mu;
-        rstd_s[r] = rs;
+#pragma unroll
+        for (int g = 0; g < BlkTile::GROUPS; ++g) s = __fadd_rn(s, part[g * BlkTile::BM + r]);
+        b[m0 + r] = s;
       }
     }
-    __syncthreads();
-  }
-
-  // loader mapping: 4 consecutive k of one row per thread
-  const int lr = tid / 4;
-  const int lk = (tid % 4) * 4;
-  // compute mapping: rows ty*4.., columns tx*4..
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    {
-      const int m = m0 + lr;
+    if (!split || !last_to_arrive(arrivals + blockIdx.x)) return;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = k0 + lk + i;
-        float v = 0.f;
-        if (m < M) {
-          v = load(A + static_cast<size_t>(m) * K + k);
-          if constexpr (LN) v = (v - mean_s[lr]) * rstd_s[lr] * ln_s[k] + ln_b[k];
-          v = operand<ROUND>(v);
-        }
-        As[lk + i][lr] = v;
-      }
+    for (int i = 0; i < RUNS; ++i) {
+      const int a = threadIdx.x + i * BlkTile::THREADS, r = a / PER_ROW, c = a % PER_ROW * 4;
+      const int o = m0 + r, col = n0 + c;
+      if (o >= d || col >= n) continue;
+      const long long at = static_cast<long long>(o) * n + col;
+      const float4 s = chunk_sum<float4>(partial + at, stride);
+      store4(gw + at, s.x, s.y, s.z, s.w);
     }
-    {
-      const int n = n0 + lr;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = k0 + lk + i;
-        Bs[lk + i][lr] = n < Nout ? operand<ROUND>(W[static_cast<size_t>(n) * K + k]) : 0.f;
+    if (bias) {
+      for (int r = threadIdx.x; r < BlkTile::BM; r += BlkTile::THREADS) {
+        if (m0 + r < d) gb[m0 + r] = chunk_sum<float>(partial + nw + m0 + r, stride);
       }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= Nout) continue;
-      const size_t at = static_cast<size_t>(m) * Nout + n;
-      float v = acc[i][j] + bias[n];
-      if constexpr (EPI == EPI_BIAS_GELU) {
-        if (pre != nullptr) pre[at] = v;
-        v = gelu_tanh(v);
-      }
-      if constexpr (EPI == EPI_BIAS_RES) v = load(R + at) + v;
-      store(out + at, v);
     }
   }
+};
+
+// How a GEMM of `tiles` output tiles splits its contraction of k: chunks of a
+// multiple of TBK rows, doubled in number while the grid has fewer than
+// `waves` waves of blocks (one a SM) and each chunk keeps at least 4 stages.
+// A function of the shapes alone, so every run splits the same way. A split
+// GEMM has fewer than kMaxSplitTiles output tiles, one arrival counter each.
+struct Split {
+  int chunks, chunk;
+};
+Split split_of(int tiles, int k, int waves) {
+  int s = 1;
+  while (tiles * s < waves * kSMs && k / (2 * s) >= 4 * TBK) s *= 2;
+  const int chunk = ((k + s - 1) / s + TBK - 1) / TBK * TBK;
+  return Split{(k + chunk - 1) / chunk, chunk};
+}
+
+int tiles_of(int rows, int cols) {
+  return ((rows + BlkTile::BM - 1) / BlkTile::BM) * ((cols + BlkTile::BN - 1) / BlkTile::BN);
+}
+
+// the row GEMMs fill one wave; the weight gradients, pure sums, two
+constexpr int kRowWaves = 1, kWgradWaves = 2;
+constexpr int kMaxSplitTiles = kWgradWaves * kSMs;
+
+// f32 scratch of a row GEMM's partials, and of a weight gradient's
+size_t row_partial_floats(int rows, int cols, int k) {
+  const Split sp = split_of(tiles_of(rows, cols), k, kRowWaves);
+  return sp.chunks > 1 ? static_cast<size_t>(sp.chunks) * rows * cols : 0;
+}
+size_t wgrad_partial_floats(int rows, int d, int n) {
+  const Split sp = split_of(tiles_of(d, n), rows, kWgradWaves);
+  return sp.chunks > 1 ? static_cast<size_t>(sp.chunks) * (static_cast<size_t>(d) * n + d) : 0;
+}
+
+// out(C) for C [rows, cols] = A B^T over a contraction of k; partial and
+// arrivals (kMaxSplitTiles counters, zero) serve a split contraction
+template <class P, class OpA, class OpB, class Out>
+cudaError_t blk_gemm(OpA a, OpB b, Out out, int rows, int cols, int k, float* partial,
+                     unsigned* arrivals, cudaStream_t stream) {
+  const int ncol = (cols + BlkTile::BN - 1) / BlkTile::BN, tiles = tiles_of(rows, cols);
+  const Split sp = split_of(tiles, k, kRowWaves);
+  return static_cast<cudaError_t>(tc_launch<P, BlkTile>(
+      a, b, BlkEpi<Out>{out, partial, arrivals, rows, cols}, dim3(tiles, 1, sp.chunks),
+      BlkTile::BM, ncol, k, sp.chunk, stream));
+}
+
+// gw [d, n] = g^T x and gb [d] = the column sums of g, over `rows` token rows in
+// chunks: g [rows, d] f32, x an MN-major operand [rows, n]
+template <class P, class OpX>
+cudaError_t blk_wgrad(const float* g, OpX x, int rows, int d, int n, float* partial,
+                      unsigned* arrivals, float* gw, float* gb, cudaStream_t stream) {
+  using SumRows = TcRows<BlkTile, typename P::T, float, false, false, true>;
+  const int ncol = (n + BlkTile::BN - 1) / BlkTile::BN, tiles = tiles_of(d, n);
+  const Split sp = split_of(tiles, rows, kWgradWaves);
+  return static_cast<cudaError_t>(tc_launch<P, BlkTile>(
+      SumRows{g, d, d}, x, BlkEpiWgrad{gw, gb, partial, arrivals, d, n},
+      dim3(tiles, 1, sp.chunks), BlkTile::BM, ncol, rows, sp.chunk, stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -322,23 +524,13 @@ attention_kernel(const float* __restrict__ qkv, float* __restrict__ o, float* __
     if (err_ != cudaSuccess) return err_;      \
   } while (0)
 
-template <typename TA, typename TR, typename TO, bool LN, int EPI, bool ROUND>
-cudaError_t launch_gemm(const TA* A, const float* ln_s, const float* ln_b, const float* W,
-                        const float* bias, const TR* R, TO* out, float* pre, int M, int Nout,
-                        int K, cudaStream_t stream) {
-  const dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<TA, TR, TO, LN, EPI, ROUND>
-      <<<grid, GEMM_THREADS, 0, stream>>>(A, ln_s, ln_b, W, bias, R, out, pre, M, Nout, K);
-  return cudaGetLastError();
-}
-
 template <int DH, bool ROUND>
 cudaError_t launch_attention(const float* qkv, float* o, float* P, int B, int N, int D, int H,
                              cudaStream_t stream) {
+  static SmemOnce once;
+  S3F_TRY(static_cast<cudaError_t>(once(attention_kernel<DH, ROUND>,
+                                        attention_smem_bytes<DH>(kMaxN))));
   const size_t smem = attention_smem_bytes<DH>(N);
-  S3F_TRY((cudaFuncSetAttribute(attention_kernel<DH, ROUND>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem))));
   const dim3 grid((N + BQ - 1) / BQ, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   attention_kernel<DH, ROUND><<<grid, ATT_THREADS, smem, stream>>>(qkv, o, P, N, D, scale);
@@ -350,34 +542,6 @@ struct BlockWeights {
   const float *ln2_s, *ln2_b, *w1, *b1, *w2, *b2;
 };
 
-// The forward chain. a1 and probs are null when serving; the training forward
-// passes both and keeps them for the backward.
-template <typename T, bool ROUND>
-cudaError_t vit_block(const T* x, T* y, int B, int N, int D, int H, const BlockWeights& w,
-                      float* qkv, float* o, float* h1, float* g1, float* a1, float* probs,
-                      cudaStream_t stream) {
-  const int M = B * N;
-  const int dh = D / H;
-  S3F_TRY((launch_gemm<T, float, float, true, EPI_BIAS, ROUND>(
-      x, w.ln1_s, w.ln1_b, w.wqkv, w.bqkv, nullptr, qkv, nullptr, M, 3 * D, D, stream)));
-  switch (dh) {
-    case 64: S3F_TRY((launch_attention<64, ROUND>(qkv, o, probs, B, N, D, H, stream))); break;
-    case 128: S3F_TRY((launch_attention<128, ROUND>(qkv, o, probs, B, N, D, H, stream))); break;
-    case 256: S3F_TRY((launch_attention<256, ROUND>(qkv, o, probs, B, N, D, H, stream))); break;
-    default: return cudaErrorInvalidValue;
-  }
-  S3F_TRY((launch_gemm<float, T, float, false, EPI_BIAS_RES, ROUND>(
-      o, nullptr, nullptr, w.wproj, w.bproj, x, h1, nullptr, M, D, D, stream)));
-  S3F_TRY((launch_gemm<float, float, float, true, EPI_BIAS_GELU, ROUND>(
-      h1, w.ln2_s, w.ln2_b, w.w1, w.b1, nullptr, g1, a1, M, 4 * D, D, stream)));
-  return launch_gemm<float, float, T, false, EPI_BIAS_RES, ROUND>(
-      g1, nullptr, nullptr, w.w2, w.b2, h1, y, nullptr, M, D, 4 * D, stream);
-}
-
-// ---------------------------------------------------------------------------
-// Backward building blocks.
-// ---------------------------------------------------------------------------
-
 constexpr int ROW_THREADS = 256;  // row kernels: one warp per row
 
 template <typename T>
@@ -388,10 +552,21 @@ __global__ void to_f32_kernel(const T* __restrict__ in, float* __restrict__ out,
   }
 }
 
-// LayerNorm statistics of each row of X [M, K], the forward's centred two-pass form.
+template <typename T>
+cudaError_t to_f32(const T* in, float* out, size_t n, cudaStream_t stream) {
+  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+  to_f32_kernel<T><<<blocks, 256, 0, stream>>>(in, out, n);
+  return cudaGetLastError();
+}
+
+// LayerNorm statistics of each row of X [M, K], centred two-pass; first the
+// nzero counters at zero are set to zero (the split GEMMs' arrivals).
 __global__ void __launch_bounds__(ROW_THREADS)
 row_stats_kernel(const float* __restrict__ X, float* __restrict__ mean,
-                 float* __restrict__ rstd, int M, int K) {
+                 float* __restrict__ rstd, int M, int K, unsigned* __restrict__ zero,
+                 int nzero) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nzero; i += gridDim.x * blockDim.x)
+    zero[i] = 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m = blockIdx.x * (ROW_THREADS / 32) + warp;
   if (m >= M) return;
@@ -410,6 +585,81 @@ row_stats_kernel(const float* __restrict__ X, float* __restrict__ mean,
     rstd[m] = rs;
   }
 }
+
+cudaError_t row_stats(const float* X, float* mean, float* rstd, int M, int K, cudaStream_t s,
+                      unsigned* zero = nullptr, int nzero = 0) {
+  const int blocks = (M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32);
+  row_stats_kernel<<<blocks, ROW_THREADS, 0, s>>>(X, mean, rstd, M, K, zero, nzero);
+  return cudaGetLastError();
+}
+
+// the forward's GEMM partials: the largest of its four GEMMs'
+size_t forward_partial_floats(int M, int D) {
+  return std::max({row_partial_floats(M, 3 * D, D), row_partial_floats(M, D, D),
+                   row_partial_floats(M, 4 * D, D), row_partial_floats(M, D, 4 * D)});
+}
+
+// f32 scratch of the forward chain: g1 [M, 4D], x in f32 [M, D] (a bf16 x),
+// the GEMMs' partials, the arrival counters, the LayerNorm statistics [4 M];
+// serving also qkv, o, h1
+size_t forward_floats(int B, int N, int D, int serving) {
+  const int M = B * N;
+  const size_t md = static_cast<size_t>(M) * D;
+  return 5 * md + forward_partial_floats(M, D) + kMaxSplitTiles + 4 * static_cast<size_t>(M) +
+         (serving ? 5 * md : 0);
+}
+
+// The forward chain. a1 and probs are null when serving; the training forward
+// passes both and keeps them for the backward. work: forward_floats(.., 0).
+template <typename T, class P>
+cudaError_t vit_block(const T* x, T* y, int B, int N, int D, int H, const BlockWeights& w,
+                      float* qkv, float* o, float* h1, float* a1, float* probs, float* work,
+                      cudaStream_t stream) {
+  constexpr bool ROUND = std::is_same<P, Bf16Mma>::value;
+  const int M = B * N;
+  const size_t md = static_cast<size_t>(M) * D;
+  float* g1 = work;
+  float* xf_buf = g1 + 4 * md;
+  float* partial = xf_buf + md;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(partial + forward_partial_floats(M, D));
+  float* mean1 = reinterpret_cast<float*>(arrivals + kMaxSplitTiles);
+  float* rstd1 = mean1 + M;
+  float* mean2 = rstd1 + M;
+  float* rstd2 = mean2 + M;
+  const float* xf;
+  if constexpr (std::is_same_v<T, float>) {
+    xf = x;
+  } else {
+    S3F_TRY(to_f32(x, xf_buf, md, stream));
+    xf = xf_buf;
+  }
+  S3F_TRY(row_stats(xf, mean1, rstd1, M, D, stream, arrivals, kMaxSplitTiles));
+  S3F_TRY((blk_gemm<P>(  // qkv = LN1(x) Wqkv^T + bqkv
+      Rows<P, true, LnXf<false>>{xf, D, M, {mean1, rstd1, w.ln1_s, w.ln1_b}},
+      Rows<P, true>{w.wqkv, D, 3 * D}, OutBias{w.bqkv, qkv, 3 * D}, M, 3 * D, D, partial,
+      arrivals, stream)));
+  switch (D / H) {
+    case 64: S3F_TRY((launch_attention<64, ROUND>(qkv, o, probs, B, N, D, H, stream))); break;
+    case 128: S3F_TRY((launch_attention<128, ROUND>(qkv, o, probs, B, N, D, H, stream))); break;
+    case 256: S3F_TRY((launch_attention<256, ROUND>(qkv, o, probs, B, N, D, H, stream))); break;
+    default: return cudaErrorInvalidValue;
+  }
+  S3F_TRY((blk_gemm<P>(  // h1 = x + (o Wproj^T + bproj)
+      Rows<P, true>{o, D, M}, Rows<P, true>{w.wproj, D, D},
+      OutBiasRes<float>{w.bproj, xf, h1, D}, M, D, D, partial, arrivals, stream)));
+  S3F_TRY(row_stats(h1, mean2, rstd2, M, D, stream));
+  S3F_TRY((blk_gemm<P>(  // g1 = gelu(a1), a1 = LN2(h1) W1^T + b1
+      Rows<P, true, LnXf<false>>{h1, D, M, {mean2, rstd2, w.ln2_s, w.ln2_b}},
+      Rows<P, true>{w.w1, D, 4 * D}, OutBiasGelu{w.b1, a1, g1, 4 * D}, M, 4 * D, D, partial,
+      arrivals, stream)));
+  return blk_gemm<P>(  // y = h1 + (g1 W2^T + b2)
+      Rows<P, true>{g1, 4 * D, M}, Rows<P, true>{w.w2, 4 * D, D},
+      OutBiasRes<T>{w.b2, h1, y, D}, M, D, 4 * D, partial, arrivals, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Backward building blocks.
+// ---------------------------------------------------------------------------
 
 // The LayerNorm input gradient (the TPU kernel's _ln_bwd) plus a residual:
 //   out = res + rstd * (g_xh - mean(g_xh) - xhat * mean(g_xh * xhat)),
@@ -441,13 +691,13 @@ ln_bwd_kernel(const float* __restrict__ gz, const float* __restrict__ X,
   }
 }
 
-// Column sums over the M token rows: out_b[n] = sum_m G[m, n], and with LN also
-// out_s[n] = sum_m G[m, n] * xhat[m, n], xhat = (X - mean) * rstd. A block
-// takes 32 columns; its 32 thread rows take every 32nd token row, and the 32
-// partial sums add up in a fixed order (no atomics: the same bits every run).
+// The LayerNorm's weight gradients, column sums over the M token rows:
+// out_b[n] = sum_m G[m, n] and out_s[n] = sum_m G[m, n] * xhat[m, n], xhat =
+// (X - mean) * rstd. A block takes 32 columns; its 32 thread rows take every
+// 32nd token row, and the 32 partial sums add up in a fixed order (no atomics:
+// the same bits every run).
 constexpr int CS_COLS = 32, CS_ROWS = 32;
 
-template <bool LN>
 __global__ void __launch_bounds__(CS_COLS * CS_ROWS)
 colsum_kernel(const float* __restrict__ G, const float* __restrict__ X,
               const float* __restrict__ mean, const float* __restrict__ rstd,
@@ -463,7 +713,7 @@ colsum_kernel(const float* __restrict__ G, const float* __restrict__ X,
       const size_t at = static_cast<size_t>(m) * ncols + n;
       const float g = G[at];
       b += g;
-      if constexpr (LN) s += g * ((X[at] - mean[m]) * rstd[m]);
+      s += g * ((X[at] - mean[m]) * rstd[m]);
     }
   }
   sb[ty][tx] = b;
@@ -476,105 +726,15 @@ colsum_kernel(const float* __restrict__ G, const float* __restrict__ X,
       ts += ss[r][tx];
     }
     out_b[n] = tb;
-    if constexpr (LN) out_s[n] = ts;
+    out_s[n] = ts;
   }
 }
 
-// The backward's products: out[i, j] = epilogue(sum_k A(i, k) * prologue(B)(k, j)).
-//   A(i, k) = A[i * lda + k] (A_KMAJOR false: a gradient [M, K] times a weight), or
-//             A[k * lda + i] (A_KMAJOR true: a gradient transposed, the sum runs
-//             over the M token rows and gives a weight gradient [out, in]).
-//   B is [K, J] row-major: a Linear weight [out, in] read as (k = out, j = in),
-//   or token rows through a prologue: PRO_LN gives the LayerNorm output
-//   (B - mean[k]) * rstd[k] * ln_s[j] + ln_b[j], PRO_GELU gives gelu_tanh(B).
-//   GEPI_GELU_GRAD multiplies the sum by gelu_tanh'(aux[i, j]).
-// Both operands are rounded to the compute dtype after the prologue. The same
-// 64x64 tiles and 4x4 outputs per thread as gemm_kernel; every edge is masked.
-enum Prologue { PRO_NONE = 0, PRO_LN = 1, PRO_GELU = 2 };
-enum GradEpilogue { GEPI_STORE = 0, GEPI_GELU_GRAD = 1 };
-
-template <bool A_KMAJOR, int PRO, int EPI, bool ROUND>
-__global__ void __launch_bounds__(GEMM_THREADS)
-grad_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__ Bm, int ldb,
-                 const float* __restrict__ mean, const float* __restrict__ rstd,
-                 const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-                 const float* __restrict__ aux, float* __restrict__ out, int I, int J, int K) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.y * BM;
-  const int j0 = blockIdx.x * BN;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    if constexpr (A_KMAJOR) {
-      // 4 consecutive i of one k row per thread
-      const int lk = tid / 16, li = (tid % 16) * 4;
-      const int k = k0 + lk;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + li + q;
-        As[lk][li + q] =
-            (k < K && i < I) ? operand<ROUND>(A[static_cast<size_t>(k) * lda + i]) : 0.f;
-      }
-    } else {
-      // 4 consecutive k of one i row per thread
-      const int lr = tid / 4, lk = (tid % 4) * 4;
-      const int i = i0 + lr;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = k0 + lk + q;
-        As[lk + q][lr] =
-            (k < K && i < I) ? operand<ROUND>(A[static_cast<size_t>(i) * lda + k]) : 0.f;
-      }
-    }
-    {
-      const int lk = tid / 16, lj = (tid % 16) * 4;
-      const int k = k0 + lk;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = j0 + lj + q;
-        float v = 0.f;
-        if (k < K && j < J) {
-          v = Bm[static_cast<size_t>(k) * ldb + j];
-          if constexpr (PRO == PRO_LN) v = (v - mean[k]) * rstd[k] * ln_s[j] + ln_b[j];
-          if constexpr (PRO == PRO_GELU) v = gelu_tanh(v);
-          v = operand<ROUND>(v);
-        }
-        Bs[lk][lj + q] = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = i0 + ty * 4 + i;
-    if (r >= I) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = j0 + tx * 4 + j;
-      if (c >= J) continue;
-      const size_t at = static_cast<size_t>(r) * J + c;
-      float v = acc[i][j];
-      if constexpr (EPI == GEPI_GELU_GRAD) v = v * gelu_tanh_grad(aux[at]);
-      out[at] = v;
-    }
-  }
+cudaError_t ln_grads(const float* G, const float* X, const float* mean, const float* rstd,
+                     float* out_s, float* out_b, int M, int ncols, cudaStream_t stream) {
+  colsum_kernel<<<(ncols + CS_COLS - 1) / CS_COLS, CS_COLS * CS_ROWS, 0, stream>>>(
+      G, X, mean, rstd, out_s, out_b, M, ncols);
+  return cudaGetLastError();
 }
 
 // Attention backward, pass 1: one block per (query tile, head, sample), the
@@ -755,32 +915,13 @@ attn_bwd_cols_kernel(const float* __restrict__ qkv, const float* __restrict__ P,
   }
 }
 
-template <bool A_KMAJOR, int PRO, int EPI, bool ROUND>
-cudaError_t launch_grad_gemm(const float* A, int lda, const float* Bm, int ldb,
-                             const float* mean, const float* rstd, const float* ln_s,
-                             const float* ln_b, const float* aux, float* out, int I, int J,
-                             int K, cudaStream_t stream) {
-  const dim3 grid((J + BN - 1) / BN, (I + BM - 1) / BM);
-  grad_gemm_kernel<A_KMAJOR, PRO, EPI, ROUND><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, lda, Bm, ldb, mean, rstd, ln_s, ln_b, aux, out, I, J, K);
-  return cudaGetLastError();
-}
-
-template <bool LN>
-cudaError_t launch_colsum(const float* G, const float* X, const float* mean, const float* rstd,
-                          float* out_s, float* out_b, int M, int ncols, cudaStream_t stream) {
-  colsum_kernel<LN><<<(ncols + CS_COLS - 1) / CS_COLS, CS_COLS * CS_ROWS, 0, stream>>>(
-      G, X, mean, rstd, out_s, out_b, M, ncols);
-  return cudaGetLastError();
-}
-
 template <int DH, bool ROUND>
 cudaError_t launch_attention_bwd(const float* qkv, const float* P, const float* g_o, float* gS,
                                  float* g_qkv, int B, int N, int D, int H, cudaStream_t stream) {
+  static SmemOnce once;
+  S3F_TRY(static_cast<cudaError_t>(once(attn_bwd_rows_kernel<DH, ROUND>,
+                                        attention_smem_bytes<DH>(kMaxN))));
   const size_t smem = attention_smem_bytes<DH>(N);
-  S3F_TRY((cudaFuncSetAttribute(attn_bwd_rows_kernel<DH, ROUND>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem))));
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   attn_bwd_rows_kernel<DH, ROUND><<<dim3((N + BQ - 1) / BQ, H, B), ATT_THREADS, smem, stream>>>(
       qkv, P, g_o, gS, g_qkv, N, D, scale);
@@ -791,7 +932,7 @@ cudaError_t launch_attention_bwd(const float* qkv, const float* P, const float* 
 }
 
 struct Residuals {  // what the training forward keeps, all f32
-  float *qkv, *probs, *o, *h1, *a1;
+  float *qkv, *o, *h1, *a1, *probs;
 };
 
 struct BlockGrads {  // f32, in the weights' layout
@@ -804,40 +945,50 @@ size_t residual_floats(int B, int N, int D, int H) {
   return 9 * md + static_cast<size_t>(B) * H * N * N;  // qkv 3, o, h1, a1 4; probs
 }
 
-size_t backward_floats(int B, int N, int D, int H) {
-  const size_t m = static_cast<size_t>(B) * N;
-  const size_t md = m * D;
-  // x and g in f32, LayerNorm stats, g_a1 4, g_z2, g_h1, g_o, g_z1, g_s, g_qkv 3
-  return 2 * md + 4 * m + 4 * md + 4 * md + static_cast<size_t>(B) * H * N * N + 3 * md;
+// n floats rounded up to a 16-byte multiple: what follows starts aligned
+size_t aligned4(size_t n) { return (n + 3) / 4 * 4; }
+
+// the backward's GEMM partials: the largest of its four row GEMMs' and four
+// weight gradients'
+size_t backward_partial_floats(int M, int D) {
+  return std::max({row_partial_floats(M, 4 * D, D), row_partial_floats(M, D, 4 * D),
+                   row_partial_floats(M, D, D), row_partial_floats(M, D, 3 * D),
+                   wgrad_partial_floats(M, D, 4 * D), wgrad_partial_floats(M, 4 * D, D),
+                   wgrad_partial_floats(M, D, D), wgrad_partial_floats(M, 3 * D, D)});
 }
 
-template <typename T>
-cudaError_t to_f32(const T* in, float* out, size_t n, cudaStream_t stream) {
-  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
-  to_f32_kernel<T><<<blocks, 256, 0, stream>>>(in, out, n);
-  return cudaGetLastError();
+size_t backward_floats(int B, int N, int D, int H) {
+  const int M = B * N;
+  const size_t md = static_cast<size_t>(M) * D;
+  // x and g in f32, g_a1 4, g_z2, g_h1, g_o, g_z1, g_qkv 3; the partials; the
+  // arrival counters; LayerNorm stats; g_s
+  return 2 * md + 4 * md + 4 * md + 3 * md + backward_partial_floats(M, D) + kMaxSplitTiles +
+         4 * static_cast<size_t>(M) + static_cast<size_t>(B) * H * N * N;
 }
 
 // The backward from the residuals (the TPU kernel's _bwd_kernel_res :394).
-template <typename T, bool ROUND>
+template <typename T, class P>
 cudaError_t vit_block_bwd(const T* x, const T* g, T* gx, int B, int N, int D, int H,
                           const BlockWeights& w, const Residuals& r, const BlockGrads& gw,
                           float* scratch, cudaStream_t s) {
+  constexpr bool ROUND = std::is_same<P, Bf16Mma>::value;
   const int M = B * N;
   const size_t md = static_cast<size_t>(M) * D;
   float* xf_buf = scratch;
   float* gy_buf = xf_buf + md;
-  float* mean1 = gy_buf + md;
-  float* rstd1 = mean1 + M;
-  float* mean2 = rstd1 + M;
-  float* rstd2 = mean2 + M;
-  float* ga1 = rstd2 + M;
+  float* ga1 = gy_buf + md;
   float* gz2 = ga1 + 4 * md;
   float* gh1 = gz2 + md;
   float* go = gh1 + md;
   float* gz1 = go + md;
-  float* gs = gz1 + md;
-  float* gqkv = gs + static_cast<size_t>(B) * H * N * N;
+  float* gqkv = gz1 + md;
+  float* partial = gqkv + 3 * md;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(partial + backward_partial_floats(M, D));
+  float* mean1 = reinterpret_cast<float*>(arrivals + kMaxSplitTiles);
+  float* rstd1 = mean1 + M;
+  float* mean2 = rstd1 + M;
+  float* rstd2 = mean2 + M;
+  float* gs = rstd2 + M;
 
   const float* xf;
   const float* gy;
@@ -850,62 +1001,66 @@ cudaError_t vit_block_bwd(const T* x, const T* g, T* gx, int B, int N, int D, in
     xf = xf_buf;
     gy = gy_buf;
   }
+  S3F_TRY(row_stats(xf, mean1, rstd1, M, D, s, arrivals, kMaxSplitTiles));
+  S3F_TRY(row_stats(r.h1, mean2, rstd2, M, D, s));
   const int row_blocks = (M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32);
-  row_stats_kernel<<<row_blocks, ROW_THREADS, 0, s>>>(xf, mean1, rstd1, M, D);
-  S3F_TRY(cudaGetLastError());
-  row_stats_kernel<<<row_blocks, ROW_THREADS, 0, s>>>(r.h1, mean2, rstd2, M, D);
-  S3F_TRY(cudaGetLastError());
 
   // MLP branch
-  S3F_TRY((launch_grad_gemm<false, PRO_NONE, GEPI_GELU_GRAD, ROUND>(  // g_a1 = (g_y W2) gelu'(a1)
-      gy, D, w.w2, 4 * D, nullptr, nullptr, nullptr, nullptr, r.a1, ga1, M, 4 * D, D, s)));
-  S3F_TRY((launch_grad_gemm<true, PRO_GELU, GEPI_STORE, ROUND>(  // dW2 = g_y^T gelu(a1)
-      gy, D, r.a1, 4 * D, nullptr, nullptr, nullptr, nullptr, nullptr, gw.w2, D, 4 * D, M, s)));
-  S3F_TRY(launch_colsum<false>(gy, nullptr, nullptr, nullptr, nullptr, gw.b2, M, D, s));
-  S3F_TRY((launch_grad_gemm<false, PRO_NONE, GEPI_STORE, ROUND>(  // g_z2 = g_a1 W1
-      ga1, 4 * D, w.w1, D, nullptr, nullptr, nullptr, nullptr, nullptr, gz2, M, D, 4 * D, s)));
-  S3F_TRY((launch_grad_gemm<true, PRO_LN, GEPI_STORE, ROUND>(  // dW1 = g_a1^T LN2(h1)
-      ga1, 4 * D, r.h1, D, mean2, rstd2, w.ln2_s, w.ln2_b, nullptr, gw.w1, 4 * D, D, M, s)));
-  S3F_TRY(launch_colsum<false>(ga1, nullptr, nullptr, nullptr, nullptr, gw.b1, M, 4 * D, s));
-  S3F_TRY(launch_colsum<true>(gz2, r.h1, mean2, rstd2, gw.ln2_s, gw.ln2_b, M, D, s));
+  S3F_TRY((blk_gemm<P>(  // g_a1 = (g_y W2) gelu'(a1)
+      Rows<P, true>{gy, D, M}, Rows<P, false>{w.w2, 4 * D, 4 * D}, OutGeluGrad{r.a1, ga1, 4 * D},
+      M, 4 * D, D, partial, arrivals, s)));
+  S3F_TRY((blk_wgrad<P>(  // dW2 = g_y^T gelu(a1), db2
+      gy, Rows<P, false, GeluXf>{r.a1, 4 * D, 4 * D}, M, D, 4 * D, partial, arrivals, gw.w2,
+      gw.b2, s)));
+  S3F_TRY((blk_gemm<P>(  // g_z2 = g_a1 W1
+      Rows<P, true>{ga1, 4 * D, M}, Rows<P, false>{w.w1, D, D}, OutStore{gz2, D}, M, D, 4 * D,
+      partial, arrivals, s)));
+  S3F_TRY((blk_wgrad<P>(  // dW1 = g_a1^T LN2(h1), db1
+      ga1, Rows<P, false, LnXf<true>>{r.h1, D, D, {mean2, rstd2, w.ln2_s, w.ln2_b}}, M, 4 * D, D,
+      partial, arrivals, gw.w1, gw.b1, s)));
+  S3F_TRY(ln_grads(gz2, r.h1, mean2, rstd2, gw.ln2_s, gw.ln2_b, M, D, s));
   ln_bwd_kernel<float><<<row_blocks, ROW_THREADS, 0, s>>>(  // g_h1 = g_y + LN2'(g_z2)
       gz2, r.h1, mean2, rstd2, w.ln2_s, gy, gh1, M, D);
   S3F_TRY(cudaGetLastError());
 
   // attention branch
-  S3F_TRY((launch_grad_gemm<false, PRO_NONE, GEPI_STORE, ROUND>(  // g_o = g_h1 Wproj
-      gh1, D, w.wproj, D, nullptr, nullptr, nullptr, nullptr, nullptr, go, M, D, D, s)));
-  S3F_TRY((launch_grad_gemm<true, PRO_NONE, GEPI_STORE, ROUND>(  // dWproj = g_h1^T o
-      gh1, D, r.o, D, nullptr, nullptr, nullptr, nullptr, nullptr, gw.wproj, D, D, M, s)));
-  S3F_TRY(launch_colsum<false>(gh1, nullptr, nullptr, nullptr, nullptr, gw.bproj, M, D, s));
+  S3F_TRY((blk_gemm<P>(  // g_o = g_h1 Wproj
+      Rows<P, true>{gh1, D, M}, Rows<P, false>{w.wproj, D, D}, OutStore{go, D}, M, D, D, partial,
+      arrivals, s)));
+  S3F_TRY((blk_wgrad<P>(  // dWproj = g_h1^T o, dbproj
+      gh1, Rows<P, false>{r.o, D, D}, M, D, D, partial, arrivals, gw.wproj, gw.bproj, s)));
   switch (D / H) {
     case 64: S3F_TRY((launch_attention_bwd<64, ROUND>(r.qkv, r.probs, go, gs, gqkv, B, N, D, H, s))); break;
     case 128: S3F_TRY((launch_attention_bwd<128, ROUND>(r.qkv, r.probs, go, gs, gqkv, B, N, D, H, s))); break;
     case 256: S3F_TRY((launch_attention_bwd<256, ROUND>(r.qkv, r.probs, go, gs, gqkv, B, N, D, H, s))); break;
     default: return cudaErrorInvalidValue;
   }
-  S3F_TRY((launch_grad_gemm<false, PRO_NONE, GEPI_STORE, ROUND>(  // g_z1 = g_qkv Wqkv
-      gqkv, 3 * D, w.wqkv, D, nullptr, nullptr, nullptr, nullptr, nullptr, gz1, M, D, 3 * D, s)));
-  S3F_TRY((launch_grad_gemm<true, PRO_LN, GEPI_STORE, ROUND>(  // dWqkv = g_qkv^T LN1(x)
-      gqkv, 3 * D, xf, D, mean1, rstd1, w.ln1_s, w.ln1_b, nullptr, gw.wqkv, 3 * D, D, M, s)));
-  S3F_TRY(launch_colsum<false>(gqkv, nullptr, nullptr, nullptr, nullptr, gw.bqkv, M, 3 * D, s));
-  S3F_TRY(launch_colsum<true>(gz1, xf, mean1, rstd1, gw.ln1_s, gw.ln1_b, M, D, s));
+  S3F_TRY((blk_gemm<P>(  // g_z1 = g_qkv Wqkv
+      Rows<P, true>{gqkv, 3 * D, M}, Rows<P, false>{w.wqkv, D, D}, OutStore{gz1, D}, M, D, 3 * D,
+      partial, arrivals, s)));
+  S3F_TRY((blk_wgrad<P>(  // dWqkv = g_qkv^T LN1(x), dbqkv
+      gqkv, Rows<P, false, LnXf<true>>{xf, D, D, {mean1, rstd1, w.ln1_s, w.ln1_b}}, M, 3 * D, D,
+      partial, arrivals, gw.wqkv, gw.bqkv, s)));
+  S3F_TRY(ln_grads(gz1, xf, mean1, rstd1, gw.ln1_s, gw.ln1_b, M, D, s));
   ln_bwd_kernel<T><<<row_blocks, ROW_THREADS, 0, s>>>(  // g_x = g_h1 + LN1'(g_z1)
       gz1, xf, mean1, rstd1, w.ln1_s, gh1, gx, M, D);
   return cudaGetLastError();
 }
 
-// Calls fn(T{}, std::integral_constant<bool, ROUND>{}) for the dtypes asked for.
+// Calls fn(T{}, P{}) for x's dtype T and the products' route P (Tf32x3 for an
+// f32 compute dtype, Bf16Mma for bf16).
 template <typename Fn>
 cudaError_t dispatch(int x_bf16, int cdt_bf16, Fn&& fn) {
   if (x_bf16) {
-    return cdt_bf16 ? fn(__nv_bfloat16{}, std::true_type{}) : fn(__nv_bfloat16{}, std::false_type{});
+    return cdt_bf16 ? fn(__nv_bfloat16{}, Bf16Mma{}) : fn(__nv_bfloat16{}, Tf32x3{});
   }
-  return cdt_bf16 ? fn(float{}, std::true_type{}) : fn(float{}, std::false_type{});
+  return cdt_bf16 ? fn(float{}, Bf16Mma{}) : fn(float{}, Tf32x3{});
 }
 
+// D % 4: the epilogues' float4 runs (a head_dim of 64, 128 or 256 makes D a
+// multiple of 64)
 bool bad_shape(int B, int N, int D, int H) {
-  return B < 1 || N < 1 || N > kMaxN || H < 1 || D % H != 0 || D % BK != 0;
+  return B < 1 || N < 1 || N > kMaxN || H < 1 || D % H != 0 || D % 4 != 0;
 }
 
 BlockWeights weights_of(const void* const* p) {
@@ -918,15 +1073,16 @@ BlockGrads grads_of(void* const* p) {
   return BlockGrads{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9), f(10), f(11)};
 }
 
-// Residual buffers carved from one f32 region, in the order qkv, probs, o, h1, a1.
-Residuals residuals_in(float* base, int B, int N, int D, int H) {
+// Residual buffers carved from one f32 region, in the order qkv, o, h1, a1,
+// probs (each of the first four starts on a 16-byte boundary for cp.async).
+Residuals residuals_in(float* base, int B, int N, int D) {
   const size_t md = static_cast<size_t>(B) * N * D;
   Residuals r;
   r.qkv = base;
-  r.probs = r.qkv + 3 * md;
-  r.o = r.probs + static_cast<size_t>(B) * H * N * N;
+  r.o = r.qkv + 3 * md;
   r.h1 = r.o + md;
   r.a1 = r.h1 + md;
+  r.probs = r.a1 + 4 * md;
   return r;
 }
 
@@ -934,49 +1090,45 @@ Residuals residuals_in(float* base, int B, int N, int D, int H) {
 
 extern "C" {
 
-// x, y: [B, N, D] contiguous, f32 (x_bf16 == 0) or bf16 (x_bf16 == 1).
-// cdt_bf16: round matmul operands to bf16. Weights f32 contiguous, Linear
-// weights [out, in]. Scratch f32: qkv [B*N, 3D], o [B*N, D], h1 [B*N, D],
-// g1 [B*N, 4D]. Limits: 1 <= N <= 512, D % 16 == 0, D / H in {64, 128, 256}.
+// x, y: [B, N, D] contiguous, f32 (x_bf16 == 0) or bf16 (x_bf16 == 1), 16-byte
+// aligned. cdt_bf16: round matmul operands to bf16. weights: the twelve f32
+// weight pointers (contiguous, 16-byte aligned; Linear weights [out, in]) in
+// the order ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1, b1, w2,
+// b2. scratch: s3f_vit_block_fwd_scratch_floats(B, N, D, H, 1) f32. Limits:
+// 1 <= N <= 512, D / H in {64, 128, 256}.
 int s3f_vit_block_fwd(const void* x, void* y, int x_bf16, int cdt_bf16, int B, int N, int D,
-                      int H, const void* ln1_s, const void* ln1_b, const void* wqkv,
-                      const void* bqkv, const void* wproj, const void* bproj,
-                      const void* ln2_s, const void* ln2_b, const void* w1, const void* b1,
-                      const void* w2, const void* b2, void* qkv, void* o, void* h1, void* g1,
-                      void* stream) {
+                      int H, const void* const* weights, void* scratch, void* stream) {
   if (bad_shape(B, N, D, H)) return cudaErrorInvalidValue;
-  const void* const wp[12] = {ln1_s, ln1_b, wqkv, bqkv, wproj, bproj,
-                              ln2_s, ln2_b, w1,   b1,   w2,    b2};
-  const BlockWeights w = weights_of(wp);
-  float* fq = static_cast<float*>(qkv);
-  float* fo = static_cast<float*>(o);
-  float* fh = static_cast<float*>(h1);
-  float* fg = static_cast<float*>(g1);
+  const BlockWeights w = weights_of(weights);
+  const size_t md = static_cast<size_t>(B) * N * D;
+  float* qkv = static_cast<float*>(scratch);
+  float* o = qkv + 3 * md;
+  float* h1 = o + md;
+  float* work = h1 + md;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(x_bf16, cdt_bf16, [&](auto tag, auto round) {
+  return dispatch(x_bf16, cdt_bf16, [&](auto tag, auto route) {
     using T = decltype(tag);
-    return vit_block<T, decltype(round)::value>(static_cast<const T*>(x), static_cast<T*>(y), B,
-                                                N, D, H, w, fq, fo, fh, fg, nullptr, nullptr, s);
+    return vit_block<T, decltype(route)>(static_cast<const T*>(x), static_cast<T*>(y), B, N, D, H,
+                                         w, qkv, o, h1, nullptr, nullptr, work, s);
   });
 }
 
 // The training forward: as s3f_vit_block_fwd, and it keeps the residuals in
-// `res`, f32, in the order qkv [B*N, 3D], probs [B, H, N, N], o [B*N, D],
-// h1 [B*N, D], a1 [B*N, 4D] (s3f_vit_block_residual_floats of them).
-// weights: the twelve weight pointers in the order of the entry above.
-// g1: scratch f32 [B*N, 4D].
+// `res`, f32, in the order qkv [B*N, 3D], o [B*N, D], h1 [B*N, D], a1
+// [B*N, 4D], probs [B, H, N, N] (s3f_vit_block_residual_floats of them).
+// scratch: s3f_vit_block_fwd_scratch_floats(B, N, D, H, 0) f32.
 int s3f_vit_block_fwd_res(const void* x, void* y, int x_bf16, int cdt_bf16, int B, int N, int D,
-                          int H, const void* const* weights, void* res, void* g1, void* stream) {
+                          int H, const void* const* weights, void* res, void* scratch,
+                          void* stream) {
   if (bad_shape(B, N, D, H)) return cudaErrorInvalidValue;
   const BlockWeights w = weights_of(weights);
-  const Residuals r = residuals_in(static_cast<float*>(res), B, N, D, H);
-  float* fg = static_cast<float*>(g1);
+  const Residuals r = residuals_in(static_cast<float*>(res), B, N, D);
+  float* work = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(x_bf16, cdt_bf16, [&](auto tag, auto round) {
+  return dispatch(x_bf16, cdt_bf16, [&](auto tag, auto route) {
     using T = decltype(tag);
-    return vit_block<T, decltype(round)::value>(static_cast<const T*>(x), static_cast<T*>(y), B,
-                                                N, D, H, w, r.qkv, r.o, r.h1, fg, r.a1, r.probs,
-                                                s);
+    return vit_block<T, decltype(route)>(static_cast<const T*>(x), static_cast<T*>(y), B, N, D, H,
+                                         w, r.qkv, r.o, r.h1, r.a1, r.probs, work, s);
   });
 }
 
@@ -984,31 +1136,53 @@ long long s3f_vit_block_residual_floats(int B, int N, int D, int H) {
   return static_cast<long long>(residual_floats(B, N, D, H));
 }
 
+// f32 scratch of s3f_vit_block_fwd (serving 1) and of s3f_vit_block_fwd_res (0).
+long long s3f_vit_block_fwd_scratch_floats(int B, int N, int D, int H, int serving) {
+  (void)H;
+  return static_cast<long long>(forward_floats(B, N, D, serving));
+}
+
+// The grid of each GEMM of the chain at this shape: (output tiles, contraction
+// chunks) of qkv, proj, fc1, fc2, g_a1, g_z2, g_o, g_z1, dW2, dW1, dWproj,
+// dWqkv, in that order (24 ints to out).
+void s3f_vit_block_gemm_grids(int B, int N, int D, int* out) {
+  const int M = B * N;
+  const int shapes[12][4] = {  // rows, cols, contraction, weight gradient
+      {M, 3 * D, D, 0}, {M, D, D, 0},     {M, 4 * D, D, 0}, {M, D, 4 * D, 0},
+      {M, 4 * D, D, 0}, {M, D, 4 * D, 0}, {M, D, D, 0},     {M, D, 3 * D, 0},
+      {D, 4 * D, M, 1}, {4 * D, D, M, 1}, {D, D, M, 1},     {3 * D, D, M, 1}};
+  for (int i = 0; i < 12; ++i) {
+    const int tiles = tiles_of(shapes[i][0], shapes[i][1]);
+    out[2 * i] = tiles;
+    out[2 * i + 1] = split_of(tiles, shapes[i][2], shapes[i][3] ? kWgradWaves : kRowWaves).chunks;
+  }
+}
+
 // f32 scratch of s3f_vit_block_bwd_res, and of s3f_vit_block_bwd (recompute).
 long long s3f_vit_block_bwd_scratch_floats(int B, int N, int D, int H, int recompute) {
   size_t n = backward_floats(B, N, D, H);
-  if (recompute) n += residual_floats(B, N, D, H) + 5 * static_cast<size_t>(B) * N * D;  // g1, y
+  if (recompute)  // the residuals, the forward's scratch and y
+    n += aligned4(residual_floats(B, N, D, H)) + forward_floats(B, N, D, 0) +
+         static_cast<size_t>(B) * N * D;
   return static_cast<long long>(n);
 }
 
 // The residual backward: g [B, N, D] in x's dtype; gx out in x's dtype;
 // grads: twelve f32 outputs in the weights' shapes and order (overwritten);
-// res: the training forward's residuals.
+// res: the training forward's residuals. All 16-byte aligned.
 int s3f_vit_block_bwd_res(const void* x, const void* g, void* gx, int x_bf16, int cdt_bf16,
                           int B, int N, int D, int H, const void* const* weights,
                           const void* res, void* const* grads, void* scratch, void* stream) {
   if (bad_shape(B, N, D, H)) return cudaErrorInvalidValue;
   const BlockWeights w = weights_of(weights);
-  const Residuals r = residuals_in(const_cast<float*>(static_cast<const float*>(res)), B, N, D, H);
+  const Residuals r = residuals_in(const_cast<float*>(static_cast<const float*>(res)), B, N, D);
   const BlockGrads gw = grads_of(grads);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(x_bf16, cdt_bf16, [&](auto tag, auto round) {
+  return dispatch(x_bf16, cdt_bf16, [&](auto tag, auto route) {
     using T = decltype(tag);
-    return vit_block_bwd<T, decltype(round)::value>(static_cast<const T*>(x),
-                                                    static_cast<const T*>(g),
-                                                    static_cast<T*>(gx), B, N, D, H, w, r, gw,
-                                                    sc, s);
+    return vit_block_bwd<T, decltype(route)>(static_cast<const T*>(x), static_cast<const T*>(g),
+                                             static_cast<T*>(gx), B, N, D, H, w, r, gw, sc, s);
   });
 }
 
@@ -1020,20 +1194,19 @@ int s3f_vit_block_bwd(const void* x, const void* g, void* gx, int x_bf16, int cd
   if (bad_shape(B, N, D, H)) return cudaErrorInvalidValue;
   const BlockWeights w = weights_of(weights);
   const BlockGrads gw = grads_of(grads);
-  const size_t md = static_cast<size_t>(B) * N * D;
   float* sc = static_cast<float*>(scratch);
-  const Residuals r = residuals_in(sc, B, N, D, H);
-  float* g1 = sc + residual_floats(B, N, D, H);
-  float* y = g1 + 4 * md;
-  float* bwd = y + md;
+  const Residuals r = residuals_in(sc, B, N, D);
+  float* work = sc + aligned4(residual_floats(B, N, D, H));
+  float* y = work + forward_floats(B, N, D, 0);
+  float* bwd = y + static_cast<size_t>(B) * N * D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(x_bf16, cdt_bf16, [&](auto tag, auto round) {
+  return dispatch(x_bf16, cdt_bf16, [&](auto tag, auto route) {
     using T = decltype(tag);
-    constexpr bool R = decltype(round)::value;
+    using P = decltype(route);
     const T* xt = static_cast<const T*>(x);
-    S3F_TRY((vit_block<T, R>(xt, reinterpret_cast<T*>(y), B, N, D, H, w, r.qkv, r.o, r.h1, g1,
-                             r.a1, r.probs, s)));
-    return vit_block_bwd<T, R>(xt, static_cast<const T*>(g), static_cast<T*>(gx), B, N, D, H, w,
+    S3F_TRY((vit_block<T, P>(xt, reinterpret_cast<T*>(y), B, N, D, H, w, r.qkv, r.o, r.h1, r.a1,
+                             r.probs, work, s)));
+    return vit_block_bwd<T, P>(xt, static_cast<const T*>(g), static_cast<T*>(gx), B, N, D, H, w,
                                r, gw, bwd, s);
   });
 }

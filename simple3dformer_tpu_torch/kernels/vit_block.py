@@ -28,20 +28,26 @@ What bounds it on the card, and the design. The TPU kernels pack several
 samples into one [T, D] tile under a block-diagonal mask and keep all twelve
 weights and the weight gradients in VMEM across a sequential grid; a Hopper
 block has 227 KB of shared memory and blocks run in no order. So each call is
-a chain of the repository's own kernels (``csrc/vit_block.cu``). Forward: a
-tiled GEMM with a LayerNorm prologue (qkv, fc1, the latter with a GELU
-epilogue), an attention kernel per (query tile, head, sample) that holds the
-whole score row in shared memory (N <= 512), and GEMMs with bias and
-residual epilogues (proj, fc2). Backward: each weight gradient is one GEMM
-whose sum runs over all M = B*N token rows (dW = dY^T X, in [out, in]
-layout), each input gradient one GEMM (dX = dY W), bias and LayerNorm
-gradients column sums in a fixed order, the LayerNorm input gradient a row
-kernel, and the attention backward two kernels per (tile, head, sample), one
-over query rows and one over key rows. No float atomics, so two runs give the
-same bits. At the flagship shape (B=32, N=26, D=384) M = 832 rows make the
-GEMMs small: the chain is bound by f32 FMA issue (no tensor cores yet) and
-launch latency, not by bytes. Making it fast (wgmma, TMA, one persistent
-launch) is later work.
+a chain of the repository's own kernels (``csrc/vit_block.cu``). Every GEMM
+runs on the tensor-core core shared with the vector attention
+(``csrc/tc_gemm.cuh``, 64 x 64 output tiles here): 3-pass TF32 ``mma.sync``
+for an f32 compute dtype, bf16 ``mma.sync`` for bf16. Forward: each
+LayerNorm's row statistics once, GEMMs that apply the LayerNorm to the staged
+operand (qkv, fc1, the latter with a GELU epilogue keeping a1), an attention
+kernel per (query tile, head, sample) that holds the whole score row in
+shared memory (N <= 512), and GEMMs with bias and residual epilogues (proj,
+fc2). Backward: each input gradient one GEMM (dX = dY W), each weight
+gradient one GEMM over the M = B*N token rows in fixed chunks with its bias
+gradient summed in the same pass (dW = dY^T X, in [out, in] layout; the
+chunks' partials added in order), LayerNorm weight gradients column sums in a
+fixed order, the LayerNorm input gradient a row kernel, and the attention
+backward two kernels per (tile, head, sample), one over query rows and one
+over key rows. Where a GEMM's output tiles do not fill the card's 132 SMs its
+contraction is split in fixed chunks too. No float atomics, so two runs give
+the same bits. At the flagship shape (B=32, N=26, D=384) the products bound
+a call (2.98 GFLOP a forward), and M = 832 rows make the GEMMs small, so
+launch latency weighs too. ``wgmma``, TMA and one persistent launch are later
+work.
 
 On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
@@ -58,8 +64,9 @@ import torch
 # weight order of the TPU kernel (simple3dformer_tpu/kernels/vit_block.py:61)
 WNAMES = ("ln1_s", "ln1_b", "wqkv", "bqkv", "wproj", "bproj",
           "ln2_s", "ln2_b", "w1", "b1", "w2", "b2")
-# what the training forward keeps, in the kernel's buffer order
-RNAMES = ("qkv", "probs", "o", "h1", "a1")
+# what the training forward keeps, in the kernel's buffer order (the [M, *]
+# buffers first, so each starts 16-byte aligned for the GEMMs' copies)
+RNAMES = ("qkv", "o", "h1", "a1", "probs")
 EPS = 1e-6
 MAX_N = 512
 HEAD_DIMS = (64, 128, 256)
@@ -180,7 +187,7 @@ def vit_block_backward_reference(x: torch.Tensor, g: torch.Tensor, weights: dict
         return t.reshape(-1, t.shape[-1]).sum(0)
 
     xf, g_y = x.float(), g.float()
-    qkv, p, o, h1, a1 = (residuals[k].float() for k in RNAMES)
+    qkv, o, h1, a1, p = (residuals[k].float() for k in RNAMES)
     z1, xh1, rstd1 = _ln_parts(xf, w["ln1_s"], w["ln1_b"])
     z2, xh2, rstd2 = _ln_parts(h1, w["ln2_s"], w["ln2_b"])
     gw = {}
@@ -231,8 +238,10 @@ def _check_cuda_args(x: torch.Tensor, weights: dict, heads: int, cdt: torch.dtyp
         raise ValueError(f"{name} kernel: {why}")
     for wname, shape in weight_shapes(d).items():
         t = weights[wname]
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"weight {wname} must be contiguous float32 on {x.device}")
+        if (t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"weight {wname} must be contiguous 16-byte aligned float32 on "
+                             f"{x.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"weight {wname} has shape {tuple(t.shape)}, want {shape}")
 
@@ -241,7 +250,13 @@ def _check_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"gradient {tuple(g.shape)} {g.dtype} on {g.device} does not match "
                          f"x {tuple(x.shape)} {x.dtype} on {x.device}")
-    return g.contiguous()
+    return _aligned(g.contiguous())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 16-byte aligned (the kernels'
+    cp.async copies read 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _device_of(x: torch.Tensor, name: str) -> str:
@@ -256,7 +271,7 @@ def _lib():
 
     lib = load("vit_block")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.s3f_vit_block_fwd.argtypes = ([ptr, ptr] + [i32] * 6 + [ptr] * (len(WNAMES) + 4) + [ptr])
+    lib.s3f_vit_block_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr] * 3
     lib.s3f_vit_block_fwd_res.argtypes = [ptr, ptr] + [i32] * 6 + [ptr] * 4
     lib.s3f_vit_block_bwd_res.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr] * 5
     lib.s3f_vit_block_bwd.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr] * 4
@@ -264,10 +279,32 @@ def _lib():
                lib.s3f_vit_block_bwd):
         fn.restype = ctypes.c_int
     lib.s3f_vit_block_residual_floats.argtypes = [i32] * 4
+    lib.s3f_vit_block_fwd_scratch_floats.argtypes = [i32] * 5
     lib.s3f_vit_block_bwd_scratch_floats.argtypes = [i32] * 5
-    lib.s3f_vit_block_residual_floats.restype = ctypes.c_longlong
-    lib.s3f_vit_block_bwd_scratch_floats.restype = ctypes.c_longlong
+    for fn in (lib.s3f_vit_block_residual_floats, lib.s3f_vit_block_fwd_scratch_floats,
+               lib.s3f_vit_block_bwd_scratch_floats):
+        fn.restype = ctypes.c_longlong
+    lib.s3f_vit_block_gemm_grids.argtypes = [i32] * 3 + [ptr]
+    lib.s3f_vit_block_gemm_grids.restype = None
     return lib
+
+
+def gemm_shapes(b: int, n: int, d: int) -> dict[str, tuple[int, int, int]]:
+    """(rows, columns, contraction) of each GEMM of the chain at [b, n, d], in
+    the order of s3f_vit_block_gemm_grids."""
+    m = b * n
+    return {"qkv": (m, 3 * d, d), "proj": (m, d, d), "fc1": (m, 4 * d, d), "fc2": (m, d, 4 * d),
+            "g_a1": (m, 4 * d, d), "g_z2": (m, d, 4 * d), "g_o": (m, d, d), "g_z1": (m, d, 3 * d),
+            "dW2": (d, 4 * d, m), "dW1": (4 * d, d, m), "dWproj": (d, d, m), "dWqkv": (3 * d, d, m)}
+
+
+def gemm_grids(b: int, n: int, d: int) -> dict[str, tuple[int, int]]:
+    """(output tiles, contraction chunks) of each GEMM of the CUDA chain at
+    [b, n, d], as the kernels launch them (needs the built library)."""
+    names = list(gemm_shapes(b, n, d))
+    out = (ctypes.c_int * (2 * len(names)))()
+    _lib().s3f_vit_block_gemm_grids(b, n, d, out)
+    return {k: (out[2 * i], out[2 * i + 1]) for i, k in enumerate(names)}
 
 
 def _pointers(tensors) -> ctypes.Array:
@@ -301,7 +338,7 @@ def _residual_buffer(residuals: dict, x: torch.Tensor, heads: int) -> torch.Tens
     for k, t in zip(RNAMES, ts):
         if tuple(t.shape) != shapes[k] or t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(f"residual {k} must be float32 {shapes[k]} on {x.device}")
-    packed = all(t.is_contiguous() for t in ts) and all(
+    packed = ts[0].data_ptr() % 16 == 0 and all(t.is_contiguous() for t in ts) and all(
         a.data_ptr() + a.numel() * 4 == c.data_ptr() for a, c in zip(ts, ts[1:]))
     if packed:
         return ts[0].as_strided((sum(t.numel() for t in ts),), (1,))
@@ -313,16 +350,17 @@ def _forward(x: torch.Tensor, weights: dict, heads: int, cdt: torch.dtype) -> to
     if _device_of(x, "fused_vit_block") == "cpu":
         return vit_block_reference(x, weights, heads, cdt)
     _check_cuda_args(x, weights, heads, cdt)
+    x = _aligned(x)
     b, n, d = x.shape
-    m = b * n
+    lib = _lib()
     y = torch.empty_like(x)
     # Dropped on return while the kernels may still run: the caching allocator
     # hands the block out again only to work queued later on this stream.
-    scratch = torch.empty(m * 9 * d, device=x.device, dtype=torch.float32)
-    qkv, o, h1, g1 = torch.split(scratch, [3 * m * d, m * d, m * d, 4 * m * d])
-    _launch("fused_vit_block", x, _lib().s3f_vit_block_fwd, x.data_ptr(), y.data_ptr(),
-            *_flags(x, cdt), b, n, d, heads, *(weights[k].data_ptr() for k in WNAMES),
-            qkv.data_ptr(), o.data_ptr(), h1.data_ptr(), g1.data_ptr())
+    scratch = torch.empty(lib.s3f_vit_block_fwd_scratch_floats(b, n, d, heads, 1),
+                          device=x.device, dtype=torch.float32)
+    _launch("fused_vit_block", x, lib.s3f_vit_block_fwd, x.data_ptr(), y.data_ptr(),
+            *_flags(x, cdt), b, n, d, heads, _pointers(weights[k] for k in WNAMES),
+            scratch.data_ptr())
     fused_vit_block.launches += 1
     return y
 
@@ -342,15 +380,17 @@ def fused_vit_block_train_fwd(x: torch.Tensor, weights: dict, heads: int,
     if _device_of(x, "fused_vit_block_train_fwd") == "cpu":
         return vit_block_train_reference(x, weights, heads, cdt)
     _check_cuda_args(x, weights, heads, cdt, "fused_vit_block_train_fwd")
+    x = _aligned(x)
     b, n, d = x.shape
     lib = _lib()
     y = torch.empty_like(x)
     res = torch.empty(lib.s3f_vit_block_residual_floats(b, n, d, heads), device=x.device,
                       dtype=torch.float32)
-    g1 = torch.empty(b * n * 4 * d, device=x.device, dtype=torch.float32)
+    scratch = torch.empty(lib.s3f_vit_block_fwd_scratch_floats(b, n, d, heads, 0),
+                          device=x.device, dtype=torch.float32)
     _launch("fused_vit_block_train_fwd", x, lib.s3f_vit_block_fwd_res, x.data_ptr(),
             y.data_ptr(), *_flags(x, cdt), b, n, d, heads,
-            _pointers(weights[k] for k in WNAMES), res.data_ptr(), g1.data_ptr())
+            _pointers(weights[k] for k in WNAMES), res.data_ptr(), scratch.data_ptr())
     fused_vit_block_train_fwd.launches += 1
     return y, _split_residuals(res, b, n, d, heads)
 
@@ -364,7 +404,7 @@ def fused_vit_block_train_bwd(x: torch.Tensor, g: torch.Tensor, weights: dict, h
     if _device_of(x, "fused_vit_block_train_bwd") == "cpu":
         return vit_block_backward_reference(x, g, weights, heads, cdt, residuals)
     _check_cuda_args(x, weights, heads, cdt, "fused_vit_block_train_bwd")
-    g = _check_grad(x, g)
+    x, g = _aligned(x), _check_grad(x, g)
     b, n, d = x.shape
     lib = _lib()
     res = _residual_buffer(residuals, x, heads)
@@ -388,7 +428,7 @@ def fused_vit_block_bwd(x: torch.Tensor, g: torch.Tensor, weights: dict, heads: 
     if _device_of(x, "fused_vit_block_bwd") == "cpu":
         return vit_block_backward_reference(x, g, weights, heads, cdt)
     _check_cuda_args(x, weights, heads, cdt, "fused_vit_block_bwd")
-    g = _check_grad(x, g)
+    x, g = _aligned(x), _check_grad(x, g)
     b, n, d = x.shape
     lib = _lib()
     gx = torch.empty_like(x)

@@ -67,7 +67,10 @@ def test_fused_vit_block_rejects_what_it_cannot_take(device):
     assert set(w) == set(WNAMES)
 
 
-BLOCK_TRAIN_SHAPES = TRAIN_SHAPES[:2] + [s for s in TRAIN_SHAPES if s[0] == "partseg N=257"]
+# the flagship, the partseg training shape in both dtypes, and M = 858 token
+# rows, not a multiple of the GEMMs' 64-row tiles
+BLOCK_TRAIN_SHAPES = TRAIN_SHAPES[:2] + [s for s in TRAIN_SHAPES if s[0] in (
+    "B=33", "partseg N=257", "partseg N=257 bf16")]
 
 
 @pytest.mark.parametrize("label,b,n,d,heads,dtype", BLOCK_TRAIN_SHAPES,
@@ -93,6 +96,8 @@ def test_training_block_kernels_match_plain(device, label, b, n, d, heads, dtype
     assert errors({"gx": cx, **cw}, {"gx": rec_x, **rec_w})[1] <= GRAD_REL[dtype]
     gx2, gw2 = vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res)
     assert torch.equal(gx, gx2) and all(torch.equal(gw[k], gw2[k]) for k in WNAMES)
+    cx2, cw2 = vb.fused_vit_block_bwd(x, g, w, heads)
+    assert torch.equal(cx, cx2) and all(torch.equal(cw[k], cw2[k]) for k in WNAMES)
 
 
 def test_training_block_through_autograd_in_a_block(device):

@@ -1,9 +1,9 @@
 """Why the f32 vector attention takes three TF32 passes on the tensor cores.
 
-The kernels (``csrc/vector_attention.cu``, ``va_tc_gemm_kernel`` on its f32
-route, forward and backward) split each f32 operand x into big = tf32(x),
-rounded to nearest with ties away on the bit pattern, and small = x - big,
-which the tensor core reads truncated to TF32; a product is a_small b_big +
+The kernels (``csrc/vector_attention.cu`` on the tensor-core core of
+``csrc/tc_gemm.cuh``, its f32 route, forward and backward) split each f32
+operand x into big = tf32(x), rounded to nearest with ties away on the bit
+pattern, and small = x - big, which the tensor core reads truncated to TF32; a product is a_small b_big +
 a_big b_small + a_big b_big, each pass exact in f32 and summed in f32. Here the
 same rounding is emulated in plain torch on the CPU for the three products of
 the forward chain (pos, hg_pre and the logits, each against a weight) and the
