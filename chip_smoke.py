@@ -10,7 +10,8 @@ Phases, one line each (and a line per kernel shape):
   2. build    every csrc/*.cu with nvcc (all started together), seconds; the
               registers and spills of each instantiation of the tensor-core GEMM
               core (tc_gemm_kernel): the vector-attention forwards' and
-              backwards', and the ViT block's (by GEMM and route)
+              backwards', and the ViT block's (by GEMM and route); and of
+              each kNN and FPS kernel
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serving path's shapes and at the limits; time of both and of
               torch.nn.TransformerEncoderLayer at the flagship shape
@@ -31,8 +32,12 @@ Phases, one line each (and a line per kernel shape):
               (loss falls over 40 steps, launch counts from the counters); an
               eval-mode gradient (the recompute backward); samples/s over 50 steps
   7. point kernels  FPS, kNN and the gather forward and backward against their
-              plain versions at the partseg shapes (and FPS at B=1 and at the S3DIS
-              shape, kNN with duplicated points); the gathers also at the
+              plain versions at the partseg shapes; FPS and kNN also at the S3DIS
+              and Hengshuang paths' shapes (FPS at B=1 and up to N=16384 too,
+              with start 0 and random starts; kNN bit-equal to its exact-order
+              plain version and over two runs, within near-ties of the matmul
+              form, with duplicated points, ragged N=4 and 16, k=32), timed
+              with device times at each path's largest; the gathers also at the
               Hengshuang level 0 k/v shape, the S3DIS N=4096 shape, C=35 bf16 and
               one point named by every row, the backward bit-equal to the CPU
               plain version and over two runs; times of kernel, plain version and
@@ -156,6 +161,9 @@ def phase_build():
                 label = tc_label(kernel) if is_va_gemm(kernel) else blk_label(kernel)
                 print(f"build {name}: tc_gemm_kernel {label}: {nregs} registers, "
                       f"{nspill} bytes spill stores")
+            elif name in ("fps", "knn"):
+                print(f"build {name}: {template_label(kernel)}: {nregs} registers, "
+                      f"{nspill} bytes spill stores")
     print(f"build: {len(names)} sources in {wall:.1f} s")
 
 
@@ -169,6 +177,16 @@ def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
         out.append((chunk.split("'")[0], int(regs.group(1)) if regs else 0,
                     int(spill.group(1)) if spill else 0))
     return out
+
+
+def template_label(kernel: str) -> str:
+    """A kernel's name with its integer template arguments, from a mangled name:
+    fps_kernel<512, 2>."""
+    m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(I(?:Li-?\d+E)+E)?", kernel)
+    if not m:
+        return kernel
+    args = re.findall(r"Li(-?\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 # a vector-attention GEMM by its epilogue: the forwards' pos, hg and logits
@@ -823,14 +841,36 @@ def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
           + "; ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in top))
 
 
-# the point kernels at the partseg shapes (B=16, N=1024, deit_tiny, f32)
+# the point kernels at the partseg shapes (B=16, N=1024, deit_tiny, f32), and
+# at the S3DIS (B=4, N=4096) and Hengshuang (B=64, N=1024 -> 4 by 4x a level) paths
 PB, PN = 16, 1024
+# at least one shape for each block size that fps.cu picks by N (N <= 32, 128,
+# 256, 1024, 2048, 4096, 8192, 16384)
 FPS_SHAPES = [("partseg TD1", PB, PN, PN // 4), ("B=1", 1, PN, PN // 4),
-              ("S3DIS 4096 -> 1024", 4, 4096, 1024)]
+              ("S3DIS 4096 -> 1024", 4, 4096, 1024), ("Hengshuang 1024 -> 256", 64, 1024, 256),
+              ("Hengshuang 256 -> 64", 64, 256, 64), ("Hengshuang 64 -> 16", 64, 64, 16),
+              ("Hengshuang 16 -> 4", 64, 16, 4), ("N=100", 3, 100, 40), ("N=2048", 2, 2048, 512),
+              ("N=8192", 1, 8192, 128), ("N=16384", 1, 16384, 64)]
+FPS_TIMED = {"partseg TD1": 50, "S3DIS 4096 -> 1024": 5, "Hengshuang 1024 -> 256": 10}  # calls
 # (label, B, S queries, N points, k, duplicated points)
 KNN_SHAPES = [("TD0 k=16", PB, PN, PN, 16, False), ("TD1 k=16", PB, PN // 4, PN, 16, False),
               ("TU0 3-NN", PB, PN, PN // 4, 3, False), ("TU1 3-NN", PB, PN, PN, 3, False),
-              ("ties k=16", 4, 512, PN, 16, True)]
+              ("ties k=16", 4, 512, PN, 16, True),
+              ("Hengshuang level 0 k=16", 64, 1024, 1024, 16, False),
+              ("Hengshuang TD 1024 -> 256", 64, 256, 1024, 16, False),
+              ("Hengshuang level 1 k=16", 64, 256, 256, 16, False),
+              ("Hengshuang TD 256 -> 64", 64, 64, 256, 16, False),
+              ("Hengshuang level 2 k=16", 64, 64, 64, 16, False),
+              ("Hengshuang TD 64 -> 16", 64, 16, 64, 16, False),
+              ("Hengshuang level 3 k=16", 64, 16, 16, 16, False),
+              ("Hengshuang TD 16 -> 4", 64, 4, 16, 16, False),
+              ("Hengshuang level 4 k=4", 64, 4, 4, 4, False),
+              ("S3DIS TD0 k=16", 4, 4096, 4096, 16, False),
+              ("S3DIS TD1 k=16", 4, 1024, 4096, 16, False),
+              ("S3DIS TU0 3-NN", 4, 4096, 1024, 3, False),
+              ("S3DIS TU1 3-NN", 4, 4096, 4096, 3, False),
+              ("k=32 N=3000", 2, 100, 3000, 32, False)]
+KNN_TIMED = ("TD0 k=16", "S3DIS TD0 k=16", "Hengshuang level 0 k=16")
 # (label, B, N, R, C, dtype name, every row naming one point)
 GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32", False),
                  ("TD0 points C=48", PB, PN, PN * 16, 48, "float32", False),
@@ -853,6 +893,47 @@ GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32", False),
 GATHER_TIMED = ("TD0 points C=48", "xyz C=3", "Hengshuang level 0 k/v C=512")
 KNN_DIST_TOL = 1e-5  # distances: the same sums, q.p in another order on the plain side
 GATHER_BWD_REL = 1e-6  # f32 sums in source order on both sides (index_add_ may not be)
+
+
+def unit_cloud(torch, rs, b, n):
+    """[B, N, 3] on the card, centred on the unit sphere, as pc_normalize leaves a shape."""
+    x = torch.from_numpy(rs.randn(b, n, 3).astype(np.float32)).cuda()
+    return x / x.norm(dim=-1).amax(-1)[:, None, None]
+
+
+def knn_inputs(torch, rs, b, s, n, dup):
+    """(queries, points): ``dup`` takes N / 2 points twice (exact ties); the
+    queries are the first S points where S <= N."""
+    p = unit_cloud(torch, rs, b, n // 2).repeat(1, 2, 1) if dup else unit_cloud(torch, rs, b, n)
+    return (p[:, :s].contiguous() if s <= n else unit_cloud(torch, rs, b, s)), p
+
+
+def knn_check(torch, q, p, k):
+    """The kNN kernel on the card against its plain versions: idx and dist bit
+    for bit those of the exact-order version and of a second run; against the
+    matmul form, every differing rank a near-tie and the distances within
+    KNN_DIST_TOL; equal distances in index order. Returns (ok, idx, dist, facts)."""
+    from simple3dformer_tpu_torch.kernels.knn import (knn, knn_reference, knn_reference_exact,
+                                                      near_ties)
+
+    idx, dist = knn(q, p, k)
+    idx2, dist2 = knn(q, p, k)
+    eidx, edist = knn_reference_exact(q, p, k)
+    ridx, rdist = knn_reference(q, p, k)
+    torch.cuda.synchronize()
+
+    def same(a, b):  # every bit of two f32 or int32 tensors
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    n_diff, n_near = near_ties(idx, dist, ridx, rdist)
+    tied = dist[..., 1:] == dist[..., :-1]
+    facts = dict(exact=same(idx, eidx) and same(dist, edist),
+                 rerun=same(idx, idx2) and same(dist, dist2), n_diff=n_diff, n_near=n_near,
+                 derr=float((dist - rdist).abs().max()), ties=int(tied.sum()),
+                 disorder=int((tied & (idx[..., 1:] < idx[..., :-1])).sum()))
+    ok = (facts["exact"] and facts["rerun"] and n_diff == n_near
+          and facts["derr"] <= KNN_DIST_TOL and not facts["disorder"])
+    return ok, idx, dist, facts
 
 
 def gather_inputs(torch, b, n, r, c, dtype, one_point, seed, device):
@@ -896,8 +977,10 @@ def gather_check(torch, pts, idx, g):
 
 
 def device_split(torch, fn, iters=10):
-    """Device ms per call of ``fn`` by kernel name (torch.profiler); empty when
-    the profiler records no device time."""
+    """Device ms per call of ``fn`` by kernel name (torch.profiler), for kernels
+    that ``fn`` launches once a call: each the mean of the launches that the
+    profiler recorded (it can miss some), with their count; empty when the
+    profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -906,13 +989,21 @@ def device_split(torch, fn, iters=10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out: dict[str, float] = {}
+    out: dict[str, list] = {}  # name -> [device ms, launches recorded]
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if us > 0 and str(getattr(e, "device_type", "")).split(".")[-1] == "CUDA":
             name = next((g for g in KERNEL_GROUPS if g in e.key), e.key[:40])
-            out[name] = out.get(name, 0.0) + us / iters / 1e3
-    return out
+            rec = out.setdefault(name, [0.0, 0])
+            rec[0] += us / 1e3
+            rec[1] += e.count
+    return {name: (ms / count, count) for name, (ms, count) in out.items()}
+
+
+def split_text(split: dict, iters=10) -> str:
+    """device_split's result as text: each kernel's ms and launches recorded."""
+    return ", ".join(f"{k} {ms:.4f} ({n} of {iters} launches recorded)"
+                     for k, (ms, n) in split.items()) or "not recorded"
 
 
 def timed(torch, kernel, plain, library=None, iters=50):
@@ -934,24 +1025,17 @@ def point_report(name, err, times, moved, ops, note, iters=50, peak=PEAK_F32):
 
 def phase_point_kernels(torch):
     """FPS, kNN and the gather forward and backward against their plain
-    versions at the partseg path's shapes; times at the largest."""
+    versions at the point paths' shapes; times at the largest of each path."""
     from simple3dformer_tpu_torch.kernels.fps import fps, fps_reference
     from simple3dformer_tpu_torch.kernels.gather import (gather_bwd, gather_bwd_reference,
                                                          gather_fwd, gather_fwd_reference)
-    from simple3dformer_tpu_torch.kernels.knn import knn, knn_reference, near_ties
+    from simple3dformer_tpu_torch.kernels.knn import knn, knn_reference
 
     rs = np.random.RandomState(11)
     report = {}
 
-    def cloud(*shape):
-        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).cuda()
-
-    def xyz_cloud(b, n):  # centred on the unit sphere, as pc_normalize leaves a shape
-        x = cloud(b, n, 3)
-        return x / x.norm(dim=-1).amax(-1)[:, None, None]
-
     for label, b, n, npoint in FPS_SHAPES:
-        xyz = xyz_cloud(b, n)
+        xyz = unit_cloud(torch, rs, b, n)
         got, want = fps(xyz, npoint), fps_reference(xyz, npoint)
         start = torch.from_numpy(rs.randint(0, n, b).astype(np.int32)).cuda()
         got_s, want_s = fps(xyz, npoint, start), fps_reference(xyz, npoint, start)
@@ -961,32 +1045,39 @@ def phase_point_kernels(torch):
               f"version {same} (start 0 and random starts)")
         if not same:
             raise AssertionError(f"fps {label}: indices differ from the plain version")
-        if label == "partseg TD1":
-            report["fps"] = point_report(
-                "fps", 0.0, timed(torch, lambda: fps(xyz, npoint),
-                                  lambda: fps_reference(xyz, npoint)),
-                nbytes(xyz, got), 9 * b * n * (npoint - 1), "", peak=PEAK_FMA)
+        if label in FPS_TIMED:
+            name = "fps" if label == "partseg TD1" else f"fps {label}"
+            iters = FPS_TIMED[label]
+            rep = point_report(
+                name, 0.0, timed(torch, lambda: fps(xyz, npoint),
+                                 lambda: fps_reference(xyz, npoint), iters=iters),
+                nbytes(xyz, got), 9 * b * n * (npoint - 1), "", iters=iters, peak=PEAK_FMA)
+            print(f"kernel {name} device ms per call (profiler): "
+                  f"{split_text(device_split(torch, lambda: fps(xyz, npoint)))}")
+            if label == "partseg TD1":
+                report["fps"] = rep
 
     for label, b, s, n, k, dup in KNN_SHAPES:
-        p = xyz_cloud(b, n // 2).repeat(1, 2, 1) if dup else xyz_cloud(b, n)
-        q = p[:, :s].contiguous() if s <= n else xyz_cloud(b, s)
-        idx, dist = knn(q, p, k)
-        ridx, rdist = knn_reference(q, p, k)
-        torch.cuda.synchronize()
-        n_diff, n_near = near_ties(idx, dist, ridx, rdist)
-        derr = float((dist - rdist).abs().max())
-        disorder = int(((dist[..., 1:] == dist[..., :-1]) & (idx[..., 1:] < idx[..., :-1])).sum())
-        print(f"kernel knn {label} B={b} S={s} N={n} k={k}: {n_diff} of {idx.numel()} ranks "
-              f"differ from the plain version, {n_near} of them near-ties (distances within "
-              f"1e-6); distance max abs err {derr:.3e} (tolerance {KNN_DIST_TOL}); equal "
-              f"distances out of index order: {disorder}")
-        if n_diff != n_near or derr > KNN_DIST_TOL or disorder:
-            raise AssertionError(f"knn {label}: {n_diff - n_near} ranks differ beyond a near-tie,"
-                                 f" distance error {derr}, {disorder} ties out of order")
-        if label == "TD0 k=16":
-            report["knn"] = point_report(
-                "knn", derr, timed(torch, lambda: knn(q, p, k), lambda: knn_reference(q, p, k)),
+        q, p = knn_inputs(torch, rs, b, s, n, dup)
+        ok, idx, dist, f = knn_check(torch, q, p, k)
+        print(f"kernel knn {label} B={b} S={s} N={n} k={k}: idx and dist bit-equal to the "
+              f"exact-order plain version {f['exact']}, over two runs {f['rerun']}; against "
+              f"the matmul form {f['n_diff']} of {idx.numel()} ranks differ, {f['n_near']} of "
+              f"them near-ties (distances within 1e-6), distance max abs err {f['derr']:.3e} "
+              f"(tolerance {KNN_DIST_TOL}); {f['ties']} equal neighbouring distances, "
+              f"{f['disorder']} out of index order")
+        if not ok:
+            raise AssertionError(f"knn {label}: {f}")
+        if label in KNN_TIMED:
+            name = "knn" if label == "TD0 k=16" else f"knn {label}"
+            rep = point_report(
+                name, f["derr"], timed(torch, lambda: knn(q, p, k),
+                                       lambda: knn_reference(q, p, k)),
                 nbytes(q, p, idx, dist), 9 * b * s * n, "", peak=PEAK_FMA)
+            print(f"kernel {name} device ms per call (profiler): "
+                  f"{split_text(device_split(torch, lambda: knn(q, p, k)))}")
+            if label == "TD0 k=16":
+                report["knn"] = rep
 
     for label, b, n, r, c, dtype, one_point in GATHER_SHAPES:
         pts, idx, g = gather_inputs(torch, b, n, r, c, dtype, one_point, seed=b + n + r + c,
@@ -1022,9 +1113,8 @@ def phase_point_kernels(torch):
                 (f"gather_bwd{name}", lambda: gather_bwd(idx, g, n),
                  lambda: torch.zeros(b * n, c, device="cuda").index_add_(0, flat, g2))):
             split, lib = device_split(torch, kernel_fn), device_split(torch, library_fn)
-            print(f"kernel {label_fn} device ms per call (profiler): "
-                  + (", ".join(f"{k} {v:.4f}" for k, v in split.items()) or "not recorded")
-                  + f"; the library call {sum(lib.values()):.4f}")
+            print(f"kernel {label_fn} device ms per call (profiler): {split_text(split)}; "
+                  f"the library call {sum(ms for ms, _ in lib.values()):.4f}")
         if label == "TD0 points C=48":
             report["gather_fwd"], report["gather_bwd"] = fwd, bwd
     torch.cuda.synchronize()

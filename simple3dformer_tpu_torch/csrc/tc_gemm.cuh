@@ -37,9 +37,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <type_traits>
 
+#include "smem_once.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -424,26 +424,6 @@ tc_gemm_kernel(OpA opa, OpB opb, Epi epi, int tile_rows, int ncol, int k_len, in
   __syncthreads();
   epi(C, part, OpA::SUMS, m0, n0, nt, tile_rows);
 }
-
-// A kernel's dynamic shared memory limit raised to smem bytes once a device:
-// setting the attribute is a CUDA API call that costs host time on every launch
-// otherwise. One SmemOnce for each kernel (a static of the function that
-// launches it), smem the most that kernel is ever launched with.
-struct SmemOnce {
-  std::atomic<unsigned long long> done{0};  // a bit a device
-  template <class Kernel>
-  int operator()(Kernel kernel, size_t smem) {
-    int dev = 0;
-    int err = cudaGetDevice(&dev);
-    if (err) return err;
-    const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-    if (done.load() & bit) return 0;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (!err) done.fetch_or(bit);
-    return err;
-  }
-};
 
 // tc_gemm_kernel over a grid (blockIdx.z: chunks of `chunk` contraction rows)
 template <class P, class Tile, class OpA, class OpB, class Epi>

@@ -14,9 +14,11 @@ the plain version does, so the two give the same indices.
 
 What bounds it on the card, and the design: the npoint iterations depend on
 each other, so one iteration's latency bounds it, not bytes or operations.
-One block per batch element holds xyz in shared memory and the running
-distance in registers; each iteration is a distance update and a block-wide
-argmax over (value, index).
+One block per batch element, its size picked by N, holds xyz in shared
+memory and the running distances in registers; an iteration updates them,
+takes each warp's (distance, index) argmax with Hopper's ``redux.sync`` on
+the distance bits and then the index, and crosses one barrier, after which
+every warp reduces the warps' winners itself.
 
 On a CPU tensor ``fps`` runs ``fps_reference``; on a CUDA tensor it launches
 the kernel or raises. ``fps.launches`` counts kernel launches.

@@ -13,14 +13,21 @@ sort (``torch.topk`` is not stable on ties).
 
 What bounds it on the card, and the design (``csrc/knn.cu``): the TPU kernel
 computes a distance block on the MXU and runs k rounds of masked argmin.
-Here one thread owns a query and keeps a sorted k-list in registers while the
-points pass through shared memory in index order; a candidate enters only if
-strictly nearer than the list's last. No [B, S, N] distance tensor is
-written. f32 operations bound it (B*S*N distance evaluations).
+Here f32 issue slots and the selection's latency bound it (B*S*N distance
+evaluations, few bytes). One warp owns a query and holds its sorted k-list
+across its lanes; the block's queries share a batch element whose points
+pass through shared memory once per block; lanes take 32 candidates at a
+time, a ballot finds those nearer than the list's last entry, and each is
+inserted at a popcount, the tail shifted up a lane, or, where 8 or more
+enter at once and k is at least 8, they are sorted and merged with the list
+by a bitonic network. No [B, S, N] distance tensor is written.
 
-On the card the plain version's q.p comes from cuBLAS, summed in another
-order, so where two distances differ by a rounding the two may rank them
-differently; ``near_ties`` counts such ranks for the card check.
+The kernel rounds every operation in a fixed order, (|q|^2 + |p|^2) - 2 q.p
+with q.p = (qx px + qy py) + qz pz, and ``knn_reference_exact`` repeats that
+order elementwise, so on the card the two agree bit for bit. The plain
+version ``knn_reference`` takes q.p from a matmul (cuBLAS on the card), summed
+in another order, so where two distances differ by a rounding the two may
+rank them differently; ``near_ties`` counts such ranks for the card check.
 
 On a CPU tensor ``knn`` runs ``knn_reference``; on a CUDA tensor it launches
 the kernel or raises. ``knn.launches`` counts kernel launches.
@@ -45,6 +52,20 @@ def square_distance_matmul(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor
 def knn_reference(query: torch.Tensor, points: torch.Tensor, k: int):
     """Plain version: (idx [B, S, k] int32, dist [B, S, k] f32)."""
     d = square_distance_matmul(query, points)
+    dist, idx = torch.sort(d, dim=-1, stable=True)
+    return idx[..., :k].to(torch.int32), dist[..., :k].contiguous()
+
+
+def knn_reference_exact(query: torch.Tensor, points: torch.Tensor, k: int):
+    """The kernel's function in its rounding order: (idx [B, S, k] int32, dist
+    [B, S, k] f32). Each product and sum is a tensor operation of its own (no
+    FMA), then a stable sort. Materialises [B, S, N]; the card check's oracle."""
+    qx, qy, qz = query.float()[..., None].unbind(-2)  # [B, S, 1]
+    px, py, pz = points.float()[:, None].unbind(-1)  # [B, 1, N]
+    qq = (qx * qx + qy * qy) + qz * qz
+    pp = (px * px + py * py) + pz * pz
+    cross = (qx * px + qy * py) + qz * pz
+    d = torch.clamp_min((qq + pp) - 2.0 * cross, 0.0)
     dist, idx = torch.sort(d, dim=-1, stable=True)
     return idx[..., :k].to(torch.int32), dist[..., :k].contiguous()
 

@@ -14,10 +14,10 @@ import pytest
 import torch
 
 from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
-                        KNN_DIST_TOL, KNN_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES,
-                        VA_REL, VA_SHAPES, VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_inputs,
-                        errors, gather_check, gather_inputs, mhsa_inputs, rel_err, va_err,
-                        va_inputs, vag_check, vag_inputs)
+                        KNN_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES, VA_REL, VA_SHAPES,
+                        VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_inputs, errors, gather_check,
+                        gather_inputs, knn_check, knn_inputs, mhsa_inputs, rel_err, unit_cloud,
+                        va_err, va_inputs, vag_check, vag_inputs)
 from simple3dformer_tpu_torch.kernels import mhsa as mk
 from simple3dformer_tpu_torch.kernels import vector_attention as va
 from simple3dformer_tpu_torch.kernels import vit_block as vb
@@ -25,7 +25,7 @@ from simple3dformer_tpu_torch.kernels.adam import adam_reference, fused_adam
 from simple3dformer_tpu_torch.kernels.fps import fps, fps_reference
 from simple3dformer_tpu_torch.kernels.gather import (gather_bwd, gather_bwd_reference, gather_fwd,
                                                      gather_fwd_reference, gather_rows)
-from simple3dformer_tpu_torch.kernels.knn import knn, knn_reference, near_ties
+from simple3dformer_tpu_torch.kernels.knn import knn
 from simple3dformer_tpu_torch.kernels.vit_block import WNAMES, fused_vit_block, vit_block_reference
 
 pytestmark = pytest.mark.cuda
@@ -139,17 +139,12 @@ def test_adam_kernel_matches_plain(device):
             assert torch.equal(a, b)
 
 
-def unit_cloud(rs, b, n, device):
-    x = torch.from_numpy(rs.randn(b, n, 3).astype("float32")).to(device)
-    return x / x.norm(dim=-1).amax(-1)[:, None, None]
-
-
 @pytest.mark.parametrize("label,b,n,npoint", FPS_SHAPES, ids=[s[0] for s in FPS_SHAPES])
 def test_fps_kernel_matches_plain(device, label, b, n, npoint):
     import numpy as np
 
     rs = np.random.RandomState(b + n)
-    xyz = unit_cloud(rs, b, n, device)
+    xyz = unit_cloud(torch, rs, b, n)
     start = torch.from_numpy(rs.randint(0, n, b).astype("int32")).to(device)
     before = fps.launches
     got, got_s = fps(xyz, npoint), fps(xyz, npoint, start)
@@ -161,22 +156,17 @@ def test_fps_kernel_matches_plain(device, label, b, n, npoint):
 
 @pytest.mark.parametrize("label,b,s,n,k,dup", KNN_SHAPES, ids=[s[0] for s in KNN_SHAPES])
 def test_knn_kernel_matches_plain(device, label, b, s, n, k, dup):
+    """Bit for bit the exact-order plain version and a second run; near-ties of
+    the matmul form; equal distances in index order (knn_check)."""
     import numpy as np
 
-    rs = np.random.RandomState(s + n + k)
-    p = unit_cloud(rs, b, n // 2, device).repeat(1, 2, 1) if dup else unit_cloud(rs, b, n, device)
-    q = p[:, :s].contiguous() if s <= n else unit_cloud(rs, b, s, device)
+    q, p = knn_inputs(torch, np.random.RandomState(s + n + k), b, s, n, dup)
     before = knn.launches
-    idx, dist = knn(q, p, k)
-    ridx, rdist = knn_reference(q, p, k)
-    assert knn.launches == before + 1
-    n_diff, n_near = near_ties(idx, dist, ridx, rdist)
-    assert n_diff == n_near
-    assert float((dist - rdist).abs().max()) <= KNN_DIST_TOL
-    tied = dist[..., 1:] == dist[..., :-1]
-    assert not bool((tied & (idx[..., 1:] < idx[..., :-1])).any())
+    ok, _, _, facts = knn_check(torch, q, p, k)
+    assert knn.launches == before + 2
+    assert ok, facts
     if dup:
-        assert bool(tied.any())
+        assert facts["ties"]
 
 
 @pytest.mark.parametrize("label,b,n,r,c,dtype,one_point", GATHER_SHAPES,

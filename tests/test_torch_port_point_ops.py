@@ -68,6 +68,42 @@ def test_knn_breaks_ties_by_the_smaller_index():
     assert pops.knn_indices(t(p[:, :4]), t(p[:, :4]), 16).shape == (1, 4, 4)
 
 
+# (S queries, N points, k, integer points each twice: every distance exact in any form)
+@pytest.mark.parametrize("s,n,k,dup", [(100, 300, 8, False), (64, 64, 16, False),
+                                       (50, 120, 5, True)])
+def test_exact_order_knn_matches_the_matmul_form_and_pallas(s, n, k, dup):
+    """knn_reference_exact, the card check's oracle: its distances are numpy's
+    in the kernel's rounding order, bit for bit; it agrees with the matmul form
+    and the Pallas kernel but for near-ties, and exactly where every distance
+    is exact, equal distances in index order."""
+    if dup:
+        p = np.repeat(np.random.RandomState(5).randint(-3, 4, (2, n // 2, 3)), 2, axis=1)
+        p = p.astype(np.float32)
+        q = p[:, :s]
+    else:
+        q, p = cloud(1, 2, s, 3), cloud(2, 2, n, 3)
+    eidx, edist = knn_mod.knn_reference_exact(t(q), t(p), k)
+    assert eidx.dtype == torch.int32 and eidx.shape == (2, s, k)
+    qv, pv = q[:, :, None, :], p[:, None, :, :]
+    qq = (qv[..., 0] * qv[..., 0] + qv[..., 1] * qv[..., 1]) + qv[..., 2] * qv[..., 2]
+    pp = (pv[..., 0] * pv[..., 0] + pv[..., 1] * pv[..., 1]) + pv[..., 2] * pv[..., 2]
+    cross = (qv[..., 0] * pv[..., 0] + qv[..., 1] * pv[..., 1]) + qv[..., 2] * pv[..., 2]
+    d = np.maximum((qq + pp) - np.float32(2) * cross, np.float32(0))
+    np.testing.assert_array_equal(edist.numpy(), np.take_along_axis(d, eidx.numpy(), -1))
+    pidx, pdist = knn_pallas(jnp.asarray(q), jnp.asarray(p), k=k, tile=32, interpret=True)
+    others = (knn_mod.knn_reference(t(q), t(p), k), (t(np.array(pidx)), t(np.array(pdist))))
+    for idx, dist in others:
+        n_diff, n_near = knn_mod.near_ties(eidx, edist, idx, dist)
+        assert n_diff == n_near
+        np.testing.assert_allclose(edist.numpy(), dist.numpy(), rtol=0, atol=1e-5)
+    tied = edist[..., 1:] == edist[..., :-1]
+    assert not bool((tied & (eidx[..., 1:] < eidx[..., :-1])).any())
+    if dup:
+        assert bool(tied.any())
+        for idx, dist in others:
+            assert torch.equal(eidx, idx) and torch.equal(edist, dist)
+
+
 def test_near_ties_counts_only_equal_distance_swaps():
     ref_idx = torch.tensor([[[0, 1, 2]]], dtype=torch.int32)
     ref_dist = torch.tensor([[[0.1, 0.2, 0.2]]])
