@@ -93,6 +93,24 @@ Phases, one line each (and a line per kernel shape):
               pair); ms per step, samples/s and a per-kernel profile
  15. attention route  a ViT block at 2049 tokens on the card: the plain
               attention outside the mhsa kernels' gate, counted, against the CPU
+ 16. ScanObjectNN  the ScanObjectNN CLI (3DViT, 1024 points of xyz, 15
+              classes, B=64) on its synthetic streams: epoch lines, a checkpoint,
+              launch counts of every kernel of the path
+ 17. Hengshuang segmentation  PointTransformerSeg (D=512, 4 blocks, 16
+              neighbours) through the partseg CLI (B=16, N=1024) and the S3DIS
+              CLI (B=4, N=4096), each in f32 and at dtype=bf16: 3 steps on the
+              card against the CPU's plain path (B=2 and B=1), the CLI with the
+              launch counts of each vector-attention kernel, kNN, FPS and the
+              gathers, ms a step and a profile by kernel and by kind
+ 18. 3DViT bf16  the fused block kernels on an f32 residual stream with bf16
+              matmuls against their plain versions; partseg (fused bf16 blocks)
+              and S3DIS (the mhsa kernels on bf16 q, k, v, no plain attention) at
+              dtype=bf16: 3 steps card vs CPU, the CLI with its launch counts, ms
+              a step and a profile; the bf16 mhsa pair's device time a call
+              beside scaled_dot_product_attention's at the S3DIS shape
+ 19. flagship bf16  the voxel CLI at --dtype bf16 with Adam's second moment
+              in bf16: the loss falls over 40 steps, launch counts; ms a step
+              beside the f32 step
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -805,6 +823,16 @@ KERNEL_GROUPS = ("VaEpiPos", "VagEpiPos", "VaEpiBias", "VaEpiSoftmax", "VaEpiMas
                  "mhsa_dkdv_kernel", "mhsa_dq_kernel")
 
 
+# KERNEL_GROUPS by kind: the first kind whose prefixes a group starts with
+KERNEL_CATEGORIES = (
+    ("vector-attention GEMMs", ("VaEpi", "VagEpi")),
+    ("vector attention, other", ("va_", "vag_")),
+    ("ViT block", ("Blk", "attention_kernel", "attn_bwd", "colsum", "ln_bwd", "row_stats")),
+    ("mhsa", ("mhsa_",)),
+    ("point kernels (FPS, kNN, gathers)", ("fps_", "knn_", "gather_")),
+    ("Adam", ("adam_",)))
+
+
 def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
     """Where a train step's device time goes: torch.profiler over len(idx) steps;
     the busy share is against ``ms_step``, the step time without the profiler.
@@ -836,9 +864,21 @@ def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
     print(f"{label} profile over {steps} steps: device {device_ms:.3f} ms per step, "
           f"{device_ms / ms_step:.1%} of the {ms_step:.3f} ms step without the profiler "
           f"({wall / steps * 1e3:.3f} ms with it); ms per step by kernel: {parts}")
+    cats: dict[str, float] = {}
+    for name, us in groups.items():
+        cat = next((c for c, members in KERNEL_CATEGORIES if name.startswith(members)),
+                   "PyTorch's own kernels")
+        cats[cat] = cats.get(cat, 0.0) + us
+    print(f"{label} profile by kind, ms per step (share of the device time): " + ", ".join(
+        f"{k} {v / steps / 1e3:.3f} ({v / total:.1%})" for k, v in
+        sorted(cats.items(), key=lambda kv: -kv[1])))
     top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label} profile, PyTorch's own kernels, ms per step: "
           + "; ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in top))
+    host = sorted(((e.key[:50], e.self_cpu_time_total, e.count) for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda kv: -kv[1])[:8]
+    print(f"{label} profile, host: self CPU ms per step by operator (calls a step): "
+          + "; ".join(f"{k} {us / steps / 1e3:.3f} ({n // steps})" for k, us, n in host))
 
 
 # the point kernels at the partseg shapes (B=16, N=1024, deit_tiny, f32), and
@@ -869,7 +909,19 @@ KNN_SHAPES = [("TD0 k=16", PB, PN, PN, 16, False), ("TD1 k=16", PB, PN // 4, PN,
               ("S3DIS TD1 k=16", 4, 1024, 4096, 16, False),
               ("S3DIS TU0 3-NN", 4, 4096, 1024, 3, False),
               ("S3DIS TU1 3-NN", 4, 4096, 4096, 3, False),
-              ("k=32 N=3000", 2, 100, 3000, 32, False)]
+              ("k=32 N=3000", 2, 100, 3000, 32, False),
+              # Hengshuang segmentation: partseg (B=16, 1024 -> 4) and S3DIS
+              # (B=4, 4096 -> 16) levels, transition-downs and 3-NN transition-ups
+              # that the shapes above do not cover
+              ("partseg seg level 1 k=16", PB, 256, 256, 16, False),
+              ("partseg seg TD 256 -> 64", PB, 64, 256, 16, False),
+              ("partseg seg level 3 k=16", PB, 16, 16, 16, False),
+              ("partseg seg TU 256 <- 64", PB, 256, 64, 3, False),
+              ("partseg seg TU 16 <- 4", PB, 16, 4, 3, False),
+              ("S3DIS seg level 1 k=16", 4, 1024, 1024, 16, False),
+              ("S3DIS seg level 4 k=16", 4, 16, 16, 16, False),
+              ("S3DIS seg TU 1024 <- 256", 4, 1024, 256, 3, False),
+              ("S3DIS seg TU 64 <- 16", 4, 64, 16, 3, False)]
 KNN_TIMED = ("TD0 k=16", "S3DIS TD0 k=16", "Hengshuang level 0 k=16")
 # (label, B, N, R, C, dtype name, every row naming one point)
 GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32", False),
@@ -881,7 +933,13 @@ GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32", False),
                  ("Hengshuang level 0 k/v C=512", 64, 1024, 1024 * 16, 512, "float32", False),
                  ("one point named by every row", 2, PN, PN * 16, 48, "float32", True),
                  ("bf16 C=35", PB, PN, PN * 16, 35, "bfloat16", False),
-                 ("S3DIS TD0 N=4096 C=192", 4, 4096, 4096 * 16, 192, "float32", False)]
+                 ("S3DIS TD0 N=4096 C=192", 4, 4096, 4096 * 16, 192, "float32", False),
+                 # Hengshuang segmentation: the f32 level-0 k and v gathers of both
+                 # CLIs, R = 262,144 rows of 512, and a transition-up's 3-NN rows
+                 ("partseg seg level 0 k/v C=512", PB, PN, PN * 16, 512, "float32", False),
+                 ("S3DIS seg level 0 k/v C=512", 4, 4096, 4096 * 16, 512, "float32", False),
+                 ("S3DIS seg TU 4096 <- 1024 C=32", 4, 1024, 4096 * 3, 32, "float32", False),
+                 ("partseg seg TU bf16 C=64", PB, 64, 256 * 3, 64, "bfloat16", False)]
 # "one point named by every row" has gradients that are multiples of 2**-6, so
 # that its sums are exact in any order: the card's plain version adds by float
 # atomics in an order that changes from run to run, which with 16384 rows on
@@ -1307,11 +1365,7 @@ def point_counters():
 
 def phase_partseg(torch):
     """The 3DViT partseg model (deit_tiny, N=1024, B=16, f32, SGD) through the
-    port's trainer; returns the launch counts of the CLI run and the step time."""
-    import contextlib
-    import io
-    import tempfile
-
+    port's trainer; returns the launch counts of the CLI run."""
     from simple3dformer_tpu_torch.cli import train_partseg as tp
     from simple3dformer_tpu_torch.core.config import Config
     from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
@@ -1342,15 +1396,9 @@ def phase_partseg(torch):
           f"{losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol 1e-3)")
 
     # the CLI on a synthetic corpus held on the card: the slice's main path
-    counters = point_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    log = io.StringIO()
-    with tempfile.TemporaryDirectory() as out_dir, contextlib.redirect_stdout(log):
-        tp.main(["model=3DViT", f"synthetic={PARTSEG_SAMPLES}", f"epoch={PARTSEG_EPOCHS}",
-                 f"batch_size={PB}", f"learning_rate={PARTSEG_LR}", f"out_dir={out_dir}"])
-    launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
-    lines = log.getvalue().splitlines()
+    _, lines, launches, _ = run_cli(tp.main, lambda d: [
+        "model=3DViT", f"synthetic={PARTSEG_SAMPLES}", f"epoch={PARTSEG_EPOCHS}",
+        f"batch_size={PB}", f"learning_rate={PARTSEG_LR}", f"out_dir={d}"], point_counters())
     epoch_losses = [float(line.split()[6]) for line in lines
                     if line.startswith("Epoch ") and "train loss" in line]
     ious = [line for line in lines if "Inctance avg mIOU" in line]
@@ -1368,22 +1416,13 @@ def phase_partseg(torch):
         raise AssertionError(f"partseg launch counts {launches}, want {want}")
 
     # train throughput: 20 steps at B=16 from a corpus on the card, host clock
-    state = trainer("cuda")
     n_steps = 20
     ds = DeviceResidentDataset({"x": xs[:(n_steps + 1) * PB], "cls": cats[:(n_steps + 1) * PB],
                                 "y": segs[:(n_steps + 1) * PB]}, "cuda")
-    run = make_scanned_train_steps(state, ds, seg_cross_entropy, prepare_fn=prepare)
+    run = make_scanned_train_steps(trainer("cuda"), ds, seg_cross_entropy, prepare_fn=prepare)
     idx = ds.put_indices(np.arange((n_steps + 1) * PB).reshape(n_steps + 1, PB))
-    run(idx[:1], PARTSEG_LR)  # warm-up step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    float(run(idx[1:], PARTSEG_LR)["loss"][-1])
-    dt = time.perf_counter() - t0
-    ms_step = dt / n_steps * 1e3
-    print(f"partseg training throughput: {ms_step:.3f} ms per step, {n_steps * PB / dt:.1f} "
-          f"samples/s at B={PB} f32 (host clock over {n_steps} steps, corpus on the card)")
-    profile_steps(torch, run, idx[1:11], ms_step, "partseg training", PARTSEG_LR)
-    return launches, {"ms_per_step": ms_step, "samples_per_s": n_steps * PB / dt}
+    timed_steps(torch, run, idx, PARTSEG_LR, n_steps, "partseg", PB, n_profile=10)
+    return launches
 
 
 # S3DIS semantic segmentation: the slice's main path (configs/semseg.yaml: 3DViT_s3dis on
@@ -1426,10 +1465,6 @@ def s3dis_counters():
 def phase_s3dis(torch):
     """The S3DIS model (3DViT_s3dis, deit_base, N=4096 -> 1025 tokens, B=4, f32,
     SGD) through the port's trainer; returns the launch counts of the CLI run."""
-    import contextlib
-    import io
-    import tempfile
-
     from simple3dformer_tpu_torch.cli import train_s3dis_semseg as ts
     from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
     from simple3dformer_tpu_torch.nn.layers import Block
@@ -1460,14 +1495,9 @@ def phase_s3dis(torch):
           f"{seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
 
     # the CLI on its synthetic stream: the slice's main path
-    counters = s3dis_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    log = io.StringIO()
-    with tempfile.TemporaryDirectory() as out_dir, contextlib.redirect_stdout(log):
-        ts.main([f"synthetic={S3DIS_SAMPLES}", f"epoch={S3DIS_EPOCHS}", f"out_dir={out_dir}"])
-    launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
-    lines = log.getvalue().splitlines()
+    _, lines, launches, _ = run_cli(
+        ts.main, lambda d: [f"synthetic={S3DIS_SAMPLES}", f"epoch={S3DIS_EPOCHS}", f"out_dir={d}"],
+        s3dis_counters())
     epoch_losses = [float(line.split()[5]) for line in lines if line.startswith("Epoch ")]
     evals_lines = [line for line in lines if line.startswith("eval accuracy:")]
     steps = S3DIS_EPOCHS * (S3DIS_SAMPLES // SB)
@@ -1502,26 +1532,21 @@ def phase_s3dis(torch):
         raise AssertionError(f"S3DIS learnability: loss {first} -> {last}")
 
     # train throughput: 10 steps at B=4 from a corpus on the card, host clock
-    n_steps = 10
     run = make_scanned_train_steps(s3dis_trainer(torch, "cuda"), ds, seg_cross_entropy)
-    run(idx[:1], lr)  # warm-up step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    float(run(idx[1:n_steps + 1], lr)["loss"][-1])
-    dt = time.perf_counter() - t0
-    ms_step = dt / n_steps * 1e3
-    print(f"S3DIS training throughput: {ms_step:.3f} ms per step, {n_steps * SB / dt:.2f} "
-          f"samples/s at B={SB} f32 (host clock over {n_steps} steps, corpus on the card); "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_steps(torch, run, idx[1:6], ms_step, "S3DIS training", lr)
+    timed_steps(torch, run, idx, lr, 10, "S3DIS", SB, n_profile=5)
     return launches
 
 
 # the vector-attention kernels: (label, B, N, K, D, duplicated neighbours); the
 # Hengshuang cls step's levels at B=64 are N = 1024, 256, 64, 16, 4 with K = 16
-# (K = 4 at N = 4, kNN clamps k to N); D=8 and D=136: the tensor-core core's
-# edges (a contraction not a multiple of 16, a width not a multiple of 128)
-VA_SHAPES = [("level 0", 64, 1024, 16, 512, False), ("level 1", 64, 256, 16, 512, False),
+# (K = 4 at N = 4, kNN clamps k to N); the segmentation steps' level 0 at
+# partseg's B=16, N=1024 and S3DIS's B=4, N=4096; D=8 and D=136: the
+# tensor-core core's edges (a contraction not a multiple of 16, a width not a
+# multiple of 128)
+SEG_LEVEL0 = [("partseg seg level 0", 16, 1024, 16, 512, False),
+              ("S3DIS seg level 0", 4, 4096, 16, 512, False)]
+VA_SHAPES = [("level 0", 64, 1024, 16, 512, False), *SEG_LEVEL0,
+             ("level 1", 64, 256, 16, 512, False),
              ("N=255", 2, 255, 16, 512, False), ("N=256", 2, 256, 16, 512, False),
              ("level 4 N=4 K=4", 64, 4, 4, 512, False), ("D=200 K=12", 3, 77, 12, 200, False),
              ("duplicates", 2, 64, 16, 512, True), ("D=8", 2, 100, 16, 8, False),
@@ -1928,30 +1953,20 @@ def phase_hengshuang(torch, bf16=False):
             raise AssertionError(f"S3F_VA_RESID=0 launches {recompute}, want {rec_want}")
 
     # train throughput: 5 steps at B=64 from a corpus on the card, host clock
-    n_steps = 5
-    torch.cuda.reset_peak_memory_stats()
     run = make_scanned_train_steps(hengshuang_trainer(torch, "cuda", dtype), ds)
-    run(idx[:1], lr)  # warm-up step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    float(run(idx[1:n_steps + 1], lr)["loss"][-1])
-    dt = time.perf_counter() - t0
-    ms_step = dt / n_steps * 1e3
-    print(f"{label} training throughput: {ms_step:.3f} ms per step, {n_steps * HB / dt:.2f} "
-          f"samples/s at B={HB} {'bf16' if bf16 else 'f32'} (host clock over {n_steps} steps, "
-          f"corpus on the card); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_steps(torch, run, idx[1:4], ms_step, f"{label} training", lr)
+    timed_steps(torch, run, idx, lr, 5, label, HB)
     return launches, recompute
 
 
 # the bf16 vector-attention kernels (in-kernel gather by index): (label, B, N,
 # K, D, duplicated neighbours); level 0 and level 4 of the bf16 Hengshuang step
-# at B=64, an N off every tile, one neighbour, 128 neighbours all among three
-# points, a D that is a multiple of 8 but not of 128; D=8 and D=136: the
-# tensor-core core's edges (a contraction not a multiple of 16, a width not a
-# multiple of 128)
-VAG_SHAPES = [("level 0", 64, 1024, 16, 512, False), ("level 4 N=4 K=4", 64, 4, 4, 512, False),
+# at B=64, the segmentation steps' level 0 (an inverse index over 65,536 rows
+# of one batch element at S3DIS's N=4096), an N off every tile, one neighbour,
+# 128 neighbours all among three points, a D that is a multiple of 8 but not
+# of 128; D=8 and D=136: the tensor-core core's edges (a contraction not a
+# multiple of 16, a width not a multiple of 128)
+VAG_SHAPES = [("level 0", 64, 1024, 16, 512, False), *SEG_LEVEL0,
+              ("level 4 N=4 K=4", 64, 4, 4, 512, False),
               ("N=1000", 2, 1000, 16, 512, False), ("K=1", 2, 300, 1, 512, False),
               ("K=128 duplicates", 2, 256, 128, 512, True), ("D=200 K=12", 3, 77, 12, 200, False),
               ("D=8", 2, 100, 16, 8, False), ("D=136 K=10", 2, 130, 10, 136, False)]
@@ -2146,6 +2161,445 @@ def phase_attention_route(torch):
         raise AssertionError("attention outside the mhsa gate")
 
 
+# ---- the point CLIs with every model in f32 and bf16, and the flagship at bf16 ----
+
+def run_cli(main, argv_for, counters):
+    """Run a CLI, ``main(argv_for(out_dir))`` with a fresh output directory, its
+    stdout captured and the launch counters set to 0 just before it; -> (its
+    return value, its lines, the launches, the epochs of the checkpoints it
+    saved)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    for fn in counters.values():
+        fn.launches = 0
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as out_dir:
+        with contextlib.redirect_stdout(log):
+            result = main(argv_for(out_dir))
+        launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
+        saved = sorted(int(s) for d, _, _ in os.walk(out_dir) if d.endswith("ckpt")
+                       for s in os.listdir(d) if s.isdigit())
+    return result, log.getvalue().splitlines(), launches, saved
+
+
+def timed_steps(torch, run, idx, lr, n_steps, label, batch, n_profile=3):
+    """ms a train step (host clock over ``n_steps`` after a warm-up step, corpus
+    on the card), printed with samples/s and the peak device memory; then the
+    per-kernel profile of ``n_profile`` steps."""
+    torch.cuda.reset_peak_memory_stats()
+    run(idx[:1], lr)  # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(run(idx[1:n_steps + 1], lr)["loss"][-1])
+    dt = time.perf_counter() - t0
+    ms_step = dt / n_steps * 1e3
+    print(f"{label} training throughput: {ms_step:.3f} ms per step, {n_steps * batch / dt:.2f} "
+          f"samples/s at B={batch} (host clock over {n_steps} steps, corpus on the card); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_steps(torch, run, idx[1:n_profile + 1], ms_step, f"{label} training", lr)
+    return ms_step
+
+
+# ScanObjectNN (BASELINE.json's fourth config, configs/cls_scanobjectnn.yaml:
+# 3DViT on deit_tiny, 1024 points of xyz, 15 classes, batch 64, SGD)
+SO_B, SO_SAMPLES, SO_EPOCHS = 64, 256, 2  # 4 train steps and 1 eval batch an epoch
+
+
+def phase_scanobjectnn(torch):
+    """The ScanObjectNN CLI on its synthetic streams at full width: its epoch
+    lines, a checkpoint, and the launch counts of every kernel of the path."""
+    from simple3dformer_tpu_torch.cli import train_cls_scanobjectnn as so
+
+    best, lines, launches, saved = run_cli(
+        so.main, lambda d: [f"synthetic={SO_SAMPLES}", f"epoch={SO_EPOCHS}", f"out_dir={d}"],
+        point_counters())
+    steps = SO_EPOCHS * (SO_SAMPLES // SO_B)
+    evals = SO_EPOCHS * -(-max(SO_SAMPLES // 5, 64) // SO_B)
+    # the 3DViT model's path, as partseg's: FPS 1, kNN 4, gathers 8 a forward,
+    # 4 gather backwards and 12 block pairs a step, 12 forward blocks an eval
+    want = {"fps": steps + evals, "knn": 4 * (steps + evals), "gather_fwd": 8 * (steps + evals),
+            "gather_bwd": 4 * steps, "fused_vit_block_train_fwd": 12 * steps,
+            "fused_vit_block_train_bwd": 12 * steps, "fused_vit_block": 12 * evals}
+    epochs = [line for line in lines if re.match(
+        r"^Epoch \d+ Test Instance Accuracy: \d\.\d{6}, Class Accuracy: \d\.\d{6} \(", line)]
+    print(f"ScanObjectNN CLI (configs/cls_scanobjectnn.yaml, synthetic={SO_SAMPLES}, "
+          f"B={SO_B}): {steps} train steps, {evals} eval batches; {lines[-1]}; epoch lines "
+          f"{epochs}; checkpoints at epochs {saved}; launches {launches} (want {want})")
+    if len(epochs) != SO_EPOCHS or not saved or lines[-1] != f"Best Instance Accuracy: {best:f}":
+        raise AssertionError(f"ScanObjectNN CLI output: {lines[-6:]}")
+    if launches != want:
+        raise AssertionError(f"ScanObjectNN launch counts {launches}, want {want}")
+    return launches
+
+
+# Hengshuang segmentation (configs/model/Hengshuang.yaml: transformer_dim 512, 4
+# blocks, 16 neighbours) through the partseg CLI (B=16, N=1024, 22 inputs, 50
+# parts, lr 0.05) and the S3DIS CLI (B=4, N=4096, 9 inputs, 13 classes, lr 0.5):
+# level 0 is R = B N K = 262,144 rows in both
+HSEG = {"partseg": dict(task="partseg", b=16, n=1024, in_dim=22, classes=50, parity_b=2,
+                        samples=32),
+        "s3dis": dict(task="semseg", b=4, n=4096, in_dim=9, classes=13, parity_b=1, samples=8)}
+
+
+def hseg_launches(steps, evals, bf16) -> dict:
+    """The launches of PointTransformerSeg's ``steps`` train steps and ``evals``
+    eval batches: per forward 10 vector-attention blocks (transformer1, four
+    transformers, transformer2, four up-transformers; a kNN and the xyz gather
+    each, in f32 also the k and v gathers), 4 transition-downs (FPS, a kNN, 3
+    gathers) and 4 transition-ups (a 3-NN, the features' gather); per backward
+    the feature gather of each transition, in f32 also the k and v gathers of
+    each block. The vector-attention kernels: in f32 the pre-gathered pair; in
+    bf16 the residual-saving pair in training, the forward in eval."""
+    fwd = steps + evals
+    want = dict.fromkeys(hengshuang_counters(), 0)
+    want.update(fps=4 * fwd, knn=18 * fwd, gather_fwd=(26 if bf16 else 46) * fwd,
+                gather_bwd=(8 if bf16 else 28) * steps)
+    if bf16:
+        want.update(vector_attention_gather_fwd=10 * evals,
+                    vector_attention_resid_fwd=10 * steps, vector_attention_resid_bwd=10 * steps)
+    else:
+        want.update(vector_attention_fwd=10 * fwd, vector_attention_bwd=10 * steps)
+    return want
+
+
+def seg_config(task, **overrides):
+    from simple3dformer_tpu_torch.core.config import load_task_config
+
+    return load_task_config(task, [f"{k}={v}" for k, v in overrides.items()])
+
+
+def seg_trainer(torch, cfg, num_class, in_dim, device, dtype=None):
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.models.registry import make_point_model
+    from simple3dformer_tpu_torch.train.loop import TrainState
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    cfg.num_class, cfg.input_dim = num_class, in_dim
+    model = make_point_model(cfg, "seg", dtype=dtype, generator=generator(DEFAULT_SEED))
+    model = model.to(device)
+    return TrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"))
+
+
+def seg_arrays(task, n_samples, seed=9):
+    """(x [S, N, C], y [S, N]) of the CLI's synthetic stream, the partseg one-hot
+    already joined (prepare), as numpy."""
+    from simple3dformer_tpu_torch.cli import train_partseg as tp
+    from simple3dformer_tpu_torch.cli import train_s3dis_semseg as ts
+
+    if task == "partseg":
+        (xs, cats, segs), _ = tp.load_arrays(seg_config("partseg", synthetic=n_samples,
+                                                        seed=seed))
+        onehot = np.eye(tp.NUM_CATEGORY, dtype=np.float32)[cats]
+        x = np.concatenate([xs, np.broadcast_to(onehot[:, None], (*xs.shape[:2],
+                                                                  tp.NUM_CATEGORY))], -1)
+        return np.ascontiguousarray(x), segs
+    (xs, ys), _ = ts.load_arrays(seg_config("semseg", synthetic=n_samples, seed=seed))
+    return xs, ys
+
+
+# card vs CPU, as the cls phases: f32 sums in another order; bf16 intermediates
+# rounding f32 sums taken in another order
+SEG_LOSS_RTOL = {False: 1e-3, True: 2e-3}
+
+
+def seg_parity(torch, label, make_state, xs, ys, parity_b, lr, bf16):
+    """3 train steps on the card and on the CPU's plain path from the same
+    weights and batches; the losses within SEG_LOSS_RTOL."""
+    from simple3dformer_tpu_torch.train.loop import make_train_step, seg_cross_entropy
+
+    losses, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        step = make_train_step(make_state(device), seg_cross_entropy)
+        t0 = time.perf_counter()
+        losses[device] = [float(step({"x": torch.from_numpy(xs[i * parity_b:(i + 1) * parity_b])
+                                      .to(device),
+                                      "y": torch.from_numpy(ys[i * parity_b:(i + 1) * parity_b])
+                                      .to(device)}, lr)["loss"]) for i in range(3)]
+        seconds[device] = time.perf_counter() - t0
+    print(f"{label}: 3 steps at B={parity_b}, lr {lr}: losses on the card {losses['cuda']} vs the "
+          f"CPU's plain path {losses['cpu']} (rtol {SEG_LOSS_RTOL[bf16]}); "
+          f"{seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=SEG_LOSS_RTOL[bf16])
+
+
+def phase_hengshuang_seg(torch, which, bf16=False):
+    """PointTransformerSeg at full width through the partseg or the S3DIS CLI, in
+    f32 or at dtype=bf16: 3 steps card vs CPU, the CLI with the launch counts
+    of every kernel of the path, ms a step and its profile. Returns the CLI's
+    launch counts."""
+    from simple3dformer_tpu_torch.cli import train_partseg as tp
+    from simple3dformer_tpu_torch.cli import train_s3dis_semseg as ts
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.train.loop import make_scanned_train_steps, seg_cross_entropy
+
+    s = HSEG[which]
+    dtype = torch.bfloat16 if bf16 else None
+    label = f"Hengshuang {which}{' bf16' if bf16 else ''}"
+    lr = float(seg_config(s["task"], model="Hengshuang").learning_rate)
+
+    def make_state(device, cfg_task=s["task"]):
+        return seg_trainer(torch, seg_config(cfg_task, model="Hengshuang"), s["classes"],
+                           s["in_dim"], device, dtype)
+
+    xs, ys = seg_arrays(which, 3 * s["parity_b"])
+    seg_parity(torch, label, make_state, xs, ys, s["parity_b"], lr, bf16)
+
+    main = tp.main if which == "partseg" else ts.main
+    argv = ["model=Hengshuang", *(["dtype=bf16"] if bf16 else []), f"synthetic={s['samples']}",
+            f"batch_size={s['b']}", "epoch=1"]
+    _, lines, launches, saved = run_cli(main, lambda d: [*argv, f"out_dir={d}"],
+                                        hengshuang_counters())
+    steps = s["samples"] // s["b"]
+    n_test = max(s["samples"] // 5, 32 if which == "partseg" else 16)
+    evals = -(-n_test // s["b"])
+    want = hseg_launches(steps, evals, bf16)
+    losses = [float(line.split(" loss ")[1].split()[0]) for line in lines
+              if line.startswith("Epoch ") and " loss " in line]
+    per_step = {k: v for k, v in hseg_launches(1, 0, bf16).items() if v}
+    print(f"{label} CLI ({' '.join(argv)}, B={s['b']}, N={s['n']}): {steps} train steps, "
+          f"{evals} eval batches; losses {losses}; {lines[-1]}; checkpoints at epochs {saved}; "
+          f"launches {launches} (want {want}; a train step: {per_step})")
+    if len(losses) != 1 or not np.isfinite(losses).all() or not saved:
+        raise AssertionError(f"{label} CLI output: {lines[-6:]}")
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches}, want {want}")
+
+    n_steps = 5
+    xs, ys = seg_arrays(which, (n_steps + 1) * s["b"], seed=12)
+    ds = DeviceResidentDataset({"x": xs, "y": ys}, "cuda")
+    run = make_scanned_train_steps(make_state("cuda"), ds, seg_cross_entropy)
+    idx = ds.put_indices(np.arange((n_steps + 1) * s["b"]).reshape(n_steps + 1, s["b"]))
+    timed_steps(torch, run, idx, lr, n_steps, label, s["b"])
+    return launches
+
+
+def block_cdt_check(torch, b, n, d, heads, x_dtype, cdt, seed=0, device="cuda"):
+    """The fused block kernels with x in ``x_dtype`` and matmuls in ``cdt`` (the
+    bf16 3DViT's f32 residual stream at bf16 compute) against their plain
+    versions: the forward, the training forward's residuals and both
+    backwards, errors over each output's largest value; each backward twice
+    bit-equal. -> (errors, bit-equal)."""
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    x, w = block_inputs(torch, b, n, d, x_dtype, seed, device)
+    g = torch.from_numpy(np.random.RandomState(seed + 1).randn(b, n, d).astype(np.float32))
+    g = g.to(device=device, dtype=x_dtype)
+    out = vb.fused_vit_block(x, w, heads, cdt)
+    y, res = vb.fused_vit_block_train_fwd(x, w, heads, cdt)
+    y_ref, res_ref = vb.vit_block_train_reference(x, w, heads, cdt)
+    gx, gw = vb.fused_vit_block_train_bwd(x, g, w, heads, cdt, residuals=res)
+    gx2, gw2 = vb.fused_vit_block_train_bwd(x, g, w, heads, cdt, residuals=res)
+    want_x, want_w = vb.vit_block_backward_reference(x, g, w, heads, cdt, residuals=res)
+    cx, cw = vb.fused_vit_block_bwd(x, g, w, heads, cdt)
+    cx2, cw2 = vb.fused_vit_block_bwd(x, g, w, heads, cdt)
+    rec_x, rec_w = vb.vit_block_backward_reference(x, g, w, heads, cdt)
+    torch.cuda.synchronize()
+    errs = {"fwd": errors({"y": out}, {"y": vb.vit_block_reference(x, w, heads, cdt)})[1],
+            "train_fwd": errors({"y": y, **res}, {"y": y_ref, **res_ref})[1],
+            "bwd_res": errors({"gx": gx, **gw}, {"gx": want_x, **want_w})[1],
+            "bwd": errors({"gx": cx, **cw}, {"gx": rec_x, **rec_w})[1]}
+    same = all(torch.equal(a, c) for a, c in [(gx, gx2), (cx, cx2)]
+               + [(gw[k], gw2[k]) for k in gw] + [(cw[k], cw2[k]) for k in cw])
+    if not (out.dtype == y.dtype == gx.dtype == x_dtype):
+        raise AssertionError(f"block kernels at x {x_dtype}: outputs {out.dtype}, {gx.dtype}")
+    return errs, same
+
+
+def sdpa_device_ms(torch, b, n, h, dh, dtype):
+    """{backend: device ms of one scaled_dot_product_attention forward and
+    backward} at [B, H, N, dh], for each backend that takes the call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v, g = (t.transpose(1, 2).contiguous() for t in mhsa_inputs(torch, b, n, h, dh, dtype,
+                                                                         5, "cuda"))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = {}
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION"):
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            def step():
+                y = F.scaled_dot_product_attention(*leaves, scale=dh ** -0.5)
+                torch.autograd.grad(y, leaves, g)
+            try:
+                step()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            split = device_split(torch, step)
+            out[name] = sum(ms for ms, _ in split.values())
+    return out
+
+
+def phase_point_vit_bf16(torch):
+    """The 3DViT point models at dtype=bf16 (parameters, gradients and SGD f32):
+    the fused block kernels at the partseg shape with an f32 residual stream
+    and bf16 matmuls against their plain versions; partseg (deit_tiny, 257
+    tokens: the fused block kernels in bf16) and S3DIS (deit_base, 3 heads,
+    1025 tokens: the layered route with the mhsa kernels on bf16 q, k, v):
+    3 steps card vs CPU, the CLI with the launch counts (the bf16 kernels
+    launched, no plain attention), ms a step; at S3DIS the device time of the
+    mhsa kernels a call beside scaled_dot_product_attention's."""
+    from simple3dformer_tpu_torch.cli import train_partseg as tp
+    from simple3dformer_tpu_torch.cli import train_s3dis_semseg as ts
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.nn.layers import Attention
+    from simple3dformer_tpu_torch.train.loop import make_scanned_train_steps, seg_cross_entropy
+
+    errs, same = block_cdt_check(torch, PB, 257, 192, 3, torch.float32, torch.bfloat16)
+    print(f"kernel fused block partseg N=257 x f32, bf16 matmuls: error relative to the largest "
+          f"value {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tolerance "
+          f"{GRAD_REL['bfloat16']}); two runs of each backward bit-equal {same}")
+    if max(errs.values()) > GRAD_REL["bfloat16"] or not same:
+        raise AssertionError(f"block kernels at bf16 compute on f32 x: {errs}, bit-equal {same}")
+
+    out = {}
+    for which, task, classes, in_dim, b, n, parity_b, samples in (
+            ("partseg", "partseg", 50, 22, PB, PN, 4, 32),
+            ("S3DIS", "semseg", 13, 9, SB, SN, 1, 8)):
+        label = f"3DViT {which} bf16"
+        lr = float(seg_config(task).learning_rate)
+
+        def make_state(device, task=task, classes=classes, in_dim=in_dim):
+            return seg_trainer(torch, seg_config(task), classes, in_dim, device, torch.bfloat16)
+
+        xs, ys = seg_arrays(which.lower(), 3 * parity_b)
+        seg_parity(torch, label, make_state, xs, ys, parity_b, lr, True)
+        plain_before = Attention.plain_calls
+        _, lines, launches, saved = run_cli(
+            tp.main if which == "partseg" else ts.main,
+            lambda d, b=b, samples=samples: ["dtype=bf16", f"synthetic={samples}",
+                                             f"batch_size={b}", "epoch=1", f"out_dir={d}"],
+            s3dis_counters())
+        plain = Attention.plain_calls - plain_before
+        steps = samples // b
+        evals = -(-max(samples // 5, 32 if which == "partseg" else 16) // b)
+        fwd = steps + evals
+        want = {"fps": fwd, "knn": 4 * fwd, "gather_fwd": 8 * fwd, "gather_bwd": 4 * steps,
+                "fused_vit_block_train_fwd": 0, "fused_vit_block_train_bwd": 0,
+                "fused_vit_block": 0, "fused_vit_block_bwd": 0, "mhsa_fwd": 0, "mhsa_bwd": 0}
+        if which == "partseg":
+            want.update(fused_vit_block_train_fwd=12 * steps, fused_vit_block_train_bwd=12 * steps,
+                        fused_vit_block=12 * evals)
+        else:
+            want.update(mhsa_fwd=12 * fwd, mhsa_bwd=12 * steps)
+        print(f"{label} CLI (dtype=bf16, synthetic={samples}, B={b}): {steps} train steps, "
+              f"{evals} eval batches; {lines[-1]}; checkpoints at epochs {saved}; launches "
+              f"{launches} (want {want}; every launch at bf16 compute); plain attention calls "
+              f"{plain}")
+        if launches != want or plain or not saved:
+            raise AssertionError(f"{label}: launches {launches}, plain attention calls {plain}")
+        n_steps = 5
+        xs, ys = seg_arrays(which.lower(), (n_steps + 1) * b, seed=12)
+        ds = DeviceResidentDataset({"x": xs, "y": ys}, "cuda")
+        run = make_scanned_train_steps(make_state("cuda"), ds, seg_cross_entropy)
+        idx = ds.put_indices(np.arange((n_steps + 1) * b).reshape(n_steps + 1, b))
+        out[which] = timed_steps(torch, run, idx, lr, n_steps, label, b)
+        del ds, run
+
+    # the S3DIS attention at bf16: the mhsa kernels against SDPA, device time a call
+    from simple3dformer_tpu_torch.kernels.mhsa import mhsa_bwd, mhsa_fwd
+
+    q, k, v, g = mhsa_inputs(torch, SB, 1025, 3, 256, torch.bfloat16, 5, "cuda")
+    split = device_split(torch, lambda: mhsa_bwd(q, k, v, g, 256 ** -0.5,
+                                                 *mhsa_fwd(q, k, v, 256 ** -0.5)[::-1]))
+    ours = sum(ms for ms, _ in split.values())
+    lib = sdpa_device_ms(torch, SB, 1025, 3, 256, torch.bfloat16)
+    best = min(lib.items(), key=lambda kv: kv[1]) if lib else ("none", float("nan"))
+    print(f"mhsa at bf16 on the S3DIS step's shape (B={SB}, N=1025, H=3, dh=256): forward and "
+          f"backward {ours:.4f} ms device time a call ({split_text(split)}); "
+          f"scaled_dot_product_attention forward and backward by backend: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in lib.items())
+          + f"; {ours / best[1]:.2f}x the fastest ({best[0]}); 12 calls a step")
+
+    # the S3DIS MLP's GELU at bf16: jax.nn.gelu's steps each rounded to bf16, as
+    # the JAX package computes them (the port's), against PyTorch's one op
+    import torch.nn.functional as F
+    from simple3dformer_tpu_torch.nn.layers import gelu_tanh
+
+    a = torch.randn(SB, 1025, 3072, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6)).bfloat16().requires_grad_()
+    ga = torch.randn_like(a)
+    steps_ms, one_ms, _ = timed(
+        torch, lambda: torch.autograd.grad(gelu_tanh(a), a, ga),
+        lambda: torch.autograd.grad(F.gelu(a, approximate="tanh"), a, ga), iters=20)
+    print(f"GELU at bf16 on the S3DIS MLP's shape [{SB}, 1025, 3072], forward and backward "
+          f"(CUDA events): jax.nn.gelu's steps each rounded (the port's) {steps_ms:.4f} ms, "
+          f"PyTorch's one op {one_ms:.4f} ms a call; 12 calls a step: {12 * steps_ms:.3f} "
+          f"and {12 * one_ms:.3f} ms of the {out['S3DIS']:.3f} ms step")
+    return out
+
+
+def phase_flagship_bf16(torch):
+    """The flagship at --dtype bf16 with Adam's second moment in bf16 (the JAX
+    trainer's --bf16-nu auto): the CLI on a synthetic corpus on the card (its
+    loss falls over 40 steps; the bf16 fused block kernels' launch counts; the
+    update is the plain bf16-nu Adam, so no Adam kernel launch), and ms a step
+    beside bf16 with f32 nu and the f32 step at B=32."""
+    from simple3dformer_tpu_torch.cli import train_cls_voxel
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+    from simple3dformer_tpu_torch.kernels.adam import fused_adam
+    from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT, frozen_mask
+    from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbed
+    from simple3dformer_tpu_torch.train.loop import TrainState, make_scanned_train_steps
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    counters = {fn.__name__: fn for fn in (vb.fused_vit_block, vb.fused_vit_block_bwd,
+                                           vb.fused_vit_block_train_fwd,
+                                           vb.fused_vit_block_train_bwd, fused_adam)}
+    argv = ["--dataset", "ModelNet40", "--synthetic", str(TRAIN_SAMPLES), "--epochs",
+            str(TRAIN_EPOCHS), "--batchSize", str(BATCH), "--lr", str(TRAIN_LR),
+            "--transformer-name", BACKBONE, "--cell-size", str(CELL), "--patch-size", str(PATCH),
+            "--dtype", "bf16"]
+    _, lines, launches, saved = run_cli(train_cls_voxel.main, lambda d: [*argv, "--outf", d],
+                                        counters)
+    steps = TRAIN_EPOCHS * (TRAIN_SAMPLES // BATCH)
+    evals = TRAIN_EPOCHS * -(-max(TRAIN_SAMPLES // 5, BATCH) // BATCH)
+    epoch_losses = [float(line.split()[3]) for line in lines if line.startswith("Epoch ")]
+    want = {"fused_vit_block_train_fwd": 12 * steps, "fused_vit_block_train_bwd": 12 * steps,
+            "fused_vit_block": 12 * evals, "fused_vit_block_bwd": 0, "fused_adam": 0}
+    print(f"flagship bf16 CLI (--dtype bf16, --bf16-nu auto): {steps} steps, epoch losses "
+          f"{epoch_losses[0]:.4f} -> {epoch_losses[-1]:.4f}; checkpoints at epochs {saved}; "
+          f"launches {launches} (want {want})")
+    if len(epoch_losses) != TRAIN_EPOCHS or not epoch_losses[-1] < 0.75 * epoch_losses[0]:
+        raise AssertionError(f"flagship bf16 training loss did not fall: {epoch_losses}")
+    if launches != want or not saved:
+        raise AssertionError(f"flagship bf16 launch counts {launches}, want {want}")
+
+    corpus, clabels = synthetic_voxels(21 * BATCH, VOXEL, N_CLASSES, seed=DEFAULT_SEED + 3)
+    ds = DeviceResidentDataset({"x": corpus, "y": clabels}, "cuda")
+    idx = ds.put_indices(np.arange(21 * BATCH).reshape(21, BATCH))
+    ms = {}
+    for name, dtype, bf16_nu in (("f32", None, False), ("bf16", torch.bfloat16, True),
+                                 ("bf16 f32 nu", torch.bfloat16, False),
+                                 ("f32 again", None, False)):
+        g = generator(DEFAULT_SEED)
+        emb = VoxelEmbed(voxel_size=VOXEL, cell_size=CELL, patch_size=PATCH, embed_dim=384,
+                         generator=g, dtype=dtype)
+        model = VoxelViT(emb, n_classes=N_CLASSES, transformer_backbone=BACKBONE, generator=g,
+                         dtype=dtype).cuda()
+        opt = make_optimizer(dict(model.named_parameters()), "Adam",
+                             trainable_mask=frozen_mask(model, False), bf16_nu=bf16_nu)
+        run = make_scanned_train_steps(TrainState(model, opt), ds)
+        run(idx[:1], 1e-4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(run(idx[1:], 1e-4)["loss"][-1])
+        ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+        if name == "bf16":
+            profile_steps(torch, run, idx[1:11], ms[name], "flagship bf16 training", 1e-4)
+    print(f"flagship train step at B={BATCH} (host clock over 20 steps, corpus on the card): "
+          f"bf16 with bf16 nu {ms['bf16']:.3f} ms ({BATCH / ms['bf16'] * 1e3:.1f} "
+          f"samples/s), bf16 with f32 nu (the Adam kernel) {ms['bf16 f32 nu']:.3f} ms, beside "
+          f"f32 {ms['f32']:.3f} and {ms['f32 again']:.3f} ms")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2173,7 +2627,7 @@ def main() -> int:
         train_report = phase_train_kernels(torch)
         train_launches, _ = phase_training(torch)
         point_report = phase_point_kernels(torch)
-        partseg_launches, _ = phase_partseg(torch)
+        partseg_launches = phase_partseg(torch)
         mhsa_report = phase_mhsa_kernels(torch)
         s3dis_launches = phase_s3dis(torch)
         va_report = phase_va_kernels(torch)
@@ -2181,6 +2635,12 @@ def main() -> int:
         vag_report = phase_vag_kernels(torch)
         bf16_launches, recompute_launches = phase_hengshuang(torch, bf16=True)
         phase_attention_route(torch)
+        phase_scanobjectnn(torch)
+        for which in HSEG:
+            for bf16 in (False, True):
+                phase_hengshuang_seg(torch, which, bf16)
+        phase_point_vit_bf16(torch)
+        phase_flagship_bf16(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:

@@ -3,8 +3,8 @@ simple3dformer_tpu/cli/_common.py).
 
 Override parsing (``key=value``, ``model=Name``), config loading, the device
 (``device=cuda``, the default, or ``device=cpu``; a run never moves to the CPU
-by itself), the compute dtype (``dtype=bf16``; the registry refuses the
-models that do not take it), the run-dir layout
+by itself), the compute dtype (``dtype=bf16``, which every point model
+takes), the run-dir layout
 (out_dir/model.name/backbone/pretrained, the reference's templated
 hydra.run.dir), the reference's optimizer block, the cls lr schedule, and
 the epoch timer. There is no device mesh: the port trains on one card.

@@ -24,11 +24,14 @@ It runs on the card (``device=cuda``, the default) and on the CPU only when
 asked (``device=cpu``). Without the ``modelnet40_normal_resampled`` corpus,
 ``synthetic=N`` (or ``--synthetic``, 512) trains on the JAX trainer's
 synthetic stream: standard-normal clouds and uniform labels. ``dtype=bf16``
-(``model=Hengshuang`` only) computes every Linear in bf16 with the parameters
-in f32, as the JAX trainer's ``compute_dtype`` does; the vector-attention
-blocks take the bf16 kernels (``S3F_VA_RESID=0`` picks their recompute
-backward); the loss is taken on the logits in f32 and the checkpoints keep
-the f32 parameters.
+computes every Linear in bf16 with the parameters in f32, as the JAX
+trainer's ``compute_dtype`` does; the vector-attention blocks take the bf16
+kernels (``S3F_VA_RESID=0`` picks their recompute backward), the ViT blocks
+the bf16 fused kernels; the loss is taken on the logits in f32 and the
+checkpoints keep the f32 parameters.
+
+``ClsTrainer`` is the recipe (model, optimizer, augmentation, lr schedule,
+one epoch, the eval), shared with cli/train_cls_scanobjectnn.py.
 
     python -m simple3dformer_tpu_torch.cli.train_cls model=Hengshuang dtype=bf16 synthetic=1024
 """
@@ -71,6 +74,56 @@ def load_arrays(cfg):
     return stack("train"), stack("test")
 
 
+class ClsTrainer:
+    """The classification recipe on a corpus held on the device: the registry's
+    model at the config's compute dtype, the reference optimizer block, the
+    augmentation drawn from the seed and the optimizer step, StepLR by epoch,
+    and instance and class accuracy on the test split."""
+
+    def __init__(self, cfg, device: torch.device, train, test, num_class: int):
+        self.num_class, self.te_y = num_class, test[1]
+        self.train_ds = DeviceResidentDataset({"x": train[0], "y": train[1]}, device)
+        test_ds = DeviceResidentDataset({"x": test[0], "y": test[1]}, device)
+        model = make_point_model(cfg, task="cls", dtype=C.compute_dtype(cfg),
+                                 generator=generator(int(cfg.seed))).to(device)
+        print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+        optimizer, base_lr = C.reference_optimizer(cfg, dict(model.named_parameters()))
+        self.state = state = TrainState(model, optimizer)
+        aug_gen = torch.Generator(device=device)
+
+        def augment_fn(x):
+            aug_gen.manual_seed(step_seed(int(cfg.seed), state.step))
+            return augment.device_cls_augment(aug_gen, x)
+
+        self.train_run = make_scanned_train_steps(state, self.train_ds, augment_fn=augment_fn)
+        self.eval_run = make_scanned_eval(model, test_ds)
+        self.sched = C.lr_schedule(cfg, base_lr)
+        self.host_rng = np.random.RandomState(int(cfg.seed))
+        self.batch = int(cfg.batch_size)
+        self.eval_idx = test_ds.put_indices(test_ds.epoch_indices(
+            self.batch, self.host_rng, shuffle=False, drop_last=False))
+
+    def train_epoch(self, epoch: int) -> tuple[float, str]:
+        """One epoch at its lr -> (mean train accuracy, samples/s text)."""
+        idx = self.train_ds.put_indices(self.train_ds.epoch_indices(self.batch, self.host_rng))
+        timer = C.EpochTimer()
+        metrics = self.train_run(idx, self.sched(epoch))
+        losses = metrics["loss"].cpu().numpy()  # the epoch's one wait for the device
+        health.check_finite({"loss": losses}, epoch)
+        train_acc = float(metrics["accuracy"].mean())
+        return train_acc, timer.lap(idx.shape[0] * idx.shape[1])
+
+    def evaluate(self) -> tuple[float, float]:
+        """(instance accuracy, class accuracy) on the test split."""
+        logits = self.eval_run(self.eval_idx).reshape(-1, self.num_class).float().cpu().numpy()
+        meter = InstanceClassMeter(self.num_class)
+        n = len(self.te_y)
+        for s in range(0, n, self.batch):
+            sl = slice(s, min(s + self.batch, n))
+            meter.update(np.argmax(logits[sl], -1), self.te_y[sl])
+        return meter.instance_accuracy, meter.class_accuracy
+
+
 def main(argv=None):
     cfg, device = C.setup("cls", argv)
     cfg.num_class = NUM_CLASS
@@ -78,59 +131,26 @@ def main(argv=None):
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
 
-    (tr_x, tr_y), (te_x, te_y) = load_arrays(cfg)
-    print(f"The size of train data is {len(tr_x)}; test {len(te_x)}")
-    train_ds = DeviceResidentDataset({"x": tr_x, "y": tr_y}, device)
-    test_ds = DeviceResidentDataset({"x": te_x, "y": te_y}, device)
-
-    model = make_point_model(cfg, task="cls", dtype=C.compute_dtype(cfg),
-                             generator=generator(int(cfg.seed))).to(device)
-    print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
-    optimizer, base_lr = C.reference_optimizer(cfg, dict(model.named_parameters()))
-    state = TrainState(model, optimizer)
-    aug_gen = torch.Generator(device=device)
-
-    def augment_fn(x):
-        aug_gen.manual_seed(step_seed(int(cfg.seed), state.step))
-        return augment.device_cls_augment(aug_gen, x)
-
-    train_run = make_scanned_train_steps(state, train_ds, augment_fn=augment_fn)
-    eval_run = make_scanned_eval(model, test_ds)
-    sched = C.lr_schedule(cfg, base_lr)
+    train, test = load_arrays(cfg)
+    print(f"The size of train data is {len(train[0])}; test {len(test[0])}")
+    run = ClsTrainer(cfg, device, train, test, NUM_CLASS)
 
     ckpt = ckpt_lib.Checkpointer(f"{C.run_dir(cfg, 'cls')}/ckpt")
-    restored, best = ckpt.restore_into(state)
+    restored, best = ckpt.restore_into(run.state)
     start_epoch, best_instance_acc, best_class_acc = 0, 0.0, 0.0
     if restored is not None:
         start_epoch = int(ckpt.latest_step()) + 1
         best_instance_acc = (best or {}).get("instance_acc", 0.0)
         print("Use pretrain model")
 
-    host_rng = np.random.RandomState(int(cfg.seed))
-    batch = int(cfg.batch_size)
-    eval_idx = test_ds.put_indices(test_ds.epoch_indices(batch, host_rng, shuffle=False,
-                                                         drop_last=False))
-
     for epoch in range(start_epoch, int(cfg.epoch)):
-        idx = train_ds.put_indices(train_ds.epoch_indices(batch, host_rng))
-        timer = C.EpochTimer()
-        metrics = train_run(idx, sched(epoch))
-        losses = metrics["loss"].cpu().numpy()  # the epoch's one wait for the device
-        health.check_finite({"loss": losses}, epoch)
-        train_acc = float(metrics["accuracy"].mean())
-        rate = timer.lap(idx.shape[0] * idx.shape[1])
+        train_acc, rate = run.train_epoch(epoch)
         print(f"Epoch {epoch + 1}: Train Instance Accuracy: {train_acc:f} ({rate})")
-
-        logits = eval_run(eval_idx).reshape(-1, NUM_CLASS).float().cpu().numpy()
-        meter = InstanceClassMeter(NUM_CLASS)
-        n = len(te_y)
-        for s in range(0, n, batch):
-            sl = slice(s, min(s + batch, n))
-            meter.update(np.argmax(logits[sl], -1), te_y[sl])
-        inst, cls_acc = meter.instance_accuracy, meter.class_accuracy
+        inst, cls_acc = run.evaluate()
         if inst >= best_instance_acc:
             best_instance_acc = inst
-            ckpt.save(epoch, state.state_dict(), {"instance_acc": inst, "class_acc": cls_acc})
+            ckpt.save(epoch, run.state.state_dict(),
+                      {"instance_acc": inst, "class_acc": cls_acc})
             print("Save model...")
         best_class_acc = max(best_class_acc, cls_acc)
         print(f"Test Instance Accuracy: {inst:f}, Class Accuracy: {cls_acc:f}")

@@ -16,9 +16,17 @@ asked (``--device cpu``). Without the corpora on disk, ``--synthetic N``
 trains on generated occupancy grids.
 
 Ported: the default route (``--pos-embedding default`` or ``no_embed``),
-``--reweighted``, ``--head``, ``--embed-layer``, ``--model`` restore and
-``--bf16-nu``. Not yet: ``--lwf``, ``--zero1``, ``--pretrained``,
-``--dtype bf16`` and the other positional-embedding routes, which raise.
+``--reweighted``, ``--head``, ``--embed-layer``, ``--model`` restore,
+``--dtype bf16`` (the tokenizer, the blocks and the head compute in bf16, the
+fused block kernels in bf16 on the card; the parameters stay f32) and
+``--bf16-nu`` (Adam's second moment in bf16, the plain
+``scale_by_adam_bf16_nu``; ``auto`` turns it on iff ``--dtype bf16``, as the
+JAX trainer does). Not yet: ``--lwf``, ``--zero1``, ``--pretrained`` and the
+other positional-embedding routes, which raise.
+
+    python -m simple3dformer_tpu_torch.cli.train_cls_voxel --dataset ModelNet40 \
+        --synthetic 2048 --transformer-name deit_small_patch16_224 \
+        --cell-size 6 --patch-size 5 --dtype bf16
 """
 
 from __future__ import annotations
@@ -129,9 +137,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet: it comes "
                                       f"with {slice_name}")
-    if args.dtype != "f32":
-        raise NotImplementedError("--dtype bf16 is not ported yet: the model runs in f32 "
-                                  "(the kernels take bf16; the model's bf16 route comes later)")
     if args.pos_embedding not in ("default", "no_embed"):
         raise NotImplementedError(f"--pos-embedding {args.pos_embedding} is not ported yet: it "
                                   "comes with the slice of the other voxel routes")
@@ -163,15 +168,18 @@ def main(argv=None):
     test_ds = DeviceResidentDataset({"x": te_x, "y": te_y}, device)
 
     g = generator(args.seed)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else None
     embedding = make_embed_layer(args.embed_layer, voxel_size=voxel_size,
                                  cell_size=args.cell_size, patch_size=args.patch_size,
-                                 embed_dim=EMBED_DIM[args.transformer_name], generator=g)
+                                 embed_dim=EMBED_DIM[args.transformer_name], generator=g,
+                                 dtype=dtype)
     model = VoxelViT(embedding, n_classes=n_classes, transformer_backbone=args.transformer_name,
-                     pos_embedding=args.pos_embedding, head=args.head, generator=g).to(device)
+                     pos_embedding=args.pos_embedding, head=args.head, generator=g,
+                     dtype=dtype).to(device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Number of parameters: {n_params / 1e6:.2f}M")
 
-    bf16_nu = args.dtype == "bf16" if args.bf16_nu == "auto" else args.bf16_nu == "1"
+    bf16_nu = dtype is not None if args.bf16_nu == "auto" else args.bf16_nu == "1"
     optimizer = make_optimizer(dict(model.named_parameters()), "Adam",
                                trainable_mask=frozen_mask(model, args.pretrained),
                                bf16_nu=bf16_nu)
@@ -202,7 +210,7 @@ def main(argv=None):
         dt = time.time() - t0
         sps = idx.shape[0] * idx.shape[1] / dt
 
-        logits = eval_run(eval_idx).reshape(-1, n_classes).cpu().numpy()
+        logits = eval_run(eval_idx).reshape(-1, n_classes).float().cpu().numpy()
         meter = ClassificationMeter(n_classes)
         meter.update(np.argmax(logits[: len(te_y)], -1), te_y)
         oa, mca = meter.overall_accuracy, meter.mean_class_accuracy

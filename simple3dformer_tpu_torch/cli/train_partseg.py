@@ -14,12 +14,24 @@ in each step, category-restricted eval with class-avg and instance-avg mIoU,
 and a checkpoint at each best instance mIoU. The corpus sits on the device
 and each epoch runs from one index matrix; its losses are fetched once.
 
+Models: ``model=3DViT`` (the default: deit_tiny, 257 tokens, the fused
+block kernels on the card) or ``model=Hengshuang`` (PointTransformerSeg:
+transformer_dim 512, 4 blocks, 16 neighbours; ten vector-attention blocks a
+step, kNN, FPS and the gathers on the card). ``dtype=bf16`` computes every
+Linear in bf16 with the parameters in f32, as the JAX trainer's
+``compute_dtype`` does (the fused block kernels and the vector-attention
+kernels in bf16); the loss is taken on f32 logits.
+
+    python -m simple3dformer_tpu_torch.cli.train_partseg model=Hengshuang dtype=bf16 \
+        synthetic=1024 batch_size=16
+
 It runs on the card (``device=cuda``, the default) and on the CPU only when
 asked (``device=cpu``). Without the corpus on disk, ``synthetic=N`` trains
 on generated clouds. ``model.pretrained`` names the run directory only, as
-in the JAX trainer, which loads no 2D weights for this task. Not ported yet,
-each raising NotImplementedError: ``dtype=bf16``, ``model=Hengshuang``, and
-the LwF variants' 2D pathway (``forward_images``).
+in the JAX trainer, which loads no 2D weights for this task. The JAX trainer
+rebuilds its model when the BatchNorm momentum changes; here the momentum is
+set on the live modules, the same function. Not ported yet (it raises
+NotImplementedError): the LwF variants' 2D pathway (``forward_images``).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from ..core.rng import generator
 from ..data import augment, datasets
 from ..data.pipeline import DeviceResidentDataset
 from ..models.registry import make_point_model
+from ..nn.layers import set_bn_momentum
 from ..train import health
 from ..train.eval_metrics import SEG_CLASSES, PartSegMeter
 from ..train.loop import TrainState, make_scanned_eval, make_scanned_train_steps, seg_cross_entropy
@@ -93,9 +106,6 @@ def load_arrays(cfg):
 
 def main(argv=None):
     cfg, device = C.setup("partseg", argv)
-    if str(cfg.model.name) == "Hengshuang":
-        raise NotImplementedError("model=Hengshuang is not ported for part segmentation yet "
-                                  "(PointTransformerSeg is; this CLI's route for it is not)")
     cfg.num_class = NUM_PART
     cfg.input_dim = (6 if cfg.normal else 3) + NUM_CATEGORY
 
@@ -129,7 +139,7 @@ def main(argv=None):
         torch_mom = max(0.9 * (0.5 ** (epoch // int(cfg.step_size))), 0.01)
         if torch_mom != cur_momentum:
             cur_momentum = torch_mom
-            model.set_bn_momentum(1.0 - torch_mom)
+            set_bn_momentum(model, 1.0 - torch_mom)
             print(f"BN momentum updated to: {torch_mom:f}")
 
         idx = train_ds.put_indices(train_ds.epoch_indices(batch, host_rng))

@@ -23,14 +23,22 @@ At 4096 points the ViT blocks see 1025 tokens, beyond the fused block
 kernels (512), so on the card each block runs its layered route with
 attention as the ``mhsa`` kernels (nn/layers.Block.route). The trainer sets
 ``torch.backends.cuda.matmul.allow_tf32 = False``: the Linear layers run in
-full f32, as the kernels do.
+full f32, as the kernels do. ``model=Hengshuang`` trains PointTransformerSeg
+(transformer_dim 512, 4 blocks, 16 neighbours) on the vector-attention,
+kNN, FPS and gather kernels. ``dtype=bf16`` computes every Linear in bf16
+with the parameters in f32, as the JAX trainer's ``compute_dtype`` does (the
+``mhsa`` kernels on bf16 q, k, v; the bf16 vector-attention kernels).
+
+    python -m simple3dformer_tpu_torch.cli.train_s3dis_semseg --synthetic dtype=bf16
+    python -m simple3dformer_tpu_torch.cli.train_s3dis_semseg --synthetic model=Hengshuang
 
 It runs on the card (``device=cuda``, the default) and on the CPU only when
 asked (``device=cpu``). Without the room files, ``synthetic=N`` (or
 ``--synthetic``, 512) trains on the JAX trainer's synthetic stream: uniform
-features and uniform random labels. ``S3DISWholeScene`` (sliding-window
-whole-room eval) is not ported yet; neither is ``dtype=bf16``, nor
-``model=Hengshuang`` through this CLI (it raises NotImplementedError).
+features and uniform random labels. The JAX trainer rebuilds its model when
+the BatchNorm momentum changes; here the momentum is set on the live modules,
+the same function. ``S3DISWholeScene`` (sliding-window whole-room eval, which
+no JAX CLI uses) is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from ..core.rng import generator
 from ..data import datasets
 from ..data.pipeline import DeviceResidentDataset
 from ..models.registry import make_point_model
+from ..nn.layers import set_bn_momentum
 from ..train import health
 from ..train.eval_metrics import SemSegMeter
 from ..train.loop import TrainState, make_scanned_eval, make_scanned_train_steps, seg_cross_entropy
@@ -75,9 +84,6 @@ def load_arrays(cfg):
 
 def main(argv=None):
     cfg, device = C.setup("semseg", argv)
-    if str(cfg.model.name) == "Hengshuang":
-        raise NotImplementedError("model=Hengshuang is not ported for semantic segmentation yet "
-                                  "(PointTransformerSeg is; this CLI's route for it is not)")
     cfg.num_class = NUM_CLASS
     cfg.input_dim = INPUT_DIM
     npoint = int(cfg.num_point)
@@ -110,7 +116,7 @@ def main(argv=None):
         torch_mom = max(0.9 * (0.5 ** (epoch // int(cfg.step_size))), 0.01)
         if torch_mom != cur_momentum:
             cur_momentum = torch_mom
-            model.set_bn_momentum(1.0 - torch_mom)
+            set_bn_momentum(model, 1.0 - torch_mom)
             print(f"BN momentum updated to: {torch_mom:f}")
 
         idx = train_ds.put_indices(train_ds.epoch_indices(batch, host_rng))

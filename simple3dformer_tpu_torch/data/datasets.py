@@ -1,5 +1,6 @@
 """Dataset readers (port of ModelNetVoxelDataset, ShapeNetV2VoxelDataset,
-ModelNetPointCloud, PartNormalDataset, S3DISDataset and synthetic_points from
+ModelNetPointCloud, PartNormalDataset, S3DISDataset, load_h5,
+load_scanobjectnn_h5 and synthetic_points from
 simple3dformer_tpu/data/datasets.py, numpy path).
 
 Python classes with __len__/__getitem__ mirroring the reference's torch
@@ -337,3 +338,19 @@ def synthetic_points(n: int, npoint: int, channels: int, n_classes: int, seed: i
     rng = np.random.RandomState(seed)
     x = rng.randn(n, npoint, channels).astype(np.float32)
     return x, rng.randint(0, n_classes, size=(n,)).astype(np.int32)
+
+
+def load_h5(path: str, keys: tuple = ("data", "label")):
+    """The arrays under ``keys`` of an h5 file (the reference's
+    utils/provider.py load_h5). h5py is imported here only, so that nothing
+    else in the port needs it."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return tuple(f[k][:] for k in keys)
+
+
+def load_scanobjectnn_h5(path: str):
+    """A ScanObjectNN h5 split: (data [B, N, 3] f32, label int32 in the file's shape)."""
+    data, label = load_h5(path)
+    return data.astype(np.float32), label.astype(np.int32)

@@ -47,14 +47,21 @@ def bias_corrections(count: int, b1: float = B1, b2: float = B2) -> tuple[float,
     return float(one - np.float32(b1) ** t), float(one - np.float32(b2) ** t)
 
 
+def bias_correction_tensors(count: int, device, b1: float = B1,
+                            b2: float = B2) -> tuple[torch.Tensor, torch.Tensor]:
+    """``bias_corrections`` as f32 tensors on ``device``: tensors, not Python
+    numbers, since PyTorch on CUDA turns a division by a number into a product
+    with its reciprocal, which rounds differently. Each is a copy to the card
+    that waits for it, so a caller over many leaves makes them once a step."""
+    return tuple(torch.tensor(bc, dtype=torch.float32, device=device)
+                 for bc in bias_corrections(count, b1, b2))
+
+
 def adam_reference(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor | None,
                    lr: float, count: int, b1: float = B1, b2: float = B2, eps: float = EPS,
                    weight_decay: float = 0.0):
     """Plain version of the kernel for one leaf: returns (p', m', v'), f32."""
-    # Tensors, not Python numbers: PyTorch on CUDA turns a division by a
-    # number into a product with its reciprocal, which rounds differently.
-    bc1, bc2 = (torch.tensor(bc, dtype=torch.float32, device=p.device)
-                for bc in bias_corrections(count, b1, b2))
+    bc1, bc2 = bias_correction_tensors(count, p.device, b1, b2)
     if g is None:
         g = torch.zeros_like(p)
     if weight_decay:

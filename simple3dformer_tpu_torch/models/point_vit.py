@@ -15,7 +15,12 @@ TransitionDown pyramid, and whether the 2D image pathway (LwF) exists:
 The 3D forward of every variant is ported: stem MLPs, TransitionDowns, the
 cls token and the ViT blocks (the fused CUDA kernels on the card), then a
 TransitionUp per level back to full resolution; ``cls`` mean-pools, ``seg``
-keeps per-point logits. The 2D pathway's parameters exist for complete
+keeps per-point logits. ``dtype=torch.bfloat16`` is the JAX package's
+``compute_dtype``: every Linear and 1x1 conv computes in bf16 and the
+parameters stay f32. So the stems return bf16, each BatchNorm and LayerNorm
+f32; the cls token takes the tokens' dtype (f32 after a transition-down, bf16
+in ``3DViT_0_layer``), which the blocks' residual stream keeps; the head
+returns bf16 logits. The 2D pathway's parameters exist for complete
 state dicts; its forward (``forward_images``, LwF) raises until the LwF slice.
 
 State-dict names are the reference's: ``fc1.0`` / ``fc1.2`` and
@@ -32,7 +37,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..nn.layers import AMSoftmaxLayer, BatchNorm, dense, trunc_normal
+from ..nn.layers import AMSoftmaxLayer, dense, trunc_normal
 from ..nn.vit import BACKBONES, PatchEmbed2D, ViTCore
 from .hengshuang import TransitionDown, TransitionUp
 
@@ -52,10 +57,11 @@ def variant_spec(variant: str, D: int, N: int):
 class StemMLP(nn.Sequential):
     """Linear -> ReLU -> Linear (the reference's fc1 / fc_pos_embed)."""
 
-    def __init__(self, in_features: int, features: int, generator=None, device=None):
-        super().__init__(dense(in_features, features, generator=generator, device=device),
-                         nn.ReLU(),
-                         dense(features, features, generator=generator, device=device))
+    def __init__(self, in_features: int, features: int, generator=None, device=None,
+                 dtype=None):
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        super().__init__(dense(in_features, features, **kw), nn.ReLU(),
+                         dense(features, features, **kw))
 
 
 class PointViT(ViTCore):
@@ -69,16 +75,17 @@ class PointViT(ViTCore):
                  input_dim: int = 3, nneighbor: int = 16,
                  transformer_backbone: str = "deit_tiny_patch16_224", head: str = "default",
                  img_size: int = 224, bn_momentum: float = 0.9,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         bb = BACKBONES[transformer_backbone]
         D = bb["embed_dim"]
         super().__init__(D, bb["depth"], bb["num_heads"], bb["mlp_ratio"], bb["qkv_bias"],
-                         generator=generator, device=device)
+                         generator=generator, device=device, dtype=dtype)
         if task not in ("cls", "seg"):
             raise ValueError(f"task must be 'cls' or 'seg', not {task!r}")
         spec = variant_spec(variant, D, num_point)
         self.variant, self.task, self.spec, self.embed_dim = variant, task, spec, D
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
 
         self.fc1 = StemMLP(input_dim, spec["stem"], **kw)
         self.fc_pos_embed = StemMLP(3, spec["stem"], **kw)
@@ -94,13 +101,14 @@ class PointViT(ViTCore):
         self.cls_token = nn.Parameter(trunc_normal((1, 1, D), 0.02, generator).to(device))
 
         # decode ends at the stem's width (D in 0_layer, which has no transitions)
-        point_head = (AMSoftmaxLayer(channels[0], num_class, **kw) if head == "AMSoftmax"
-                      else dense(channels[0], num_class, **kw))
+        point_head = (AMSoftmaxLayer(channels[0], num_class, generator=generator, device=device)
+                      if head == "AMSoftmax" else dense(channels[0], num_class, **kw))
         self.head_name = "new_head" if spec["images"] else "head"
         self.add_module(self.head_name, point_head)
         if spec["images"]:
             n2d = (img_size // bb["patch_size"]) ** 2
-            self.patch_embed = PatchEmbed2D(bb["patch_size"], 3, D, **kw)
+            self.patch_embed = PatchEmbed2D(bb["patch_size"], 3, D, generator=generator,
+                                            device=device)
             self.pos_embed = nn.Parameter(trunc_normal((1, n2d + 1, D), 0.02, generator)
                                           .to(device))
             self.head = dense(D, 1000, **kw)
@@ -112,12 +120,6 @@ class PointViT(ViTCore):
                    nneighbor=cfg.model.nneighbor,
                    transformer_backbone=cfg.model.transformer_backbone,
                    head=cfg.model.get("head", "default"), **kw)
-
-    def set_bn_momentum(self, momentum: float) -> None:
-        """Set every BatchNorm's (flax) momentum, as the partseg schedule does."""
-        for m in self.modules():
-            if isinstance(m, BatchNorm):
-                m.momentum = momentum
 
     def forward_features(self, x: torch.Tensor,
                          sample_generator: torch.Generator | None = None) -> torch.Tensor:

@@ -17,18 +17,14 @@ POINT_VIT_VARIANTS = {
 
 def make_point_model(cfg, task: str, dtype=None, **kw):
     """task: 'cls' | 'seg'. cfg needs num_point, num_class, input_dim and model.*
-    ``dtype``: the compute dtype (None: f32; torch.bfloat16 for the Hengshuang
-    models, their parameters staying f32)."""
+    ``dtype``: the compute dtype (None: f32; torch.bfloat16, the parameters
+    staying f32)."""
     name = cfg.model.name
     if name == "Hengshuang":
         model = PointTransformerCls if task == "cls" else PointTransformerSeg
         return model.from_config(cfg, dtype=dtype, **kw)
-    if dtype is not None:
-        raise NotImplementedError(f"dtype=bf16 is ported for the Hengshuang models only: {name} "
-                                  "runs in f32 (the 3DViT point models' bf16 route is a later "
-                                  "slice)")
     if name in POINT_VIT_VARIANTS:
-        return PointViT.from_config(cfg, task=task, **kw)
+        return PointViT.from_config(cfg, task=task, dtype=dtype, **kw)
     raise ValueError(f"Unknown model name {name!r}")
 
 

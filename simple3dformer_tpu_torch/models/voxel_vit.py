@@ -7,6 +7,12 @@ reference's state-dict names (``cls_token``, ``blocks.{i}...``, ``norm``,
 2D pathway's ``patch_embed``, ``pos_embed`` and ``head``), so a reference or
 JAX-converted state dict loads with a plain ``load_state_dict``.
 
+``dtype=torch.bfloat16`` is the JAX model's compute dtype: the tokenizer,
+every block's Linears and the heads compute in bf16, the parameters stay f32;
+the tokens, the cls token and the positional embedding are bf16, so the
+blocks' residual stream is bf16 (the fused kernels take bf16 x), the final
+LayerNorm returns f32 and the head bf16 logits.
+
 Ported routes: ``default`` and ``no_embed``. The JAX package's
 ``batch_pack`` is absent: packing several samples per attention row only
 fills the TPU's matrix tiles and leaves the math unchanged, and the port's
@@ -32,11 +38,11 @@ class VoxelViT(ViTCore):
                  transformer_backbone: str = "deit_base_patch16_224",
                  pos_embedding: str | None = "default", head: str = "default",
                  img_size: int = 224, generator: torch.Generator | None = None,
-                 device=None):
+                 device=None, dtype: torch.dtype | None = None):
         cfg = BACKBONES[transformer_backbone]
         d = cfg["embed_dim"]
         super().__init__(d, cfg["depth"], cfg["num_heads"], cfg["mlp_ratio"],
-                         cfg["qkv_bias"], generator=generator, device=device)
+                         cfg["qkv_bias"], generator=generator, device=device, dtype=dtype)
         mode = pos_embedding or "default"
         if mode in ("group_embed", "weight_sharing"):
             raise NotImplementedError(
@@ -52,13 +58,14 @@ class VoxelViT(ViTCore):
         self.patch_embed = PatchEmbed2D(cfg["patch_size"], 3, d, generator=generator,
                                         device=device)
         self.pos_embed = nn.Parameter(trunc_normal((1, n2d + 1, d), 0.02, generator).to(device))
-        self.head = dense(d, 1000, generator=generator, device=device)
+        self.head = dense(d, 1000, generator=generator, device=device, dtype=dtype)
 
         self.voxel_embed = voxel_embed
         if head == "AMSoftmax":
             self.voxel_head = AMSoftmaxLayer(d, n_classes, generator=generator, device=device)
         else:
-            self.voxel_head = dense(d, n_classes, generator=generator, device=device)
+            self.voxel_head = dense(d, n_classes, generator=generator, device=device,
+                                    dtype=dtype)
         # starts at zero and trains on the default route; no_embed keeps it at
         # zero and never reads it (reference intent, see the JAX module)
         self.voxel_pos_embed = nn.Parameter(

@@ -15,9 +15,16 @@ modules below.
 ``dense(..., dtype=torch.bfloat16)`` computes as flax ``Dense(dtype=bf16)``:
 input, weight and bias cast to bf16, the product and the bias added in bf16;
 the parameters stay f32 and their gradients come back f32 through the cast.
+``Mlp``, ``Attention``, ``Block`` and ``MlpHead`` take that compute dtype for
+every Linear, as the JAX modules' ``dtype`` does; ``LayerNorm`` and
+``BatchNorm`` return f32 from a bf16 input, as flax's do (the promoted dtype
+of the input and the f32 parameters), so a block's residual stream keeps the
+dtype it enters with.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -69,18 +76,57 @@ def dense(in_features: int, out_features: int, bias: bool = True,
     return layer
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh form, as flax's ``nn.gelu``: in f32 PyTorch's one op (JAX's
+    function within rounding); in bf16 JAX's steps, each rounded to bf16 with
+    its constants (``jax.nn.gelu``), where one f32 evaluation rounded once
+    would differ from it in a third of the elements."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    # the constants as 0-dim host tensors in x's dtype: rounded as JAX rounds
+    # them, and read as scalars by a CUDA op (no copy to the card, no wait)
+    c, a = (torch.tensor(v, dtype=x.dtype) for v in (math.sqrt(2.0 / math.pi), 0.044715))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * x ** 3))))
+
+
+def softmax_last(s: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis as ``jax.nn.softmax``: in f32 PyTorch's one op;
+    in bf16 its steps (shift by the max, exp, divide by the sum), each rounded."""
+    if s.dtype == torch.float32:
+        return s.softmax(-1)
+    e = (s - s.amax(-1, keepdim=True)).exp()
+    return e / e.sum(-1, keepdim=True)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm in the promoted dtype of its input and its parameters, as
+    flax's LayerNorm returns: f32 from a bf16 input and f32 parameters."""
+
+    def forward(self, x):
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+
+
+def set_bn_momentum(model: nn.Module, momentum: float) -> None:
+    """Set every BatchNorm's (flax) momentum, as the segmentation schedules do."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.momentum = momentum
+
+
 class Mlp(nn.Module):
     """fc1 -> GELU (tanh form, as flax nn.gelu) -> drop -> fc2 -> drop."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 drop: float = 0.0, generator=None, device=None):
+                 drop: float = 0.0, generator=None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.fc1 = dense(in_features, hidden_features, generator=generator, device=device)
-        self.fc2 = dense(hidden_features, out_features, generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.fc1 = dense(in_features, hidden_features, **kw)
+        self.fc2 = dense(hidden_features, out_features, **kw)
         self.drop = nn.Dropout(drop)
 
     def forward(self, x):
-        x = self.drop(F.gelu(self.fc1(x), approximate="tanh"))
+        x = self.drop(gelu_tanh(self.fc1(x)))
         return self.drop(self.fc2(x))
 
 
@@ -91,9 +137,11 @@ class Attention(nn.Module):
     timm. ``seg_len`` packs several length-seg_len sequences into one row and
     masks attention to within each segment (block-diagonal).
 
-    On a CUDA tensor the attention is the ``mhsa`` kernels where their gate
-    takes the call (``kernel_unsupported``: 256 <= N <= 2048, a head_dim and
-    dtype the kernels take, no live attention dropout, no ``seg_len``), and the
+    q, k and v come out of the qkv projection in the compute dtype ``dtype``
+    (None: the input's). On a CUDA tensor the attention is the ``mhsa`` kernels
+    where their gate takes the call (``kernel_unsupported``: 256 <= N <= 2048, a
+    head_dim and q's dtype the kernels take, no live attention dropout, no
+    ``seg_len``), and the
     plain products below everywhere else, as the JAX package takes XLA
     attention wherever its kernel cannot run (simple3dformer_tpu/nn/layers.py:
     162-191). The route is chosen by shape before any launch: a kernel that
@@ -105,13 +153,14 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype: torch.dtype | None = None):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
-        self.qkv = dense(dim, 3 * dim, bias=qkv_bias, generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.qkv = dense(dim, 3 * dim, bias=qkv_bias, **kw)
         self.attn_drop = nn.Dropout(attn_drop)
-        self.proj = dense(dim, dim, generator=generator, device=device)
+        self.proj = dense(dim, dim, **kw)
         self.proj_drop = nn.Dropout(proj_drop)
 
     def kernel_unsupported(self, x: torch.Tensor, seg_len: int | None = None) -> str | None:
@@ -123,7 +172,7 @@ class Attention(nn.Module):
             return "attention dropout is live (training mode with a nonzero rate)"
         if seg_len is not None:
             return "the kernel takes no seg_len mask"
-        return mhsa_kernel.unsupported(n, c // self.num_heads, x.dtype)
+        return mhsa_kernel.unsupported(n, c // self.num_heads, self.qkv.compute_dtype or x.dtype)
 
     def forward_kernel(self, x):
         """The kernel route: q, k, v as views of the qkv projection, ``mhsa``,
@@ -145,7 +194,7 @@ class Attention(nn.Module):
         if seg_len is not None and 0 < seg_len < n:
             seg = torch.arange(n, device=x.device) // seg_len
             attn = attn.masked_fill(seg[:, None] != seg[None, :], float("-inf"))
-        attn = self.attn_drop(attn.softmax(-1))
+        attn = self.attn_drop(softmax_last(attn))
         out = (attn @ v).transpose(1, 2).reshape(b, n, c)
         return self.proj_drop(self.proj(out))
 
@@ -180,7 +229,9 @@ class Block(nn.Module):
       residual backward), in eval mode ``fused_vit_block`` (its backward
       recomputes the forward); with nothing to record
       (``torch.inference_mode()``, serving) the forward kernel alone runs.
-      The kernels take no dropout, drop-path or ``seg_len`` mask.
+      The kernels take no dropout, drop-path or ``seg_len`` mask. Their
+      matmul operands are in the compute dtype (the JAX block passes its
+      ``dtype`` to the kernels), the output in the input's dtype.
     - ``"layered"`` (wherever the fused kernels cannot run): the modules one
       by one; LayerNorm, the Linear layers and GELU are PyTorch's, attention
       is the ``mhsa`` kernels where their gate takes the call and the plain
@@ -192,19 +243,19 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path: float = 0.0, norm_eps: float = 1e-6,
-                 generator=None, device=None):
+                 generator=None, device=None, dtype: torch.dtype | None = None):
         super().__init__()
         self.num_heads = num_heads
         self.mlp_ratio = mlp_ratio
         self.qkv_bias = qkv_bias
+        self.compute_dtype = dtype
         self.rates = (drop, attn_drop, drop_path)
-        self.norm1 = nn.LayerNorm(dim, eps=norm_eps, device=device)
-        self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop,
-                              generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.norm1 = LayerNorm(dim, eps=norm_eps, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop, **kw)
         self.drop_path = DropPath(drop_path, generator=generator)
-        self.norm2 = nn.LayerNorm(dim, eps=norm_eps, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop,
-                       generator=generator, device=device)
+        self.norm2 = LayerNorm(dim, eps=norm_eps, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, **kw)
 
     def fused_weights(self) -> dict[str, torch.Tensor]:
         """The kernel's twelve weights (kernels/vit_block.WNAMES), no copies."""
@@ -239,8 +290,8 @@ class Block(nn.Module):
         if x.is_cuda and self.route(x, seg_len) == "fused":
             weights = self.fused_weights()
             if self.training and records_grad(x, weights):
-                return fused_vit_block_train(x, weights, self.num_heads)
-            return fused_vit_block(x, weights, self.num_heads)
+                return fused_vit_block_train(x, weights, self.num_heads, self.compute_dtype)
+            return fused_vit_block(x, weights, self.num_heads, self.compute_dtype)
         x = x + self.drop_path(self.attn(self.norm1(x), seg_len=seg_len))
         return x + self.drop_path(self.mlp(self.norm2(x)))
 
@@ -269,7 +320,8 @@ class AMSoftmaxLayer(nn.Module):
     """Additive-margin softmax head: s * cos(theta) logits.
 
     W is [in_features, n_classes], as in the JAX package and the reference.
-    Features and weight columns are L2-normalised (norms clamped at 1e-12).
+    Features and weight columns are L2-normalised (norms clamped at 1e-12);
+    the product is in the features' dtype, as the JAX layer's.
     """
 
     def __init__(self, in_features: int, n_classes: int, s: float = 30.0,
@@ -283,7 +335,7 @@ class AMSoftmaxLayer(nn.Module):
     def forward(self, x):
         x_norm = x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         w_norm = self.W.norm(dim=0, keepdim=True).clamp_min(1e-12)
-        return (x / x_norm) @ (self.W / w_norm) * self.s
+        return (x / x_norm) @ (self.W / w_norm).to(x.dtype) * self.s
 
 
 class BatchNorm(nn.Module):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import Block, trunc_normal
+from .layers import Block, LayerNorm, trunc_normal
 
 BACKBONES = {
     "deit_tiny_patch16_224": dict(patch_size=16, embed_dim=192, depth=12, num_heads=3, mlp_ratio=4.0, qkv_bias=True),
@@ -38,18 +38,20 @@ class ViTCore(nn.Module):
     Models derive from it, so the parameters keep timm's top-level names
     (``blocks.0.attn.qkv.weight``, ``norm.weight``) and a timm or reference
     state dict loads as it is. The blocks are unrolled; the JAX package's
-    ``scan_blocks`` only shrinks XLA programs.
+    ``scan_blocks`` only shrinks XLA programs. ``dtype`` is every block's
+    compute dtype; the final norm returns f32, as flax's LayerNorm does.
     """
 
     def __init__(self, dim: int, depth: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path: float = 0.0, generator=None, device=None):
+                 drop_path: float = 0.0, generator=None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.blocks = nn.ModuleList(
             Block(dim, num_heads, mlp_ratio, qkv_bias, drop, attn_drop, drop_path,
-                  generator=generator, device=device)
+                  generator=generator, device=device, dtype=dtype)
             for _ in range(depth))
-        self.norm = nn.LayerNorm(dim, eps=1e-6, device=device)
+        self.norm = LayerNorm(dim, eps=1e-6, device=device)
 
     def encode(self, x, seg_len: int | None = None):
         """[B, N, D] tokens through every block, then the final norm."""

@@ -8,7 +8,9 @@ f32 convolutions in TF32 by default; the matmul stays in full f32. The conv
 modules only hold the parameters, in the reference's layout
 (``proj.conv3d_1.weight`` [D, 1, c, c, c], ``proj.conv2d_1.weight``
 [D, 1, c, c]). A grid not divisible by the cell is trimmed as a stride-cell
-conv would trim it.
+conv would trim it. With ``dtype=torch.bfloat16`` the projection computes
+as the JAX tokenizers' (cells, weight and bias cast to bf16, the product and
+the bias added in bf16); the parameters stay f32.
 """
 
 from __future__ import annotations
@@ -44,12 +46,14 @@ class _CellEmbed(nn.Module):
     conv_type = nn.Conv3d
 
     def __init__(self, voxel_size: int = 128, cell_size: int = 16, patch_size: int = 8,
-                 in_chans: int = 1, embed_dim: int = 768, generator=None, device=None):
+                 in_chans: int = 1, embed_dim: int = 768, generator=None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.voxel_size = voxel_size
         self.cell_size = cell_size
         self.patch_size = patch_size
         self.embed_dim = embed_dim
+        self.compute_dtype = dtype
         self.proj = _proj(self.conv_name, self.conv_type, in_chans, embed_dim,
                           cell_size, generator, device)
 
@@ -60,8 +64,9 @@ class _CellEmbed(nn.Module):
 
     def _project(self, cells: torch.Tensor) -> torch.Tensor:
         conv = self.proj[self.conv_name]
-        w = conv.weight.reshape(conv.weight.shape[0], -1)  # [D, cells]
-        return torch.matmul(cells.to(w.dtype), w.t()) + conv.bias
+        dt = self.compute_dtype or conv.weight.dtype
+        w = conv.weight.reshape(conv.weight.shape[0], -1).to(dt)  # [D, cells]
+        return torch.matmul(cells.to(dt), w.t()) + conv.bias.to(dt)
 
 
 class VoxelEmbed(_CellEmbed):
@@ -123,7 +128,7 @@ EMBED_LAYERS = {
 
 def make_embed_layer(name: str, voxel_size: int, cell_size: int | None = None,
                      patch_size: int | None = None, embed_dim: int = 768,
-                     generator=None, device=None) -> nn.Module:
+                     generator=None, device=None, dtype: torch.dtype | None = None) -> nn.Module:
     if name == "VoxelEmbed_Hybrid":
         raise NotImplementedError(
             "VoxelEmbed_Hybrid (VoxNet conv stack) is not ported yet: it comes "
@@ -134,4 +139,4 @@ def make_embed_layer(name: str, voxel_size: int, cell_size: int | None = None,
     return cls(voxel_size=voxel_size,
                cell_size=cell_size if cell_size is not None else d_cell,
                patch_size=patch_size if patch_size is not None else d_patch,
-               embed_dim=embed_dim, generator=generator, device=device)
+               embed_dim=embed_dim, generator=generator, device=device, dtype=dtype)

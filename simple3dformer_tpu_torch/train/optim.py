@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.adam import B1, B2, EPS, bias_corrections, fused_adam
+from ..kernels.adam import B1, B2, EPS, bias_correction_tensors, fused_adam
 
 MOMENTUM = 0.9  # SGD's, as the partseg and semseg recipes set it
 
@@ -44,25 +44,21 @@ def epoch_lr(base_lr: float, epoch: int, step_size: float = 20, gamma: float = 0
     return lr
 
 
-def scale_by_adam_bf16_nu(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                          g: torch.Tensor | None, lr: float, count: int, b1: float = B1,
-                          b2: float = B2, eps: float = EPS, weight_decay: float = 0.0) -> None:
-    """Adam with the second moment stored in bfloat16, one leaf, in place (plain
-    PyTorch, as the JAX package's scale_by_adam_bf16_nu is plain jnp).
+def scale_by_adam_bf16_nu(m: torch.Tensor, v: torch.Tensor, g: torch.Tensor, count: int,
+                          b1: float = B1, b2: float = B2, eps: float = EPS) -> torch.Tensor:
+    """Adam's direction with the second moment stored in bfloat16 (plain
+    PyTorch, as the JAX package's scale_by_adam_bf16_nu is plain jnp): updates
+    the f32 ``m`` and the bf16 ``v`` in place from ``g`` and returns
+    m_hat / (sqrt(v_hat) + eps) in f32. Elementwise, so one call serves every
+    leaf laid end to end.
 
     The sums run in f32; nu is rounded to bfloat16 each step, so update
     directions deviate from f32 Adam in about the third decimal digit.
     """
-    if g is None:
-        g = torch.zeros_like(p)
-    if weight_decay:
-        g = g + weight_decay * p
-    bc1, bc2 = (torch.tensor(bc, dtype=torch.float32, device=p.device)
-                for bc in bias_corrections(count, b1, b2))
+    bc1, bc2 = bias_correction_tensors(count, m.device, b1, b2)
     m.copy_(b1 * m + (1 - b1) * g)
     v.copy_((b2 * v.float() + (1 - b2) * g * g).to(torch.bfloat16))
-    update = (m / bc1) / (torch.sqrt(v.float() / bc2) + eps)
-    p.add_(-lr * update)
+    return (m / bc1) / (torch.sqrt(v.float() / bc2) + eps)
 
 
 class Adam:
@@ -73,8 +69,11 @@ class Adam:
     and hold no moments. ``step(grads, lr)`` takes name -> gradient (None for
     a parameter the loss does not reach, a zero gradient) and updates every
     trainable f32 leaf with one launch of the Adam kernel on the card
-    (kernels/adam.fused_adam); with ``bf16_nu`` it runs the plain
-    ``scale_by_adam_bf16_nu`` instead.
+    (kernels/adam.fused_adam). With ``bf16_nu`` it runs the plain
+    ``scale_by_adam_bf16_nu`` instead, once over all leaves: the moments are
+    views into one f32 and one bf16 buffer, and the gradients are laid end to
+    end in the same order, so a step makes a few dozen launches, not a dozen
+    a leaf.
     """
 
     def __init__(self, params: dict[str, torch.Tensor], trainable: dict[str, bool] | None = None,
@@ -89,17 +88,35 @@ class Adam:
             if self.params[k].dtype != torch.float32:
                 raise TypeError(f"parameter {k} is {self.params[k].dtype}; Adam takes f32")
         self.count = 0
-        self.mu = {k: torch.zeros_like(self.params[k]) for k in self.names}
-        nu_dtype = torch.bfloat16 if bf16_nu else torch.float32
-        self.nu = {k: torch.zeros_like(self.params[k], dtype=nu_dtype) for k in self.names}
+        if bf16_nu:
+            self.sizes = [self.params[k].numel() for k in self.names]
+            device = self.params[self.names[0]].device if self.names else None
+            self.flat_mu = torch.zeros(sum(self.sizes), device=device)
+            self.flat_nu = torch.zeros(sum(self.sizes), dtype=torch.bfloat16, device=device)
+            self.mu = self._leaves(self.flat_mu)
+            self.nu = self._leaves(self.flat_nu)
+        else:
+            self.mu = {k: torch.zeros_like(self.params[k]) for k in self.names}
+            self.nu = {k: torch.zeros_like(self.params[k]) for k in self.names}
+
+    def _leaves(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """``flat`` cut into views shaped as the trainable leaves, in order."""
+        return {k: part.view(self.params[k].shape)
+                for k, part in zip(self.names, flat.split(self.sizes))}
 
     @torch.no_grad()
     def step(self, grads: dict[str, torch.Tensor | None], lr: float) -> None:
         self.count += 1
         if self.bf16_nu:
-            for k in self.names:
-                scale_by_adam_bf16_nu(self.params[k], self.mu[k], self.nu[k], grads.get(k), lr,
-                                      self.count, self.b1, self.b2, self.eps, self.weight_decay)
+            if self.names:
+                params = [self.params[k] for k in self.names]
+                g = torch.cat([(grads[k] if grads.get(k) is not None else torch.zeros_like(p))
+                               .reshape(-1) for k, p in zip(self.names, params)])
+                if self.weight_decay:
+                    g = g + self.weight_decay * torch.cat([p.reshape(-1) for p in params])
+                step = -lr * scale_by_adam_bf16_nu(self.flat_mu, self.flat_nu, g, self.count,
+                                                   self.b1, self.b2, self.eps)
+                torch._foreach_add_(params, list(self._leaves(step).values()))
             return
         fused_adam([(self.params[k], self.mu[k], self.nu[k], grads.get(k)) for k in self.names],
                    lr, self.count, self.b1, self.b2, self.eps, self.weight_decay)

@@ -15,7 +15,8 @@ import torch
 
 from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
                         KNN_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES, VA_REL, VA_SHAPES,
-                        VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_inputs, errors, gather_check,
+                        VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_cdt_check, block_inputs,
+                        errors, gather_check,
                         gather_inputs, knn_check, knn_inputs, mhsa_inputs, rel_err, unit_cloud,
                         va_err, va_inputs, vag_check, vag_inputs)
 from simple3dformer_tpu_torch.kernels import mhsa as mk
@@ -294,6 +295,47 @@ def test_layered_block_through_autograd_matches_plain(device):
                 vb.fused_vit_block.launches) == (before[0] + 1, before[1] + 1, *before[2:])
         for a, b in zip(got, want):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("label,b,n,d,heads", [("partseg N=257", 16, 257, 192, 3),
+                                                 ("flagship", 32, 26, 384, 6)])
+def test_fused_block_kernels_on_an_f32_stream_at_bf16_compute_match_plain(device, label, b, n, d,
+                                                                          heads):
+    """The bf16 3DViT's blocks: x (the residual stream) in f32, the matmuls in
+    bf16; the forward, the training forward and both backwards against their
+    plain versions, each backward twice bit-equal."""
+    errs, same = block_cdt_check(torch, b, n, d, heads, torch.float32, torch.bfloat16,
+                                 seed=b + n)
+    assert same and max(errs.values()) <= GRAD_REL["bfloat16"], errs
+
+
+def test_bf16_layered_block_through_autograd_matches_plain(device):
+    """The bf16 S3DIS block (deit_base width, 3 heads, 1025 tokens, an f32
+    residual stream): its layered route runs one mhsa forward and backward on
+    bf16 q, k, v, no plain attention and no fused kernel; output and gradients
+    within 5e-2 of each one's largest value of the CPU's plain path, the JAX
+    package's own bound between its two bf16 attention routes (the kernels keep
+    the softmax in f32 where the plain path rounds each of its steps to bf16)."""
+    from simple3dformer_tpu_torch.nn.layers import Attention, Block
+
+    torch.manual_seed(0)
+    blk = Block(768, 3, dtype=torch.bfloat16).train()
+    cuda_blk = Block(768, 3, dtype=torch.bfloat16).to(device).train()
+    cuda_blk.load_state_dict(blk.state_dict())
+    x = torch.randn(1, 1025, 768)
+    assert cuda_blk.route(x) == "layered" and cuda_blk.attn.kernel_unsupported(x) is None
+    before = (mk.mhsa_fwd.launches, mk.mhsa_bwd.launches, Attention.plain_calls,
+              vb.fused_vit_block_train_fwd.launches)
+    out = cuda_blk(x.to(device))
+    got = torch.autograd.grad(out.square().sum(), list(cuda_blk.parameters()))
+    assert (mk.mhsa_fwd.launches, mk.mhsa_bwd.launches, Attention.plain_calls,
+            vb.fused_vit_block_train_fwd.launches) == (before[0] + 1, before[1] + 1, *before[2:])
+    want_out = blk(x)
+    want = torch.autograd.grad(want_out.square().sum(), list(blk.parameters()))
+    assert out.dtype == want_out.dtype == torch.float32
+    assert rel_err([out.detach().cpu()], [want_out.detach()]) <= 5e-2
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and rel_err([a.cpu()], [b]) <= 5e-2
 
 
 def _va_flat(grads):

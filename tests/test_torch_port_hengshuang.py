@@ -302,6 +302,46 @@ def test_three_sgd_train_steps_match_jax():
         assert int(after[k.rsplit(".", 1)[0] + ".num_batches_tracked"]) == 3
 
 
+@pytest.mark.parametrize("seg_task", ["partseg", "s3dis"])
+def test_seg_three_sgd_train_steps_match_jax(seg_task):
+    """PointTransformerSeg as the partseg CLI (22 input channels, 50 parts) and
+    the S3DIS CLI (9, 13 classes) train it: three SGD steps of per-point cross
+    entropy against the JAX package's jitted make_train_step in f32, losses
+    within 1e-3 relative (as the cls steps against the JAX f32 step: its f32
+    gradients depart from float64 beyond rounding, see above)."""
+    from simple3dformer_tpu.train.loop import seg_cross_entropy as jax_seg_ce
+
+    from simple3dformer_tpu_torch.train.loop import seg_cross_entropy
+
+    in_dim, num_class = (22, 50) if seg_task == "partseg" else (9, 13)
+    jm = JaxSeg(num_point=N, num_class=num_class, input_dim=in_dim, **KW)
+    variables = jax.jit(jm.init)(jax.random.key(8), jnp.zeros((2, N, in_dim)))
+    rs = np.random.RandomState(9)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32) + 0.05 * rs.randn(*np.shape(a)).astype(np.float32),
+        jax.device_get(variables["params"]))
+    stats = jax.device_get(variables["batch_stats"])
+    pm = PointTransformerSeg(N, num_class, in_dim, **KW)
+    convert.load_jax_params(pm, params, stats)
+    tx = jax_optim.make_optimizer("SGD")
+    jstate = create_train_state(jax.tree_util.tree_map(jnp.asarray, params), tx,
+                                jax.tree_util.tree_map(jnp.asarray, stats))
+    jstep = jax_make_train_step(jm, tx, loss_fn=jax_seg_ce, has_batch_stats=True, donate=False)
+    step = make_train_step(TrainState(pm, optim.make_optimizer(dict(pm.named_parameters()),
+                                                               "SGD")), seg_cross_entropy)
+    losses, want = [], []
+    for i in range(3):
+        batch = {"x": _cloud(20 + i, 4, in_dim),
+                 "y": rs.randint(0, num_class, (4, N)).astype(np.int32)}
+        jstate, jout = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, LR,
+                             jax.random.key(1))
+        want.append(float(jout["loss"]))
+        losses.append(float(step({k: torch.from_numpy(v) for k, v in batch.items()},
+                                 LR)["loss"]))
+    np.testing.assert_allclose(losses, want, rtol=1e-3)
+    assert int(pm.transition_ups[0].fc1._modules["2"].num_batches_tracked) == 3
+
+
 def test_three_sgd_train_steps_match_float64():
     """The port's three f32 steps against the same steps of the port in
     float64: losses within 1e-5 relative, every parameter and statistic within
@@ -530,9 +570,19 @@ def test_cli_resumed_run_draws_the_unbroken_runs_augmentation(tmp_path, monkeypa
     assert not torch.equal(unbroken[0], unbroken[2])  # the epochs' draws differ
 
 
-def test_cli_refuses_bf16_and_does_not_move_to_the_cpu_by_itself():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        cli.main(["device=cpu", "synthetic=8", "num_point=16", "dtype=bf16"])
+def test_cli_trains_3dvit_at_bf16_and_does_not_move_to_the_cpu_by_itself(tmp_path, capsys):
+    """``model=3DViT dtype=bf16`` (refused before this slice) trains: its epoch
+    and eval lines, and a checkpoint of f32 parameters."""
+    out_dir = str(tmp_path / "run")
+    cli.main(["device=cpu", "synthetic=16", "num_point=64", "batch_size=8", "epoch=2",
+              "dtype=bf16", f"out_dir={out_dir}"])
+    lines = capsys.readouterr().out.splitlines()
+    epochs = [EPOCH_LINE.match(line) for line in lines if line.startswith("Epoch ")]
+    tests = [TEST_LINE.match(line) for line in lines if line.startswith("Test Instance")]
+    assert len(epochs) == len(tests) == 2 and all(epochs) and all(tests)
+    ckpt = Checkpointer(os.path.join(out_dir, "3DViT", "deit_tiny_patch16_224", "True", "ckpt"))
+    state, _ = ckpt.restore()
+    assert state["params"]["blocks.0.attn.qkv.weight"].dtype == torch.float32
     if torch.cuda.is_available():
         pytest.skip("a card is visible here")
     with pytest.raises(RuntimeError, match="device=cpu"):

@@ -30,6 +30,8 @@ from simple3dformer_tpu_torch.core.checkpoint import Checkpointer
 from simple3dformer_tpu_torch.data import augment
 from simple3dformer_tpu_torch.data.datasets import PartNormalDataset
 from simple3dformer_tpu_torch.models.point_vit import PointViT
+from simple3dformer_tpu_torch.models.registry import make_point_model
+from simple3dformer_tpu_torch.nn import layers
 from simple3dformer_tpu_torch.train import eval_metrics, optim
 from simple3dformer_tpu_torch.train.loop import TrainState, make_train_step, seg_cross_entropy
 from simple3dformer_tpu_torch.utils import convert
@@ -87,7 +89,7 @@ def _models(bn_momentum):
         jax.device_get(variables["params"]))
     stats = jax.device_get(variables["batch_stats"])
     pm = PointViT("3DViT", "seg", N, 50, input_dim=22, nneighbor=K)
-    pm.set_bn_momentum(bn_momentum)
+    layers.set_bn_momentum(pm, bn_momentum)
     convert.load_jax_params(pm, params, stats)
     return jm, params, stats, pm
 
@@ -276,12 +278,38 @@ def test_cli_trains_on_the_cpu_and_restores(tmp_path, capsys):
     assert torch.isfinite(model.eval()(x)).all()
 
 
-@pytest.mark.parametrize("override,match", [
-    ("dtype=bf16", "bf16"), ("model=Hengshuang", "Hengshuang"),
-])
-def test_cli_refuses_what_is_not_ported(override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["device=cpu", "synthetic=8", "num_point=16", override])
+@pytest.mark.parametrize("overrides", [
+    ["dtype=bf16"], ["model=Hengshuang"], ["model=Hengshuang", "dtype=bf16"],
+], ids=["3DViT-bf16", "Hengshuang-f32", "Hengshuang-bf16"])
+def test_cli_trains_every_model_in_both_dtypes(tmp_path, capsys, overrides):
+    """The routes the CLI refused before this slice: the 3DViT model at bf16 and
+    PointTransformerSeg (at test size) in f32 and bf16, with the BatchNorm
+    momentum schedule set on the live model; the epoch lines, finite losses,
+    and a checkpoint of the best epoch that restores into the same model."""
+    model = "Hengshuang" if "model=Hengshuang" in overrides else "3DViT"
+    small = (["model.nblocks=2", "model.nneighbor=8", "model.transformer_dim=64"]
+             if model == "Hengshuang" else [])
+    out_dir = str(tmp_path / "run")
+    best = cli.main(["device=cpu", "synthetic=16", "num_point=64", "batch_size=8", "epoch=2",
+                     "step_size=1", f"out_dir={out_dir}", *overrides, *small])
+    lines = capsys.readouterr().out.splitlines()
+    losses = [float(line.split()[6]) for line in lines if " train loss " in line]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert [line for line in lines if line.startswith("BN momentum")] == [
+        "BN momentum updated to: 0.900000", "BN momentum updated to: 0.450000"]
+    assert lines[-1] == f"Best inctance avg mIOU is: {best:f}"
+    run = os.path.join(out_dir, model, "none" if model == "Hengshuang" else
+                       "deit_tiny_patch16_224", "False" if model == "Hengshuang" else "True")
+    cfg = config.load_task_config("partseg", ["num_point=64", f"model={model}", *small])
+    cfg.num_class, cfg.input_dim = 50, 22
+    pm = make_point_model(cfg, "seg", dtype=common.compute_dtype(
+        config.load_task_config("partseg", overrides)))
+    state = TrainState(pm, optim.make_optimizer(dict(pm.named_parameters()), "SGD"))
+    restored, metrics = Checkpointer(os.path.join(run, "ckpt")).restore_into(state)
+    assert restored is state and metrics["instance_avg_iou"] == pytest.approx(best)
+    bns = [m for m in pm.modules() if type(m).__name__ == "BatchNorm"]
+    assert bns and all(float(m.num_batches_tracked) > 0 for m in bns)
+    assert torch.isfinite(pm.eval()(torch.zeros(2, 64, 22)).float()).all()
 
 
 def test_cli_does_not_move_to_the_cpu_by_itself():

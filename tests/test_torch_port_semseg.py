@@ -28,6 +28,7 @@ from simple3dformer_tpu_torch.core import config
 from simple3dformer_tpu_torch.core.checkpoint import Checkpointer
 from simple3dformer_tpu_torch.data.datasets import S3DISDataset
 from simple3dformer_tpu_torch.models.point_vit import PointViT
+from simple3dformer_tpu_torch.nn import layers
 from simple3dformer_tpu_torch.train import eval_metrics, optim
 from simple3dformer_tpu_torch.train.loop import TrainState, make_train_step, seg_cross_entropy
 from simple3dformer_tpu_torch.utils import convert
@@ -117,7 +118,7 @@ def _s3dis_models(backbone, bn_momentum):
     stats = jax.device_get(variables["batch_stats"])
     pm = PointViT("3DViT_s3dis", "seg", N, 13, input_dim=9, nneighbor=K,
                   transformer_backbone=backbone)
-    pm.set_bn_momentum(bn_momentum)
+    layers.set_bn_momentum(pm, bn_momentum)
     convert.load_jax_params(pm, params, stats)
     return jm, params, stats, pm
 
@@ -233,3 +234,29 @@ def test_cli_trains_on_the_cpu_and_restores(tmp_path, capsys):
     assert restored is state and metrics["instance_avg_iou"] == pytest.approx(best)
     assert state.step in (2, 4)
     assert torch.isfinite(model.eval()(torch.zeros(1, 64, 9))).all()
+
+
+@pytest.mark.parametrize("overrides", [
+    ["dtype=bf16"], ["model=Hengshuang"], ["model=Hengshuang", "dtype=bf16"],
+], ids=["3DViT-bf16", "Hengshuang-f32", "Hengshuang-bf16"])
+def test_cli_trains_every_model_in_both_dtypes(tmp_path, capsys, overrides):
+    """The routes the CLI refused before this slice: 3DViT_s3dis (at deit_tiny
+    width) at bf16 and PointTransformerSeg (at test size) in f32 and bf16: the
+    epoch and eval lines, finite losses, a checkpoint of the best epoch."""
+    model = "Hengshuang" if "model=Hengshuang" in overrides else "3DViT_s3dis"
+    small = (["model.nblocks=2", "model.nneighbor=8", "model.transformer_dim=64"]
+             if model == "Hengshuang" else ["model.transformer_backbone=deit_tiny_patch16_224"])
+    out_dir = str(tmp_path / "run")
+    best = cli.main(["device=cpu", "synthetic=8", "epoch=2", "num_point=64", "step_size=1",
+                     f"out_dir={out_dir}", *overrides, *small])
+    lines = capsys.readouterr().out.splitlines()
+    epochs = [EPOCH_LINE.match(line) for line in lines if line.startswith("Epoch ")]
+    evals = [EVAL_LINE.match(line) for line in lines if line.startswith("eval ")]
+    assert len(epochs) == len(evals) == 2 and all(epochs) and all(evals)
+    assert np.isfinite([float(m.group(3)) for m in epochs]).all()
+    assert lines[-1] == f"Best Inctance avg mIOU: {best:f}"
+    backbone = "none" if model == "Hengshuang" else "deit_tiny_patch16_224"
+    pretrained = "False" if model == "Hengshuang" else "True"
+    ckpt_dir = os.path.join(out_dir, model, backbone, pretrained, "ckpt")
+    state, metrics = Checkpointer(ckpt_dir).restore()
+    assert metrics["instance_avg_iou"] == pytest.approx(best) and state["step"] in (2, 4)

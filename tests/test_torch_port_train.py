@@ -261,11 +261,32 @@ def test_cli_trains_on_the_cpu_and_restores(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,match", [
     (["--lwf"], "LwF"), (["--zero1"], "parallelism"), (["--pretrained"], "DeiT weights"),
-    (["--dtype", "bf16"], "bf16"), (["--pos-embedding", "group_embed"], "other voxel routes"),
+    (["--pos-embedding", "group_embed"], "other voxel routes"),
 ])
 def test_cli_refuses_what_is_not_ported(flag, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--synthetic", "8", "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("bf16_nu", ["auto", "0"])
+def test_cli_trains_at_bf16_on_the_cpu(tmp_path, capsys, bf16_nu):
+    """``--dtype bf16`` (refused before this slice): the epoch lines, the model
+    computing in bf16 with f32 parameters, and Adam's second moment in bf16
+    under ``--bf16-nu auto`` (in f32 under ``0``), as the checkpoint holds it."""
+    argv = ["--dataset", "ModelNet40", "--synthetic", "32", "--epochs", "2", "--batchSize", "16",
+            "--transformer-name", BACKBONE, "--cell-size", "6", "--patch-size", "5",
+            "--lr", "0.02", "--device", "cpu", "--outf", str(tmp_path / "cls"),
+            "--dtype", "bf16", "--bf16-nu", bf16_nu]
+    cli.main(argv)
+    lines = capsys.readouterr().out.splitlines()
+    epochs = [EPOCH_LINE.match(line) for line in lines if line.startswith("Epoch")]
+    assert len(epochs) == 2 and all(epochs)
+    ckpt_dir = tmp_path / "cls" / "Voxel3D_2DPretrain" / "VoxelEmbed_default" / BACKBONE / "ckpt"
+    state, _ = Checkpointer(str(ckpt_dir)).restore()
+    nu = state["opt_state"]["nu"]
+    assert {v.dtype for v in nu.values()} == {torch.bfloat16 if bf16_nu == "auto"
+                                              else torch.float32}
+    assert state["params"]["blocks.0.attn.qkv.weight"].dtype == torch.float32
 
 
 def test_cli_does_not_move_to_the_cpu_by_itself():
