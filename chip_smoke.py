@@ -111,6 +111,18 @@ Phases, one line each (and a line per kernel shape):
  19. flagship bf16  the voxel CLI at --dtype bf16 with Adam's second moment
               in bf16: the loss falls over 40 steps, launch counts; ms a step
               beside the f32 step
+ 20. LwF      the fused block forward and training pair at the LwF shapes (N=197
+              with D=384 / 6 heads, D=768 / 12 and 3 heads; N=65 with D=768 / 3
+              heads) against their plain versions, the backward twice
+              bit-equal, times at N=197 beside TransformerEncoderLayer and the
+              device time by kernel; the device crop against the CPU's from
+              the same boxes; train_partseg_lwf at full width (deit_small
+              3DViT_1_layer, B=32, N=1024, M=64 synthetic images): 3 steps card
+              vs CPU, the CLI (the loss falls over 40 steps, a DeiT file loaded,
+              launch counts a step from the model), ms a step and a profile;
+              train_cls_voxel --lwf --pretrained at the flagship width (a DeiT
+              file the phase writes loaded, the 2D leaves unchanged, launch
+              counts, ms a step)
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -2163,11 +2175,11 @@ def phase_attention_route(torch):
 
 # ---- the point CLIs with every model in f32 and bf16, and the flagship at bf16 ----
 
-def run_cli(main, argv_for, counters):
+def run_cli(main, argv_for, counters, after=None):
     """Run a CLI, ``main(argv_for(out_dir))`` with a fresh output directory, its
     stdout captured and the launch counters set to 0 just before it; -> (its
     return value, its lines, the launches, the epochs of the checkpoints it
-    saved)."""
+    saved). ``after(out_dir)`` runs before the directory goes."""
     import contextlib
     import io
     import os
@@ -2182,6 +2194,8 @@ def run_cli(main, argv_for, counters):
         launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
         saved = sorted(int(s) for d, _, _ in os.walk(out_dir) if d.endswith("ckpt")
                        for s in os.listdir(d) if s.isdigit())
+        if after is not None:
+            after(out_dir)
     return result, log.getvalue().splitlines(), launches, saved
 
 
@@ -2600,6 +2614,315 @@ def phase_flagship_bf16(torch):
     return launches
 
 
+# LwF: BASELINE.json's fifth config (configs/partseg_lwf.yaml: 3DViT_1_layer on
+# deit_small, pretrained, B=32, N=1024 with normals, M=64 images a step on a
+# 256^2 canvas, lambda 0.1, SGD at the CLI's base lr 0.01) and the flagship's
+# train_cls_voxel --lwf --pretrained (a deit_base teacher with 12 heads, M = B)
+LWF_B, LWF_M = 32, 64
+LWF_PARITY_B, LWF_PARITY_M = 8, 16  # the card-vs-CPU steps: full width, a batch the CPU finishes
+LWF_SAMPLES, LWF_EPOCHS = 64, 20  # 2 steps an epoch at B=32: 40 steps
+# the fused block at the LwF paths' new shapes: (label, B, N, D, heads, dtype name):
+# the deit_small teacher and student image pass, the deit_base teacher, and
+# 3DViT_LWF's student (deit_base with 3 heads) on images and on its 65 point tokens
+LWF_BLOCK_SHAPES = [("LwF deit_small N=197", 64, 197, 384, 6, "float32"),
+                    ("LwF deit_base teacher N=197", 64, 197, 768, 12, "float32"),
+                    ("3DViT_LWF images N=197", 64, 197, 768, 3, "float32"),
+                    ("3DViT_LWF points N=65", 32, 65, 768, 3, "float32")]
+LWF_TIMED = ("LwF deit_small N=197", "LwF deit_base teacher N=197")
+CROP_ATOL = 1e-3  # the crop on the 0-255 scale: f32 sums of products in another order
+LWF_LOSS_RTOL = 1e-3  # as the other f32 phases: 24 blocks and the point path in another order
+
+
+def lwf_block_check(torch, label, b, n, d, heads, dtype):
+    """The fused forward (row 1) and the training forward and backward (rows 3-4)
+    at an LwF shape against their plain versions, the backward twice bit-equal;
+    at LWF_TIMED each row's time beside the plain version and
+    TransformerEncoderLayer, and each call's device time by kernel."""
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    x, w = block_inputs(torch, b, n, d, getattr(torch, dtype), seed=b * 1000 + n + d,
+                        device="cuda")
+    g = torch.from_numpy(np.random.RandomState(b + n + d).randn(b, n, d).astype(np.float32))
+    g = g.to(device="cuda", dtype=x.dtype)
+    y0 = vb.fused_vit_block(x, w, heads)
+    want0 = vb.vit_block_reference(x, w, heads)
+    y, res = vb.fused_vit_block_train_fwd(x, w, heads)
+    y_ref, res_ref = vb.vit_block_train_reference(x, w, heads)
+    gx, gw = vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res)
+    gx2, gw2 = vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res)
+    want_x, want_w = vb.vit_block_backward_reference(x, g, w, heads, residuals=res)
+    torch.cuda.synchronize()
+    fwd_err = float((y0.float() - want0.float()).abs().max())
+    torch.testing.assert_close(y0.float(), want0.float(), **TOL[dtype])
+    _, train_err = errors({"y": y, **res}, {"y": y_ref, **res_ref})
+    _, bwd_err = errors({"gx": gx, **gw}, {"gx": want_x, **want_w})
+    same = torch.equal(gx, gx2) and all(torch.equal(gw[k], gw2[k]) for k in gw)
+    print(f"kernel LwF block {label} B={b} N={n} D={d} H={heads} {dtype}: forward max abs err "
+          f"{fwd_err:.3e} (tolerance {TOL[dtype]}); error relative to the largest value: "
+          f"training forward+residuals {train_err:.3e}, residual backward {bwd_err:.3e} "
+          f"(tolerance {GRAD_REL[dtype]}); two runs of the backward bit-equal {same}")
+    if max(train_err, bwd_err) > GRAD_REL[dtype] or not same:
+        raise AssertionError(f"LwF block kernels {label}: errors {train_err}, {bwd_err}, "
+                             f"bit-equal {same}")
+    if label not in LWF_TIMED:
+        return
+    iters = 20
+    lib = library_times(torch, x, w, heads, g, iters)
+    flops = block_flops(b, n, d, heads)
+    ws = [w[k] for k in vb.WNAMES]
+    rows = {
+        "fused_vit_block (row 1)": (lambda: vb.fused_vit_block(x, w, heads),
+                                    lambda: vb.vit_block_reference(x, w, heads),
+                                    nbytes(x, *ws, y0), flops, lib["fwd"]),
+        "fused_vit_block_train_fwd (row 3)": (
+            lambda: vb.fused_vit_block_train_fwd(x, w, heads),
+            lambda: vb.vit_block_train_reference(x, w, heads),
+            nbytes(x, *ws, y, res), flops, lib["train_fwd"]),
+        "fused_vit_block_train_bwd (row 4)": (
+            lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+            lambda: vb.vit_block_backward_reference(x, g, w, heads, residuals=res),
+            nbytes(x, g, *ws, res, gx, gw), 2 * flops, lib["bwd"]),
+    }
+    for name, (kernel, plain, moved, ops, library_ms) in rows.items():
+        ms, plain_ms = in_turns(torch, kernel, plain, iters)
+        bound_ms, bound_by = bound(moved, ops)
+        print(f"kernel {name} {label}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"{library_ms:.4f} ms TransformerEncoderLayer, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {moved / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP), mean of {iters} "
+              "launches each, in turns")
+    block_split(torch, lambda: vb.fused_vit_block_train_fwd(x, w, heads), b, n, d,
+                f"kernel fused_vit_block_train_fwd {label}", FWD_GEMMS, calls=3)
+    block_split(torch, lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+                b, n, d, f"kernel fused_vit_block_train_bwd {label}", BWD_GEMMS, calls=3)
+
+
+def lwf_crop_check(torch):
+    """The device crop and flip on the card against the same function on the
+    CPU, from the same boxes and flips, at the partseg LwF step's shape."""
+    from simple3dformer_tpu_torch.data import image_augment as ia
+    from simple3dformer_tpu_torch.train import lwf
+
+    images = torch.from_numpy(lwf.load_images("", synthetic=LWF_M, seed=9)[:LWF_M]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    boxes = ia.sample_crop_boxes(gen, LWF_M, lwf.IMAGE_CANVAS, lwf.IMAGE_CANVAS)
+    flip = torch.rand(LWF_M, generator=gen, device="cuda") < 0.5
+    got = ia.resized_crop_flip(images, *boxes, flip)
+    want = ia.resized_crop_flip(images.cpu(), *(t.cpu() for t in boxes), flip.cpu())
+    err = float((got.cpu() - want).abs().max())
+    ms = time_ms(torch, lambda: ia.device_random_resized_crop_flip(gen, images), iters=20)
+    heights = boxes[2].cpu().numpy()
+    print(f"LwF crop: {LWF_M} images {lwf.IMAGE_CANVAS}^2 -> 224^2 (crop heights "
+          f"{heights.min():.0f}-{heights.max():.0f}, {int(flip.sum())} flipped): card vs CPU max "
+          f"abs err {err:.3e} on the 0-255 scale (tolerance {CROP_ATOL}); {ms:.4f} ms a call "
+          "with its draws (plain PyTorch, CUDA events, 20 calls)")
+    if err > CROP_ATOL or tuple(got.shape) != (LWF_M, 224, 224, 3):
+        raise AssertionError(f"LwF crop on the card: err {err}, shape {tuple(got.shape)}")
+
+
+def lwf_launches(n_td, depth, steps, evals) -> dict:
+    """The LwF partseg path's launches: per point forward (train step or eval
+    batch) n_td FPS, 2 n_td kNN (k=16, the 3-NN) and 4 n_td gathers, per train
+    step 2 n_td gather backwards; the teacher's ``depth`` forwards (row 1) a
+    step, the student's 2 ``depth`` training blocks a step (its point tokens
+    and its images, rows 3-4), ``depth`` forwards an eval batch; no recompute
+    backward and no mhsa (every block at N <= 512)."""
+    fwd = steps + evals
+    return dict(fps=n_td * fwd, knn=2 * n_td * fwd, gather_fwd=4 * n_td * fwd,
+                gather_bwd=2 * n_td * steps, fused_vit_block=depth * fwd,
+                fused_vit_block_train_fwd=2 * depth * steps,
+                fused_vit_block_train_bwd=2 * depth * steps, fused_vit_block_bwd=0,
+                mhsa_fwd=0, mhsa_bwd=0)
+
+
+def write_deit(torch, directory, name, seed):
+    """A timm-named DeiT state dict at ``directory/<name>.pth`` from a seeded model."""
+    import os
+
+    from simple3dformer_tpu_torch.core.rng import generator
+    from simple3dformer_tpu_torch.nn.vit import deit_factory
+
+    sd = {k: v.clone() for k, v in deit_factory(name, generator=generator(seed)).state_dict().items()}
+    torch.save({"model": sd}, os.path.join(directory, f"{name}.pth"))
+    return sd
+
+
+def lwf_timed(torch, run, task_ds, image_ds, lr, label, batch, m, n_steps=10):
+    """ms a step of an LwF run over ``n_steps`` after a warm-up, and its profile."""
+    rs = np.random.RandomState(5)
+    task = rs.randint(0, len(task_ds), (n_steps + 1, batch))
+    images = rs.randint(0, len(image_ds), (n_steps + 1, m))
+    both = task_ds.put_indices(np.concatenate([task, images], 1))
+    return timed_steps(torch, lambda rows, lr: run(rows[:, :batch], rows[:, batch:], lr), both,
+                       lr, n_steps, label, batch)
+
+
+def phase_lwf(torch):
+    """LwF at full width: the block kernels at the path's new shapes, the device
+    crop, train_partseg_lwf (3 steps card vs CPU, the CLI with its launch
+    counts, ms a step and a profile) and train_cls_voxel --lwf --pretrained (a
+    DeiT file loaded, the 2D leaves unchanged, launch counts, ms a step).
+    Returns the launch counts of the partseg CLI run."""
+    import os
+    import tempfile
+
+    from simple3dformer_tpu_torch.cli import _common
+    from simple3dformer_tpu_torch.cli import train_cls_voxel
+    from simple3dformer_tpu_torch.cli import train_partseg_lwf as tpl
+    from simple3dformer_tpu_torch.cli.train_partseg import (load_arrays, make_prepare_fn,
+                                                            seg_augment)
+    from simple3dformer_tpu_torch.core.checkpoint import Checkpointer
+    from simple3dformer_tpu_torch.core.config import load_task_config
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.data.image_augment import device_random_resized_crop_flip
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
+    from simple3dformer_tpu_torch.kernels.adam import fused_adam
+    from simple3dformer_tpu_torch.models.point_vit import frozen_mask_point
+    from simple3dformer_tpu_torch.models.registry import make_point_model
+    from simple3dformer_tpu_torch.models.voxel_vit import frozen_mask
+    from simple3dformer_tpu_torch.nn.vit import make_teacher
+    from simple3dformer_tpu_torch.train import lwf
+    from simple3dformer_tpu_torch.train.loop import TrainState, seg_cross_entropy
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    for shape in LWF_BLOCK_SHAPES:
+        lwf_block_check(torch, *shape)
+    lwf_crop_check(torch)
+
+    cfg = load_task_config("partseg_lwf", [f"synthetic={3 * LWF_PARITY_B}", "seed=9"])
+    cfg.num_class, cfg.input_dim = 50, 22
+    backbone = str(cfg.model.transformer_backbone)
+
+    def trainer(device):
+        model = make_point_model(cfg, "seg", generator=generator(DEFAULT_SEED)).to(device)
+        opt, lr = _common.reference_optimizer(cfg, dict(model.named_parameters()),
+                                              frozen_mask_point(model, True))
+        teacher = make_teacher(backbone, generator=generator(lwf.TEACHER_SEED)).to(device)
+        return TrainState(model, opt), teacher, lr
+
+    # 3 steps on the card and on the CPU's plain path: the same weights, batches
+    # and 224^2 images, the augmentations off (their draws differ by device)
+    (xs, cats, segs), _ = load_arrays(cfg)
+    images = lwf.load_images("", synthetic=3 * LWF_PARITY_M, seed=9, canvas=224)
+    prepare = make_prepare_fn()
+    losses, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        state, teacher, lr = trainer(device)
+        step = lwf.make_lwf_train_step(state, teacher, task_loss_fn=seg_cross_entropy,
+                                       prepare_fn=prepare)
+        t1, out = time.perf_counter(), []
+        for i in range(3):
+            sl, il = slice(i * LWF_PARITY_B, (i + 1) * LWF_PARITY_B), \
+                slice(i * LWF_PARITY_M, (i + 1) * LWF_PARITY_M)
+            batch = {k: torch.from_numpy(v[sl]).to(device)
+                     for k, v in (("x", xs), ("cls", cats), ("y", segs))}
+            metrics = step(batch, torch.from_numpy(images[il]).to(device), lr)
+            out.append([float(metrics[k]) for k in ("loss", "task_loss", "lwf_loss")])
+        losses[device], seconds[device] = out, time.perf_counter() - t1
+    print(f"LwF partseg: 3 steps at B={LWF_PARITY_B}, M={LWF_PARITY_M}, lr {lr} (loss, task, lwf): "
+          f"on the card {losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol "
+          f"{LWF_LOSS_RTOL}); {seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=LWF_LOSS_RTOL)
+
+    counters = s3dis_counters()
+    with tempfile.TemporaryDirectory() as weights:
+        small = write_deit(torch, weights, backbone, seed=DEFAULT_SEED + 20)
+        write_deit(torch, weights, train_cls_voxel.LWF_TEACHER, seed=DEFAULT_SEED + 21)
+        old = os.environ.get("DEIT_CKPT_DIR")
+        os.environ["DEIT_CKPT_DIR"] = weights
+        try:
+            # the CLI on a synthetic corpus and synthetic images on the card: the main path
+            _, lines, launches, saved = run_cli(tpl.main, lambda d: [
+                f"synthetic={LWF_SAMPLES}", f"epoch={LWF_EPOCHS}", f"out_dir={d}"], counters)
+            model = make_point_model(cfg, "seg")
+            steps = LWF_EPOCHS * (LWF_SAMPLES // LWF_B)
+            evals = LWF_EPOCHS * -(-max(LWF_SAMPLES // 5, 32) // LWF_B)
+            want = lwf_launches(len(model.transition_downs), len(model.blocks), steps, evals)
+            per_step = {k: v for k, v in lwf_launches(len(model.transition_downs),
+                                                      len(model.blocks), 1, 0).items() if v}
+            epochs = [line for line in lines if line.startswith("Epoch ")]
+            epoch_losses = [float(line.split(" loss ")[1].split()[0]) for line in epochs]
+            loaded = [line for line in lines if line.startswith("loaded ")]
+            ious = [line for line in lines if "Inctance avg mIOU" in line]
+            print(f"LwF partseg CLI (B={LWF_B}, N=1024, M={LWF_M}, {backbone}, pretrained from a "
+                  f"seeded file): {steps} train steps, {evals} eval batches; {epochs[0]} -> "
+                  f"{epochs[-1]}; {ious[-1].strip()}; {loaded}; checkpoints at epochs {saved}; "
+                  f"launches {launches} (want {want}; a train step: {per_step})")
+            if len(epoch_losses) != LWF_EPOCHS or not epoch_losses[-1] < 0.75 * epoch_losses[0]:
+                raise AssertionError(f"LwF partseg loss did not fall: {epoch_losses}")
+            if len(loaded) != 2 or not saved or len(ious) != LWF_EPOCHS:
+                raise AssertionError(f"LwF partseg CLI output: {lines[-8:]}")
+            if launches != want:
+                raise AssertionError(f"LwF partseg launch counts {launches}, want {want}")
+
+            # train_cls_voxel --lwf --pretrained at the flagship width
+            kept = {}
+
+            def read_ckpt(out_dir):
+                path = os.path.join(out_dir, "Voxel3D_2DPretrain", "VoxelEmbed_default", BACKBONE,
+                                    "ckpt")
+                kept.update(Checkpointer(path).restore()[0]["params"])
+
+            vcounters = {fn.__name__: fn for fn in counters.values()
+                         if fn.__name__.startswith("fused_vit")}
+            vcounters["fused_adam"] = fused_adam
+            argv = ["--dataset", "ModelNet40", "--synthetic", str(TRAIN_SAMPLES), "--epochs",
+                    str(TRAIN_EPOCHS), "--batchSize", str(BATCH), "--lr", str(TRAIN_LR),
+                    "--transformer-name", BACKBONE, "--cell-size", str(CELL), "--patch-size",
+                    str(PATCH), "--lwf", "--pretrained"]
+            _, vlines, vlaunches, vsaved = run_cli(train_cls_voxel.main,
+                                                   lambda d: [*argv, "--outf", d], vcounters,
+                                                   after=read_ckpt)
+        finally:
+            if old is None:
+                del os.environ["DEIT_CKPT_DIR"]
+            else:
+                os.environ["DEIT_CKPT_DIR"] = old
+    vsteps = TRAIN_EPOCHS * (TRAIN_SAMPLES // BATCH)
+    vevals = TRAIN_EPOCHS * -(-max(TRAIN_SAMPLES // 5, BATCH) // BATCH)
+    vwant = {"fused_vit_block": 12 * (vsteps + vevals), "fused_vit_block_bwd": 0,
+             "fused_vit_block_train_fwd": 24 * vsteps, "fused_vit_block_train_bwd": 24 * vsteps,
+             "fused_adam": vsteps}
+    vlosses = [float(line.split()[3]) for line in vlines if line.startswith("Epoch ")]
+    vloaded = [line for line in vlines if line.startswith("loaded ")]
+    frozen = [k for k in kept if k.split(".")[0] in ("head", "pos_embed", "patch_embed")]
+    unchanged = all(torch.equal(kept[k].cpu(), small[k]) for k in frozen)
+    print(f"LwF voxel CLI (--lwf --pretrained, {BACKBONE}, B={BATCH}, deit_base teacher with 12 "
+          f"heads, M={BATCH}): {vsteps} steps, epoch losses {vlosses[0]:.4f} -> "
+          f"{vlosses[-1]:.4f}; {vloaded}; the 2D leaves {frozen} equal to the file's after the "
+          f"steps: {unchanged}; checkpoints at epochs {vsaved}; launches {vlaunches} (want {vwant})")
+    if (len(vlosses) != TRAIN_EPOCHS or not np.isfinite(vlosses).all() or len(vloaded) != 2
+            or len(frozen) != 5 or not unchanged or not vsaved):
+        raise AssertionError(f"LwF voxel CLI output: {vlines[-6:]}")
+    if vlaunches != vwant:
+        raise AssertionError(f"LwF voxel launch counts {vlaunches}, want {vwant}")
+
+    # ms a step: the partseg LwF step as the CLI runs it, then the voxel one
+    cfg.synthetic = 11 * LWF_B
+    (xs, cats, segs), _ = load_arrays(cfg)
+    task_ds = DeviceResidentDataset({"x": xs, "cls": cats, "y": segs}, "cuda")
+    image_ds = DeviceResidentDataset({"images": lwf.load_images("", synthetic=LWF_M, seed=9)},
+                                     "cuda")
+    state, teacher, lr = trainer("cuda")
+    run = lwf.make_scanned_lwf_train_steps(
+        state, teacher, task_ds, image_ds, task_loss_fn=seg_cross_entropy, augment_fn=seg_augment,
+        image_augment_fn=device_random_resized_crop_flip, prepare_fn=prepare)
+    lwf_timed(torch, run, task_ds, image_ds, lr, "LwF partseg", LWF_B, LWF_M)
+    grids, labels = synthetic_voxels(11 * BATCH, VOXEL, N_CLASSES, seed=DEFAULT_SEED + 3)
+    vds = DeviceResidentDataset({"x": grids, "y": labels}, "cuda")
+    vmodel = flagship_model(torch, "cuda")
+    vopt = make_optimizer(dict(vmodel.named_parameters()), "Adam",
+                          trainable_mask=frozen_mask(vmodel, True))
+    vteacher = make_teacher(train_cls_voxel.LWF_TEACHER,
+                            generator=generator(lwf.TEACHER_SEED)).cuda()
+    vrun = lwf.make_scanned_lwf_train_steps(TrainState(vmodel, vopt), vteacher, vds, image_ds,
+                                            image_augment_fn=device_random_resized_crop_flip)
+    lwf_timed(torch, vrun, vds, image_ds, 1e-4, "LwF voxel", BATCH, BATCH)
+    print(f"LwF phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2641,6 +2964,7 @@ def main() -> int:
                 phase_hengshuang_seg(torch, which, bf16)
         phase_point_vit_bf16(torch)
         phase_flagship_bf16(torch)
+        phase_lwf(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:

@@ -18,11 +18,23 @@ trains on generated occupancy grids.
 Ported: the default route (``--pos-embedding default`` or ``no_embed``),
 ``--reweighted``, ``--head``, ``--embed-layer``, ``--model`` restore,
 ``--dtype bf16`` (the tokenizer, the blocks and the head compute in bf16, the
-fused block kernels in bf16 on the card; the parameters stay f32) and
+fused block kernels in bf16 on the card; the parameters stay f32),
 ``--bf16-nu`` (Adam's second moment in bf16, the plain
 ``scale_by_adam_bf16_nu``; ``auto`` turns it on iff ``--dtype bf16``, as the
-JAX trainer does). Not yet: ``--lwf``, ``--zero1``, ``--pretrained`` and the
-other positional-embedding routes, which raise.
+JAX trainer does), ``--pretrained`` (``maybe_load_deit`` reads
+``<transformer-name>.pth`` from ``$DEIT_CKPT_DIR``, default ``./weights``, or
+warns and keeps the random init; either way Adam freezes the 2D head, pos
+embed and patch embed) and ``--lwf`` (the reference's LwF branch: a frozen
+deit_base teacher with 12 heads, also loaded through ``maybe_load_deit``, and a
+batch of images a step, ImageNet val under ./data or with ``--synthetic``
+random images, cropped and flipped on the device; the loss CE + 0.1 CE(the 2D
+head's logits, the teacher's labels), without class weights as in the JAX
+trainer). Not yet: ``--zero1`` and the other positional-embedding routes,
+which raise.
+
+    python -m simple3dformer_tpu_torch.cli.train_cls_voxel --dataset ModelNet40 \
+        --synthetic 2048 --transformer-name deit_small_patch16_224 \
+        --cell-size 6 --patch-size 5 --lwf --pretrained
 
     python -m simple3dformer_tpu_torch.cli.train_cls_voxel --dataset ModelNet40 \
         --synthetic 2048 --transformer-name deit_small_patch16_224 \
@@ -42,15 +54,20 @@ from ..core import checkpoint as ckpt_lib
 from ..core.rng import DEFAULT_SEED, generator
 from ..data import datasets
 from ..data.classmaps import CLASSES_ModelNet10, CLASSES_ModelNet40, CLASSES_SHAPENET
+from ..data.image_augment import device_random_resized_crop_flip
 from ..data.pipeline import DeviceResidentDataset
 from ..data.synthetic import synthetic_voxels
 from ..models.voxel_vit import VoxelViT, frozen_mask
-from ..nn.vit import EMBED_DIM
+from ..nn.vit import EMBED_DIM, make_teacher
 from ..nn.voxel_embed import make_embed_layer
 from ..train import health
 from ..train.eval_metrics import ClassificationMeter
 from ..train.loop import TrainState, make_scanned_eval, make_scanned_train_steps
+from ..train.lwf import TEACHER_SEED, load_images, make_scanned_lwf_train_steps
 from ..train.optim import epoch_lr, make_optimizer
+from ..utils.torch_convert import maybe_load_deit
+
+LWF_TEACHER = "deit_base_patch16_224"  # hard-coded, as in the reference (:174, :180)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -128,15 +145,8 @@ def load_voxel_arrays(dataset, data_root, synthetic=0, *, reweighted=False, min_
 
 
 def _refuse_unported(args) -> None:
-    later = {
-        "lwf": "the LwF slice",
-        "zero1": "the parallelism slice",
-        "pretrained": "the slice that brings the DeiT weights into the repository",
-    }
-    for flag, slice_name in later.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet: it comes "
-                                      f"with {slice_name}")
+    if args.zero1:
+        raise NotImplementedError("--zero1 is not ported yet: it comes with the parallelism slice")
     if args.pos_embedding not in ("default", "no_embed"):
         raise NotImplementedError(f"--pos-embedding {args.pos_embedding} is not ported yet: it "
                                   "comes with the slice of the other voxel routes")
@@ -176,6 +186,8 @@ def main(argv=None):
     model = VoxelViT(embedding, n_classes=n_classes, transformer_backbone=args.transformer_name,
                      pos_embedding=args.pos_embedding, head=args.head, generator=g,
                      dtype=dtype).to(device)
+    if args.pretrained:
+        maybe_load_deit(model, args.transformer_name)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Number of parameters: {n_params / 1e6:.2f}M")
 
@@ -185,7 +197,23 @@ def main(argv=None):
                                bf16_nu=bf16_nu)
     state = TrainState(model, optimizer)
     cw = torch.as_tensor(weights, device=device) if weights is not None else None
-    train_run = make_scanned_train_steps(state, train_ds, class_weights=cw)
+    if args.lwf:
+        # the reference's LwF branch (train_cls_voxel.py:238-268), its paths hard-coded
+        images = load_images("./data/ImageNet/ILSVRC/Data/CLS-LOC",
+                             synthetic=args.synthetic or 256, seed=args.seed)
+        image_ds = DeviceResidentDataset({"images": images}, device)
+        teacher = make_teacher(LWF_TEACHER, generator=generator(TEACHER_SEED)).to(device)
+        maybe_load_deit(teacher, LWF_TEACHER)
+        lwf_run = make_scanned_lwf_train_steps(
+            state, teacher, train_ds, image_ds, lambda_weight=0.1,
+            image_augment_fn=device_random_resized_crop_flip, seed=args.seed)
+        img_rng = np.random.RandomState(args.seed)
+
+        def train_run(idx, lr):
+            img_idx = img_rng.randint(0, len(image_ds), size=tuple(idx.shape))
+            return lwf_run(idx, image_ds.put_indices(img_idx), lr)
+    else:
+        train_run = make_scanned_train_steps(state, train_ds, class_weights=cw)
     eval_run = make_scanned_eval(model, test_ds)
 
     out_dir = os.path.join(args.outf, args.model_name,

@@ -30,8 +30,8 @@ asked (``device=cpu``). Without the corpus on disk, ``synthetic=N`` trains
 on generated clouds. ``model.pretrained`` names the run directory only, as
 in the JAX trainer, which loads no 2D weights for this task. The JAX trainer
 rebuilds its model when the BatchNorm momentum changes; here the momentum is
-set on the live modules, the same function. Not ported yet (it raises
-NotImplementedError): the LwF variants' 2D pathway (``forward_images``).
+set on the live modules, the same function. The LwF recipe, which trains
+the image variants' 2D pathway too, is ``cli/train_partseg_lwf.py``.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ keeps per-point logits. ``dtype=torch.bfloat16`` is the JAX package's
 parameters stay f32. So the stems return bf16, each BatchNorm and LayerNorm
 f32; the cls token takes the tokens' dtype (f32 after a transition-down, bf16
 in ``3DViT_0_layer``), which the blocks' residual stream keeps; the head
-returns bf16 logits. The 2D pathway's parameters exist for complete
-state dicts; its forward (``forward_images``, LwF) raises until the LwF slice.
+returns bf16 logits. The image variants' 2D pathway (``forward_images``, the
+LwF student's image logits) runs images through the patch embedding, the cls
+token, the 2D position embedding, the same blocks and the 1000-way 2D head.
 
 State-dict names are the reference's: ``fc1.0`` / ``fc1.2`` and
 ``fc_pos_embed.*`` for the stems, ``transition_downs.{i}.sa.*``,
@@ -107,8 +108,7 @@ class PointViT(ViTCore):
         self.add_module(self.head_name, point_head)
         if spec["images"]:
             n2d = (img_size // bb["patch_size"]) ** 2
-            self.patch_embed = PatchEmbed2D(bb["patch_size"], 3, D, generator=generator,
-                                            device=device)
+            self.patch_embed = PatchEmbed2D(bb["patch_size"], 3, D, **kw)
             self.pos_embed = nn.Parameter(trunc_normal((1, n2d + 1, D), 0.02, generator)
                                           .to(device))
             self.head = dense(D, 1000, **kw)
@@ -138,8 +138,13 @@ class PointViT(ViTCore):
         return h  # [B, N, stem] ([B, N, D] for 0_layer)
 
     def forward_images(self, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError("the 2D image pathway (forward_images) is not ported yet: it "
-                                  "comes with the LwF slice")
+        """[B, H, W, 3] normalised images -> [B, 1000] logits of the 2D head."""
+        if not self.spec["images"]:
+            raise ValueError(f"{self.variant} has no 2D image pathway")
+        tokens = self.patch_embed(x)
+        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
+        tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(tokens.dtype)
+        return self.head(self.encode(tokens.contiguous())[:, 0])
 
     def forward(self, x: torch.Tensor,
                 sample_generator: torch.Generator | None = None) -> torch.Tensor:

@@ -29,6 +29,8 @@ def make_point_model(cfg, task: str, dtype=None, **kw):
 
 
 def has_lwf_pathway(cfg) -> bool:
+    """Whether cfg's model has the 2D image pathway (``forward_images``) that
+    LwF trains: the 3DViT variants 3DViT_LWF, 3DViT_1_layer and 3DViT_0_layer."""
     name = cfg.model.name
     if name == "Hengshuang":
         return False

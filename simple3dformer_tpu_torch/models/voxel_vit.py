@@ -1,7 +1,8 @@
 """Voxel ViT (port of simple3dformer_tpu/models/voxel_vit.py, Feature3D_ViT2D_V2).
 
 A DeiT backbone whose patch embedding is swapped for a 3D voxel tokenizer,
-with a new 3D head (Linear or AMSoftmax). Parameter names are the
+with a new 3D head (Linear or AMSoftmax), and the 2D pathway the LwF trainer
+runs images through (``forward_images``). Parameter names are the
 reference's state-dict names (``cls_token``, ``blocks.{i}...``, ``norm``,
 ``voxel_embed.proj.conv3d_1``, ``voxel_pos_embed``, ``voxel_head``, and the
 2D pathway's ``patch_embed``, ``pos_embed`` and ``head``), so a reference or
@@ -29,7 +30,7 @@ from ..nn.vit import BACKBONES, PatchEmbed2D, ViTCore
 
 
 class VoxelViT(ViTCore):
-    """DeiT backbone + 3D voxel tokenizer + 3D head (+ the 2D pathway's parameters).
+    """DeiT backbone + 3D voxel tokenizer + 3D head (+ the 2D pathway).
 
     x: [B, V, V, V] float occupancy -> [B, n_classes] logits.
     """
@@ -53,10 +54,10 @@ class VoxelViT(ViTCore):
         self.mode = mode
         self.cls_token = nn.Parameter(trunc_normal((1, 1, d), 0.02, generator).to(device))
 
-        # the 2D pathway (LwF, forward_images): parameters only, for complete state dicts
+        # the 2D pathway (forward_images: LwF's image logits)
         n2d = (img_size // cfg["patch_size"]) ** 2
         self.patch_embed = PatchEmbed2D(cfg["patch_size"], 3, d, generator=generator,
-                                        device=device)
+                                        device=device, dtype=dtype)
         self.pos_embed = nn.Parameter(trunc_normal((1, n2d + 1, d), 0.02, generator).to(device))
         self.head = dense(d, 1000, generator=generator, device=device, dtype=dtype)
 
@@ -81,6 +82,14 @@ class VoxelViT(ViTCore):
         if self.mode == "default":
             tok = tok + self.voxel_pos_embed.to(tok.dtype)
         return self.encode(tok.contiguous())[:, 0]
+
+    def forward_images(self, x: torch.Tensor) -> torch.Tensor:
+        """The 2D pathway (the reference's vit_3d_2d_pretrain.py:435-451): [B, H, W, 3]
+        normalised images -> [B, 1000] logits, the shared cls token prepended."""
+        tokens = self.patch_embed(x)
+        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
+        tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(tokens.dtype)
+        return self.head(self.encode(tokens.contiguous())[:, 0])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.voxel_head(self.forward_features(x))

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
-                        KNN_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES, VA_REL, VA_SHAPES,
+                        KNN_SHAPES, LWF_BLOCK_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES,
+                        VA_REL, VA_SHAPES,
                         VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_cdt_check, block_inputs,
                         errors, gather_check,
                         gather_inputs, knn_check, knn_inputs, mhsa_inputs, rel_err, unit_cloud,
@@ -41,8 +42,8 @@ def device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("label,b,n,d,heads,dtype", KERNEL_SHAPES,
-                         ids=[s[0] for s in KERNEL_SHAPES])
+@pytest.mark.parametrize("label,b,n,d,heads,dtype", KERNEL_SHAPES + LWF_BLOCK_SHAPES,
+                         ids=[s[0] for s in KERNEL_SHAPES + LWF_BLOCK_SHAPES])
 def test_fused_vit_block_matches_plain(device, label, b, n, d, heads, dtype):
     x, w = block_inputs(torch, b, n, d, getattr(torch, dtype), seed=b * 1000 + n + d,
                         device=device)
@@ -68,10 +69,10 @@ def test_fused_vit_block_rejects_what_it_cannot_take(device):
     assert set(w) == set(WNAMES)
 
 
-# the flagship, the partseg training shape in both dtypes, and M = 858 token
-# rows, not a multiple of the GEMMs' 64-row tiles
+# the flagship, the partseg training shape in both dtypes, M = 858 token rows,
+# not a multiple of the GEMMs' 64-row tiles, and the LwF paths' shapes
 BLOCK_TRAIN_SHAPES = TRAIN_SHAPES[:2] + [s for s in TRAIN_SHAPES if s[0] in (
-    "B=33", "partseg N=257", "partseg N=257 bf16")]
+    "B=33", "partseg N=257", "partseg N=257 bf16")] + LWF_BLOCK_SHAPES
 
 
 @pytest.mark.parametrize("label,b,n,d,heads,dtype", BLOCK_TRAIN_SHAPES,

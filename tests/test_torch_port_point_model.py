@@ -222,8 +222,18 @@ def test_other_variants_match_jax_in_eval(point_models, variant):
     want = jm.apply({"params": params, "batch_stats": stats}, jnp.asarray(x))
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
     assert "new_head.weight" in pm.state_dict() and "head.weight" in pm.state_dict()
-    with pytest.raises(NotImplementedError, match="LwF"):
-        pm.forward_images(torch.zeros(1, 3, 224, 224))
+    # the 2D pathway (LwF): a JAX tree with it, the image logits in eval mode
+    images = cloud(5, 1, 224, 224, 3)
+    variables = jax.jit(lambda k, a, b: jm.init(k, a, b, method=jm.init_all))(
+        jax.random.key(4), jnp.asarray(x), jnp.asarray(images))
+    full = perturbed(variables["params"], 6, 0.02)
+    load_jax_params(pm, full, stats)
+    with torch.no_grad():
+        got = pm.eval().forward_images(torch.from_numpy(images)).numpy()
+    want = jm.apply({"params": full, "batch_stats": stats}, jnp.asarray(images),
+                    method=jm.forward_images)
+    assert got.shape == (1, 1000)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
 
 
 def test_state_dict_names_are_the_references():

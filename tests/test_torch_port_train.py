@@ -260,8 +260,7 @@ def test_cli_trains_on_the_cpu_and_restores(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--lwf"], "LwF"), (["--zero1"], "parallelism"), (["--pretrained"], "DeiT weights"),
-    (["--pos-embedding", "group_embed"], "other voxel routes"),
+    (["--zero1"], "parallelism"), (["--pos-embedding", "group_embed"], "other voxel routes"),
 ])
 def test_cli_refuses_what_is_not_ported(flag, match):
     with pytest.raises(NotImplementedError, match=match):
