@@ -25,7 +25,10 @@ Phases, one line each (and a line per kernel shape):
               times of kernel, plain version and library call
               (torch.nn.TransformerEncoderLayer; torch.optim.Adam(fused=True)); the
               block forward's and backward's device time by kernel at the flagship
-              and partseg shapes, each GEMM with its grid and TFLOP/s
+              and partseg shapes, each GEMM with its grid and TFLOP/s, and the
+              attention kernels' device time a call beside their bound and
+              scaled_dot_product_attention's (f32, each backend), in turns; the
+              training forward run twice too, y and its residuals bit-equal
   6. training the flagship (deit_small, B=32, f32) through the port's trainer:
               3 steps on the card against 3 on the CPU's plain path from the same
               weights and batches; the CLI on a synthetic corpus held on the card
@@ -113,10 +116,11 @@ Phases, one line each (and a line per kernel shape):
               beside the f32 step
  20. LwF      the fused block forward and training pair at the LwF shapes (N=197
               with D=384 / 6 heads, D=768 / 12 and 3 heads; N=65 with D=768 / 3
-              heads) against their plain versions, the backward twice
-              bit-equal, times at N=197 beside TransformerEncoderLayer and the
-              device time by kernel; the device crop against the CPU's from
-              the same boxes; train_partseg_lwf at full width (deit_small
+              heads) against their plain versions, the training forward and
+              the backward twice bit-equal, times at N=197 beside
+              TransformerEncoderLayer and the device time by kernel, the
+              attention's beside its bound and SDPA's; the device crop against
+              the CPU's from the same boxes; train_partseg_lwf at full width (deit_small
               3DViT_1_layer, B=32, N=1024, M=64 synthetic images): 3 steps card
               vs CPU, the CLI (the loss falls over 40 steps, a DeiT file loaded,
               launch counts a step from the model), ms a step and a profile;
@@ -156,6 +160,14 @@ KERNEL_SHAPES = [
     ("B=33", 33, 26, 384, 6, "float32"),
     ("partseg N=257", 16, 257, 192, 3, "float32"),
     ("partseg N=257 bf16", 16, 257, 192, 3, "bfloat16"),
+    # the attention kernels' other tiles and edges: head_dim 128 (D=384 with 3
+    # heads), N=512 at head_dim 256 (the largest shared-memory tile), N=1, and
+    # N=197 at bf16
+    ("dh=128", 8, 197, 384, 3, "float32"),
+    ("dh=128 bf16", 8, 197, 384, 3, "bfloat16"),
+    ("N=512 dh=256", 2, 512, 768, 3, "float32"),
+    ("N=1", 4, 1, 384, 6, "float32"),
+    ("N=197 bf16", 4, 197, 768, 12, "bfloat16"),
 ]
 # f32: the same f32 products summed in another order.
 # bf16: the same bf16-rounded operands, but a last-bit difference in an f32 sum
@@ -191,7 +203,7 @@ def phase_build():
                 label = tc_label(kernel) if is_va_gemm(kernel) else blk_label(kernel)
                 print(f"build {name}: tc_gemm_kernel {label}: {nregs} registers, "
                       f"{nspill} bytes spill stores")
-            elif name in ("fps", "knn"):
+            elif name in ("fps", "knn") or any(k in kernel for k in ATTENTION_GROUPS):
                 print(f"build {name}: {template_label(kernel)}: {nregs} registers, "
                       f"{nspill} bytes spill stores")
     print(f"build: {len(names)} sources in {wall:.1f} s")
@@ -210,12 +222,12 @@ def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
 
 
 def template_label(kernel: str) -> str:
-    """A kernel's name with its integer template arguments, from a mangled name:
-    fps_kernel<512, 2>."""
-    m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(I(?:Li-?\d+E)+E)?", kernel)
+    """A kernel's name with its integer and bool template arguments, from a
+    mangled name: fps_kernel<512, 2>, attention_kernel<64, 0>."""
+    m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(I(?:L[ib]-?\d+E)+E)?", kernel)
     if not m:
         return kernel
-    args = re.findall(r"Li(-?\d+)E", m.group(2) or "")
+    args = re.findall(r"L[ib](-?\d+)E", m.group(2) or "")
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -476,7 +488,8 @@ def phase_serving(torch):
 # the backwards' shapes: (label, B, N, D, heads, dtype name)
 TRAIN_SHAPES = [s for s in KERNEL_SHAPES
                 if s[0] in ("flagship f32", "flagship bf16", "deit_base 3 heads", "N=197",
-                            "B=1", "B=33", "partseg N=257", "partseg N=257 bf16")]
+                            "B=1", "B=33", "partseg N=257", "partseg N=257 bf16", "dh=128",
+                            "dh=128 bf16", "N=512 dh=256", "N=1", "N=197 bf16")]
 # gradients: an error relative to the largest reference value. f32: sums of
 # up to B*N products in another order; bf16: as TOL, a last-bit difference can
 # round an intermediate to the neighbouring bf16 value.
@@ -538,6 +551,7 @@ def phase_train_kernels(torch):
         g = torch.from_numpy(np.random.RandomState(b + n + d).randn(b, n, d).astype(np.float32))
         g = g.to(device="cuda", dtype=x.dtype)
         y, res = vb.fused_vit_block_train_fwd(x, w, heads)
+        y2, res2 = vb.fused_vit_block_train_fwd(x, w, heads)
         y_ref, res_ref = vb.vit_block_train_reference(x, w, heads)
         gx, gw = vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res)
         gx2, gw2 = vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res)
@@ -551,12 +565,14 @@ def phase_train_kernels(torch):
                                ("bwd_res", {"gx": gx, **gw}, {"gx": want_x, **want_w}),
                                ("bwd", {"gx": cx, **cw}, {"gx": rec_x, **rec_w})]:
             abs_errs[key], errs[key] = errors(got, want)
-        same = all(torch.equal(a, c) for a, c in [(gx, gx2), (cx, cx2)]
+        same = all(torch.equal(a, c) for a, c in [(y, y2), (gx, gx2), (cx, cx2)]
+                   + [(res[k], res2[k]) for k in res]
                    + [(gw[k], gw2[k]) for k in gw] + [(cw[k], cw2[k]) for k in cw])
         print(f"kernel training block {label} B={b} N={n} D={d} H={heads} {dtype}: error "
               f"relative to the largest value: forward+residuals {errs['fwd']:.3e}, residual "
               f"backward {errs['bwd_res']:.3e}, recompute backward {errs['bwd']:.3e} "
-              f"(tolerance {GRAD_REL[dtype]}); two runs of each backward bit-equal {same}")
+              f"(tolerance {GRAD_REL[dtype]}); two runs of the training forward (y and every "
+              f"residual) and of each backward bit-equal {same}")
         if max(errs.values()) > GRAD_REL[dtype] or not same:
             raise AssertionError(f"training block kernels {label}: errors {errs}, "
                                  f"bit-equal {same}")
@@ -565,6 +581,10 @@ def phase_train_kernels(torch):
                         f"kernel fused_vit_block_train_fwd {label}", FWD_GEMMS)
             block_split(torch, lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
                         b, n, d, f"kernel fused_vit_block_train_bwd {label}", BWD_GEMMS)
+            attention_report(torch, label, b, n, d, heads,
+                             lambda: vb.fused_vit_block_train_fwd(x, w, heads),
+                             lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+                             res["qkv"], g)
         if label != "flagship f32":
             continue
         lib = library_times(torch, x, w, heads, g)
@@ -658,6 +678,103 @@ def block_split(torch, fn, b, n, d, label, names, calls=5):
           f"{total:.4f}, GEMMs {gemm_ms:.4f} ({gemm_ms / total:.0%}): " + ", ".join(parts)
           + "; the rest: " + ", ".join(f"{g} {v:.4f}" for g, v in
                                        sorted(rest_ms.items(), key=lambda kv: -kv[1])))
+
+
+def attention_bounds(b, n, d, heads, peak=PEAK_F32) -> dict:
+    """The block attention's bound, forward and backward: the forward reads qkv
+    and writes o and the f32 probabilities; the backward reads qkv, the
+    probabilities and g_o and writes g_qkv; q k^T and p v, then g_o v^T, p^T g_o,
+    g_s k and g_s^T q, at ``peak``. -> {"fwd": (ms, by, MB, GFLOP), "bwd": ...}"""
+    qkv, o, p = 12 * b * n * d, 4 * b * n * d, 4 * b * heads * n * n
+    flops = 4 * b * heads * n * n * (d // heads)
+    out = {}
+    for k, moved, ops in (("fwd", qkv + o + p, flops), ("bwd", 2 * qkv + p + o, 2 * flops)):
+        out[k] = (*bound(moved, ops, peak), moved / 1e6, ops / 1e9)
+    return out
+
+
+def attention_device_ms(torch, fwd, bwd, iters=10) -> dict:
+    """Device ms a call of the block's attention kernels (torch.profiler over
+    ``iters`` calls of the training forward ``fwd`` and backward ``bwd``):
+    {"fwd": attention_kernel, "rows": attn_bwd_rows_kernel, "cols":
+    attn_bwd_cols_kernel, "bwd": rows + cols}; empty where the profiler
+    records no device time."""
+    f, b = device_split(torch, fwd, iters), device_split(torch, bwd, iters)
+    names = dict(zip(("fwd", "rows", "cols"), zip((f, b, b), ATTENTION_GROUPS)))
+    if any(name not in split for split, name in names.values()):
+        return {}
+    out = {k: split[name][0] for k, (split, name) in names.items()}
+    out["bwd"] = out["rows"] + out["cols"]
+    return out
+
+
+def call_device_ms(torch, fn, iters=10) -> float:
+    """Device ms of every kernel of one call of ``fn``: device_split's launches
+    recorded over ``iters`` calls, by the call."""
+    return sum(ms * n for ms, n in device_split(torch, fn, iters).values()) / iters
+
+
+def sdpa_block_ms(torch, qkv, g_o, b, n, d, heads) -> dict:
+    """Device ms (device_or_event_ms) of scaled_dot_product_attention's forward
+    and of its backward alone on the block's q, k, v (from its qkv residual,
+    f32, TF32 off), with ``g_o`` [B, N, D] (any values: the time does not
+    depend on them) as the output's gradient, under each backend that takes
+    the call: {backend: (fwd, bwd, how each was timed)}. The library yardstick
+    of the block's attention; the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    dh = d // heads
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               qkv.detach().reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4))
+    go = g_o.float().reshape(b, n, heads, dh).transpose(1, 2).contiguous()
+    out = {}
+    for name in ("EFFICIENT_ATTENTION", "FLASH_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            def fwd():
+                return F.scaled_dot_product_attention(q, k, v, scale=dh ** -0.5)
+            try:
+                y = fwd()
+                torch.autograd.grad(y, (q, k, v), go, retain_graph=True)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            (f, how_f), (bw, how_b) = (device_or_event_ms(torch, fn) for fn in (fwd, lambda: (
+                torch.autograd.grad(y, (q, k, v), go, retain_graph=True))))
+            out[name] = (f, bw, how_f if how_f == how_b else f"{how_f} / {how_b}")
+    return out
+
+
+def device_or_event_ms(torch, fn) -> tuple[float, str]:
+    """(ms, how): call_device_ms of ``fn``, or, where the profiler records no
+    device time for it, its time by CUDA events over 20 calls."""
+    ms = call_device_ms(torch, fn)
+    return (ms, "device") if ms else (time_ms(torch, fn, 20), "CUDA events")
+
+
+def attention_report(torch, label, b, n, d, heads, fwd, bwd, qkv, g_o) -> None:
+    """The block attention's device time a call, forward and backward, beside
+    its bound and SDPA's at the same q, k, v (f32), timed in turns: the
+    kernels, SDPA, the kernels. Informational when the profiler records
+    nothing."""
+    first = attention_device_ms(torch, fwd, bwd)
+    sdpa = sdpa_block_ms(torch, qkv, g_o, b, n, d, heads)
+    second = attention_device_ms(torch, fwd, bwd)
+    if not first or not second:
+        print(f"kernel block attention {label}: the profiler recorded no device time")
+        return
+    ms = {k: (first[k] + second[k]) / 2 for k in first}
+    bounds = attention_bounds(b, n, d, heads)
+    parts = []
+    for k, what in (("fwd", "forward"), ("bwd", "backward")):
+        bms, by, mb, gf = bounds[k]
+        parts.append(f"{what} {ms[k]:.4f} ms ({first[k]:.4f}, {second[k]:.4f}), bound {bms:.4f} "
+                     f"({by}: {mb:.1f} MB, {gf:.3f} GFLOP; {ms[k] / bms:.1f}x)")
+    lib = ", ".join(f"{name} {f:.4f} / {bw:.4f} ({how})"
+                    for name, (f, bw, how) in sdpa.items()) or "none"
+    print(f"kernel block attention {label} B={b} N={n} D={d} H={heads}: device ms a call, "
+          + "; ".join(parts) + f" (rows {ms['rows']:.4f}, cols {ms['cols']:.4f}); "
+          f"scaled_dot_product_attention f32 forward / backward ms: {lib}")
 
 
 def flagship_model(torch, device="cpu"):
@@ -835,6 +952,10 @@ KERNEL_GROUPS = ("VaEpiPos", "VagEpiPos", "VaEpiBias", "VaEpiSoftmax", "VaEpiMas
                  "mhsa_dkdv_kernel", "mhsa_dq_kernel")
 
 
+# the ViT block's attention kernels, forward and backward
+ATTENTION_GROUPS = ("attention_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel")
+
+
 # KERNEL_GROUPS by kind: the first kind whose prefixes a group starts with
 KERNEL_CATEGORIES = (
     ("vector-attention GEMMs", ("VaEpi", "VagEpi")),
@@ -884,6 +1005,10 @@ def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
     print(f"{label} profile by kind, ms per step (share of the device time): " + ", ".join(
         f"{k} {v / steps / 1e3:.3f} ({v / total:.1%})" for k, v in
         sorted(cats.items(), key=lambda kv: -kv[1])))
+    att = sum(groups.get(k, 0.0) for k in ATTENTION_GROUPS)
+    if att:
+        print(f"{label} profile: the ViT block's attention kernels {att / steps / 1e3:.3f} ms per "
+              f"step ({att / total:.1%} of the device time)")
     top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label} profile, PyTorch's own kernels, ms per step: "
           + "; ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in top))
@@ -2647,6 +2772,7 @@ def lwf_block_check(torch, label, b, n, d, heads, dtype):
     y0 = vb.fused_vit_block(x, w, heads)
     want0 = vb.vit_block_reference(x, w, heads)
     y, res = vb.fused_vit_block_train_fwd(x, w, heads)
+    y2, res2 = vb.fused_vit_block_train_fwd(x, w, heads)
     y_ref, res_ref = vb.vit_block_train_reference(x, w, heads)
     gx, gw = vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res)
     gx2, gw2 = vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res)
@@ -2656,11 +2782,13 @@ def lwf_block_check(torch, label, b, n, d, heads, dtype):
     torch.testing.assert_close(y0.float(), want0.float(), **TOL[dtype])
     _, train_err = errors({"y": y, **res}, {"y": y_ref, **res_ref})
     _, bwd_err = errors({"gx": gx, **gw}, {"gx": want_x, **want_w})
-    same = torch.equal(gx, gx2) and all(torch.equal(gw[k], gw2[k]) for k in gw)
+    same = (torch.equal(y, y2) and all(torch.equal(res[k], res2[k]) for k in res)
+            and torch.equal(gx, gx2) and all(torch.equal(gw[k], gw2[k]) for k in gw))
     print(f"kernel LwF block {label} B={b} N={n} D={d} H={heads} {dtype}: forward max abs err "
           f"{fwd_err:.3e} (tolerance {TOL[dtype]}); error relative to the largest value: "
           f"training forward+residuals {train_err:.3e}, residual backward {bwd_err:.3e} "
-          f"(tolerance {GRAD_REL[dtype]}); two runs of the backward bit-equal {same}")
+          f"(tolerance {GRAD_REL[dtype]}); two runs of the training forward and of the "
+          f"backward bit-equal {same}")
     if max(train_err, bwd_err) > GRAD_REL[dtype] or not same:
         raise AssertionError(f"LwF block kernels {label}: errors {train_err}, {bwd_err}, "
                              f"bit-equal {same}")
@@ -2694,6 +2822,10 @@ def lwf_block_check(torch, label, b, n, d, heads, dtype):
                 f"kernel fused_vit_block_train_fwd {label}", FWD_GEMMS, calls=3)
     block_split(torch, lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
                 b, n, d, f"kernel fused_vit_block_train_bwd {label}", BWD_GEMMS, calls=3)
+    attention_report(torch, label, b, n, d, heads,
+                     lambda: vb.fused_vit_block_train_fwd(x, w, heads),
+                     lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+                     res["qkv"], g)
 
 
 def lwf_crop_check(torch):

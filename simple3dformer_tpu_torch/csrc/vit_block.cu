@@ -13,7 +13,7 @@
 // Forward: a chain of launches from one entry point:
 //   row_stats(x)                  LayerNorm statistics of each token row, once
 //   qkv  = LN1(x) Wqkv^T + bqkv                                      -> f32 [M, 3D]
-//   attention<DH>                 one block per (query tile, head, sample) -> f32 [M, D]
+//   attention<DH>                 one block per (query rows, head, sample) -> f32 [M, D]
 //   h1   = x + (o Wproj^T + bproj)                                   -> f32 [M, D]
 //   row_stats(h1)
 //   g1   = gelu_tanh(LN2(h1) W1^T + b1)                              -> f32 [M, 4D]
@@ -25,10 +25,20 @@
 // statistics are re-derived from x and h1, then each product of the chain runs
 // as a GEMM (dX = dY W; dW = dY^T X summed over the M token rows in fixed row
 // chunks, the bias gradient, the column sum of dY, in the same pass), the
-// attention backward runs per (tile, head, sample) in two passes (query rows,
-// then key rows), and the LayerNorm gradients are column sums in a fixed order.
-// No float atomics: two runs give the same bits. The recompute backward runs
-// the training forward into scratch first and then the same backward.
+// attention backward runs per (rows, head, sample) in two kernels (query rows,
+// then key rows, g_s passed between them in the compute dtype), and the
+// LayerNorm gradients are column sums in a fixed order. No float atomics: two
+// runs give the same bits. The recompute backward runs the training forward
+// into scratch first and then the same backward.
+//
+// The attention kernels run every product on the tensor cores too (mma.sync,
+// the same two routes; the section "Attention on the tensor cores" below). At
+// B=64, N=197, D=384, 6 heads the forward reads qkv (58 MB) and writes o and
+// the f32 probabilities (79 MB), 3.8 GFLOP of products: 0.041 ms of bytes
+// against 0.023 of 3-pass TF32 products, so bytes bound it; the backward moves
+// about 195 MB (0.058 ms) for 7.6 GFLOP (0.046 ms). The score row stays whole
+// in shared memory (N <= 512), so the softmax is the exact max-subtracted
+// one and only the order of the products' f32 sums changes.
 //
 // Every GEMM runs on the tensor-core core of tc_gemm.cuh (tc_gemm_kernel, 64 x
 // 64 output tiles, 8 warps of 32 x 16): 3-pass TF32 mma.sync when the compute
@@ -402,70 +412,311 @@ cudaError_t blk_wgrad(const float* g, OpX x, int rows, int d, int n, float* part
 }
 
 // ---------------------------------------------------------------------------
-// Attention of one sample and one head for a tile of BQ queries.
-// qkv [B*N, 3D] f32 with columns (q | k | v), head h at h*DH inside each.
-// The whole [BQ, N] score tile stays in shared memory (N <= 512), so the
-// softmax is the exact max-subtracted one, with no cross-sample mask.
-// A non-null P receives the probabilities, f32 [B, H, N, N], before rounding.
+// Attention on the tensor cores, per (sample, head), q, k and v read in place
+// from qkv [B*N, 3D] f32 (columns q | k | v, head h at h*DH inside each):
+//
+//   attention_kernel      one block per (BQ query rows, head, sample): s = q k^T
+//                         scale over the key tiles into a [BQ, N] f32 tile in
+//                         shared memory (N <= 512), the exact max-subtracted
+//                         softmax on it (a non-null P receives the
+//                         probabilities, f32 [B, H, N, N], before rounding),
+//                         then o = cdt(p) v.
+//   attn_bwd_rows_kernel  the same walk for g_o's rows: g_p = g_o v^T into the
+//                         tile, g_s = p (g_p - rowsum(g_p p)) scale with p read
+//                         from P, cdt(g_s) to gS, then g_q = cdt(g_s) k.
+//   attn_bwd_cols_kernel  one block per (BJ key rows, head, sample), over the
+//                         query tiles of BI in order: warps 0-3 g_k += cdt(g_s)^T
+//                         q, warps 4-7 g_v += cdt(p)^T g_o, the sums in
+//                         registers (no float atomics: two runs give the same
+//                         bits).
+//
+// Every product is an mma.sync: 3-pass TF32 (tensor_core.cuh's split) in f32,
+// bf16 in the ROUND route, each operand rounded to nearest even where its
+// fragment leaves shared memory (qkv, P and g_o are f32 in memory; only gS is
+// kept in the compute dtype). Tiles are staged with cp.async, double-buffered,
+// so a tile's copy overlaps the products of the one before; the second
+// product's first tile is in flight through the softmax (or the g_s step).
+// Shared-memory reads are conflict-free by pitch: K-major tiles (the
+// contraction contiguous: q, k, g_o, v as the right factor of g_o v^T, and the
+// score tile) are read as float2 at (row g, column 2t), pitch 8 mod 32; for
+// TF32 the contraction column t is read at 2t and t + 4 at 2t + 1, the same
+// permutation on both sides of a product. MN-major tiles (v and k as the
+// right factor, the column kernel's four tiles) are read as scalars at (rows
+// 2t and 2t + 1, column g), pitch 4 mod 32 (f32) or 8 mod 64 (bf16).
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 16, BKV = 32, ATT_THREADS = 256;
+constexpr int ATT_THREADS = 256;  // 8 warps
 constexpr int kMaxN = 512;
 
+// The attention tiles by head_dim. A row block: BQ query rows (shared memory
+// at N = 512 under 227 KB), key tiles of BK rows, its 8 warps WR row groups of
+// 16 by WC column groups (keys of a tile in the first product, output columns
+// in the second). A column block: BJ key rows (the accumulators in registers),
+// BI query rows a stage, each role's 4 warps WRJ row groups by WCJ.
 template <int DH>
-constexpr size_t attention_smem_bytes(int n) {
-  return (static_cast<size_t>(BQ + BKV) * (DH + 1) + static_cast<size_t>(BQ) * n) * sizeof(float);
+struct Att {
+  static constexpr int BQ = DH == 256 ? 32 : 64;
+  static constexpr int BK = DH == 64 ? 64 : 32;
+  static constexpr int WR = BQ / 16, WC = 8 / WR;
+  static constexpr int BJ = DH == 256 ? 32 : 64;
+  static constexpr int BI = 32;
+  static constexpr int WRJ = BJ / 16, WCJ = 4 / WRJ;
+  static constexpr int LDK = DH + 8;  // a K-major row, floats
+  static constexpr int LDN = DH + 4;  // an MN-major row, floats
+};
+
+// g_s as the column kernel reads it: in the compute dtype
+template <bool ROUND>
+using GsT = std::conditional_t<ROUND, bf16, float>;
+
+// g_s's row pitch in gS [B*H, N, ldn]: 16-byte rows in either type
+int gs_ld(int n) { return (n + 7) / 8 * 8; }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
-template <int DH, bool ROUND>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const float* __restrict__ qkv, float* __restrict__ o, float* __restrict__ P,
-                 int N, int D, float scale) {
-  static_assert((BQ * DH) % ATT_THREADS == 0, "outputs must split evenly over threads");
-  constexpr int LD = DH + 1;  // padded rows: a warp walking j reads 32 banks
-  constexpr int PER = BQ * DH / ATT_THREADS;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][LD]
-  float* KVs = Qs + BQ * LD;     // [BKV][LD], K chunk then V chunk
-  float* S = KVs + BKV * LD;     // [BQ][N]
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ uint32_t pack2(float2 v) { return pack(v.x, v.y); }
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int nq = min(BQ, N - q0);
-  const size_t ld = 3 * static_cast<size_t>(D);
-  const float* base = qkv + static_cast<size_t>(b) * N * ld;
+// two values at p and q rounded to bf16 in one register, p's in the low half
+__device__ __forceinline__ uint32_t pair(const float* p, const float* q) { return pack(*p, *q); }
+__device__ __forceinline__ uint32_t pair(const bf16* p, const bf16* q) {
+  return static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(p)) |
+         static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(q)) << 16;
+}
 
-  for (int idx = tid; idx < BQ * DH; idx += ATT_THREADS) {
-    const int i = idx / DH, d = idx % DH;
-    Qs[i * LD + d] = i < nq ? operand<ROUND>(base[(q0 + i) * ld + h * DH + d]) : 0.f;
+// c[j] += a b_j, j < NT, in 3-pass TF32: a split already, b_j = (b[j][0],
+// b[j][1]) split here. Pass by pass over the NT products, so that consecutive
+// mma.sync are independent; every sum takes its terms in the same order.
+template <int NT>
+__device__ __forceinline__ void mma3n(float (*c)[4], const uint32_t (&ab)[4],
+                                      const uint32_t (&as)[4], const float (&b)[NT][2]) {
+  uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    split(b[j][0], bb[j][0], bs[j][0]);
+    split(b[j][1], bb[j][1], bs[j][1]);
   }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(c[j], as, bb[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(c[j], ab, bs[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(c[j], ab, bb[j]);
+}
 
-  for (int k0 = 0; k0 < N; k0 += BKV) {
-    const int nk = min(BKV, N - k0);
-    __syncthreads();
-    for (int idx = tid; idx < BKV * DH; idx += ATT_THREADS) {
-      const int j = idx / DH, d = idx % DH;
-      KVs[j * LD + d] = j < nk ? operand<ROUND>(base[(k0 + j) * ld + D + h * DH + d]) : 0.f;
+// ROWS rows of DH f32 from src (row stride ld) into dst (pitch LD), 16 bytes a
+// copy; rows at or beyond `valid` (at least 1) are zero-filled. Every thread
+// takes part; the caller commits the group.
+template <int DH, int ROWS, int LD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long ld,
+                                           int valid) {
+  constexpr int CPR = DH / 4;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += ATT_THREADS) {
+    const int r = i / CPR, c = i % CPR * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LD + c, src + (ok ? r * ld : 0) + c, ok);
+  }
+}
+
+// acc[j] += A B_j^T for one warp over a contraction of DH: A the 16 rows at A,
+// B_j the 8 rows at B + 8 j LD, both K-major (pitch LD)
+template <bool ROUND, int NT, int DH, int LD>
+__device__ __forceinline__ void mma_kmajor(const float* A, const float* B, float (&acc)[NT][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* a0 = A + g * LD + 2 * t;
+  const float* a1 = a0 + 8 * LD;
+  const float* b = B + g * LD + 2 * t;
+  if constexpr (ROUND) {
+#pragma unroll 4
+    for (int k = 0; k < DH; k += 16) {
+      const uint32_t a[4] = {pack2(ld2(a0 + k)), pack2(ld2(a1 + k)), pack2(ld2(a0 + k + 8)),
+                             pack2(ld2(a1 + k + 8))};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t bj[2] = {pack2(ld2(b + 8 * j * LD + k)), pack2(ld2(b + 8 * j * LD + k + 8))};
+        mma_bf16(acc[j], a, bj);
+      }
     }
-    __syncthreads();
-    for (int idx = tid; idx < BQ * BKV; idx += ATT_THREADS) {
-      const int i = idx / BKV, j = idx % BKV;
-      if (i < nq && j < nk) {
-        float s = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < DH; ++d) s = fmaf(Qs[i * LD + d], KVs[j * LD + d], s);
-        S[i * N + k0 + j] = s * scale;
+  } else {
+#pragma unroll 2
+    for (int k = 0; k < DH; k += 8) {
+      const float2 x0 = ld2(a0 + k), x1 = ld2(a1 + k);
+      uint32_t ab[4], as[4];
+      split(x0.x, ab[0], as[0]);
+      split(x1.x, ab[1], as[1]);
+      split(x0.y, ab[2], as[2]);
+      split(x1.y, ab[3], as[3]);
+      float bv[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 y = ld2(b + 8 * j * LD + k);
+        bv[j][0] = y.x;
+        bv[j][1] = y.y;
+      }
+      mma3n<NT>(acc, ab, as, bv);
+    }
+  }
+}
+
+// acc[j] += A B for one warp over the contraction rows [0, klen), a multiple
+// of 16: A the 16 rows at A (pitch lda, K-major: the score tile), B MN-major
+// (pitch LD: rows the contraction), columns 8 j + g
+template <bool ROUND, int NT, int LD>
+__device__ __forceinline__ void mma_mnmajor(const float* A, int lda, const float* B, int klen,
+                                            float (&acc)[NT][4]) {
+  static_assert(NT % 4 == 0, "TF32 takes the columns four fragments at a time");
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* a0 = A + g * lda + 2 * t;
+  const float* a1 = a0 + 8 * lda;
+  const float* b = B + 2 * t * LD + g;
+  if constexpr (ROUND) {
+#pragma unroll 2
+    for (int k = 0; k < klen; k += 16) {
+      const uint32_t a[4] = {pack2(ld2(a0 + k)), pack2(ld2(a1 + k)), pack2(ld2(a0 + k + 8)),
+                             pack2(ld2(a1 + k + 8))};
+      const float* bk = b + k * LD;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t bj[2] = {pair(bk + 8 * j, bk + LD + 8 * j),
+                                pair(bk + 8 * LD + 8 * j, bk + 9 * LD + 8 * j)};
+        mma_bf16(acc[j], a, bj);
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int k = 0; k < klen; k += 8) {
+      const float2 x0 = ld2(a0 + k), x1 = ld2(a1 + k);
+      uint32_t ab[4], as[4];
+      split(x0.x, ab[0], as[0]);
+      split(x1.x, ab[1], as[1]);
+      split(x0.y, ab[2], as[2]);
+      split(x1.y, ab[3], as[3]);
+      const float* bk = b + k * LD;
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += 4) {
+        float bv[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bv[j][0] = bk[8 * (j0 + j)];
+          bv[j][1] = bk[LD + 8 * (j0 + j)];
+        }
+        mma3n<4>(acc + j0, ab, as, bv);
       }
     }
   }
-  __syncthreads();
+}
 
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int i = warp; i < nq; i += ATT_THREADS / 32) {
-      float* row = S + i * N;
+// acc[j] += A^T B for one warp over KLEN contraction rows: A the columns
+// 0 .. 15 at A of a tile [rows][columns] (pitch LDA, MN-major), B MN-major
+// (pitch LDB), columns 8 j + g
+template <bool ROUND, int NT, int KLEN, int LDA, int LDB, typename TA>
+__device__ __forceinline__ void mma_cols(const TA* A, const float* B, float (&acc)[NT][4]) {
+  static_assert(NT % 4 == 0, "TF32 takes the columns four fragments at a time");
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const TA* a = A + 2 * t * LDA + g;
+  const float* b = B + 2 * t * LDB + g;
+#pragma unroll
+  for (int k = 0; k < KLEN; k += ROUND ? 16 : 8) {
+    const TA* ak = a + k * LDA;
+    const float* bk = b + k * LDB;
+    if constexpr (ROUND) {
+      const uint32_t af[4] = {pair(ak, ak + LDA), pair(ak + 8, ak + LDA + 8),
+                              pair(ak + 8 * LDA, ak + 9 * LDA),
+                              pair(ak + 8 * LDA + 8, ak + 9 * LDA + 8)};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t bj[2] = {pair(bk + 8 * j, bk + LDB + 8 * j),
+                                pair(bk + 8 * LDB + 8 * j, bk + 9 * LDB + 8 * j)};
+        mma_bf16(acc[j], af, bj);
+      }
+    } else {
+      uint32_t ab[4], as[4];
+      split(ak[0], ab[0], as[0]);
+      split(ak[8], ab[1], as[1]);
+      split(ak[LDA], ab[2], as[2]);
+      split(ak[LDA + 8], ab[3], as[3]);
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += 4) {
+        float bv[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bv[j][0] = bk[8 * (j0 + j)];
+          bv[j][1] = bk[LDB + 8 * (j0 + j)];
+        }
+        mma3n<4>(acc + j0, ab, as, bv);
+      }
+    }
+  }
+}
+
+// A row block (attention_kernel, BWD false; attn_bwd_rows_kernel, BWD true):
+// rows A (q, or g_o), pitch lda, from this block's sample and head; B1 and B2
+// the key rows of the two products (k then v, or v then k), pitch ldb; out
+// (o, or g_q), pitch ldo. P: the probabilities [B, H, N, N], written (forward,
+// when not null) or read (backward); gS [B, H, N, ldn] receives cdt(g_s).
+template <int DH, bool ROUND, bool BWD>
+__device__ __forceinline__ void attention_rows(const float* __restrict__ A, long long lda,
+                                               const float* __restrict__ B1,
+                                               const float* __restrict__ B2, long long ldb,
+                                               float* __restrict__ P, GsT<ROUND>* __restrict__ gS,
+                                               int ldn, float* __restrict__ out, long long ldo,
+                                               int N, float scale) {
+  using C = Att<DH>;
+  constexpr int BQ = C::BQ, BK = C::BK, LDK = C::LDK, LDN = C::LDN;
+  constexpr int KW = BK / C::WC, NT1 = KW / 8;  // a warp's keys of a tile
+  constexpr int CW = DH / C::WC, NT2 = CW / 8;  // a warp's output columns
+  extern __shared__ __align__(16) float smem[];
+  const int npad = (N + 15) / 16 * 16, lds = npad + 8;  // lds: 8 mod 16
+  float* S = smem;            // [BQ][lds] scores or g_p, then cdt(p) or cdt(g_s)
+  float* As = S + BQ * lds;   // [BQ][LDK]
+  float* Bs = As + BQ * LDK;  // [2][BK][LDK] key tiles, K-major then MN-major
+  const int q0 = blockIdx.x * BQ, nq = min(BQ, N - q0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp % C::WR, wc = warp / C::WR;
+  const bool live = 16 * wr < nq;  // the warp's rows hold queries
+  const int tiles = (N + BK - 1) / BK;
+  const auto buf = [&](int i) { return Bs + (i & 1) * BK * LDK; };
+
+  stage_rows<DH, BQ, LDK>(As, A + q0 * lda, lda, nq);
+  stage_rows<DH, BK, LDK>(buf(0), B1, ldb, N);
+  cp_commit();
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles)
+      stage_rows<DH, BK, LDK>(buf(j + 1), B1 + (j + 1) * BK * ldb, ldb, N - (j + 1) * BK);
+    else  // the second product's first tile, in flight through the row step
+      stage_rows<DH, BK, LDN>(buf(j + 1), B2, ldb, N);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const int k0 = j * BK + wc * KW;
+    if (live && k0 < N) {
+      float acc[NT1][4] = {};
+      mma_kmajor<ROUND, NT1, DH, LDK>(As + 16 * wr * LDK, buf(j) + wc * KW * LDK, acc);
+      float* s = S + (16 * wr + g) * lds + k0 + 2 * t;
+#pragma unroll
+      for (int c = 0; c < NT1; ++c) {
+        if (k0 + 8 * c >= npad) break;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = BWD ? acc[c][e] : __fmul_rn(acc[c][e], scale);
+        *reinterpret_cast<float2*>(s + 8 * c) = make_float2(x[0], x[1]);
+        *reinterpret_cast<float2*>(s + 8 * lds + 8 * c) = make_float2(x[2], x[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // the row step, a warp a row: columns N .. npad end as zeros
+  const size_t row0 = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * N + q0;
+  for (int i = warp; i < nq; i += ATT_THREADS / 32) {
+    float* row = S + i * lds;
+    if constexpr (!BWD) {
       float mx = -CUDART_INF_F;
       for (int j = lane; j < N; j += 32) mx = fmaxf(mx, row[j]);
       mx = warp_max(mx);
@@ -476,46 +727,174 @@ attention_kernel(const float* __restrict__ qkv, float* __restrict__ o, float* __
         sum += e;
       }
       sum = warp_sum(sum);
-      float* prow = P == nullptr ? nullptr
-                                 : P + ((static_cast<size_t>(b) * gridDim.y + h) * N + q0 + i) * N;
+      float* prow = P == nullptr ? nullptr : P + (row0 + i) * N;
       for (int j = lane; j < N; j += 32) {
         const float p = row[j] / sum;
         if (prow != nullptr) prow[j] = p;
         row[j] = operand<ROUND>(p);
       }
-    }
-  }
-
-  float acc[PER];
-#pragma unroll
-  for (int r = 0; r < PER; ++r) acc[r] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += BKV) {
-    const int nk = min(BKV, N - k0);
-    __syncthreads();
-    for (int idx = tid; idx < BKV * DH; idx += ATT_THREADS) {
-      const int j = idx / DH, d = idx % DH;
-      KVs[j * LD + d] = j < nk ? operand<ROUND>(base[(k0 + j) * ld + 2 * D + h * DH + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      const int idx = tid + r * ATT_THREADS;
-      const int i = idx / DH, d = idx % DH;
-      if (i < nq) {
-        float a = acc[r];
-        for (int j = 0; j < nk; ++j) a = fmaf(S[i * N + k0 + j], KVs[j * LD + d], a);
-        acc[r] = a;
+    } else {
+      const float* prow = P + (row0 + i) * N;
+      float r = 0.f;
+      for (int j = lane; j < N; j += 32) r += row[j] * prow[j];
+      r = warp_sum(r);
+      GsT<ROUND>* grow = gS + (row0 + i) * ldn;
+      for (int j = lane; j < N; j += 32) {
+        const float gs = prow[j] * (row[j] - r) * scale;
+        store(grow + j, gs);
+        row[j] = operand<ROUND>(gs);
       }
+      for (int j = N + lane; j < ldn; j += 32) store(grow + j, 0.f);
     }
+    for (int j = N + lane; j < npad; j += 32) row[j] = 0.f;
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int r = 0; r < PER; ++r) {
-    const int idx = tid + r * ATT_THREADS;
-    const int i = idx / DH, d = idx % DH;
-    if (i < nq) o[(static_cast<size_t>(b) * N + q0 + i) * D + h * DH + d] = acc[r];
+  float acc[NT2][4] = {};
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles)
+      stage_rows<DH, BK, LDN>(buf(tiles + j + 1), B2 + (j + 1) * BK * ldb, ldb,
+                              N - (j + 1) * BK);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    if (live)
+      mma_mnmajor<ROUND, NT2, LDN>(S + 16 * wr * lds + j * BK, lds, buf(tiles + j) + wc * CW,
+                                   min(BK, npad - j * BK), acc);
+    __syncthreads();
   }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + 16 * wr + g + 8 * r;
+    if (!live || q >= N) continue;
+    float* o = out + q * ldo + wc * CW + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NT2; ++c)
+      *reinterpret_cast<float2*>(o + 8 * c) = make_float2(acc[c][2 * r], acc[c][2 * r + 1]);
+  }
+}
+
+// The row kernels: two blocks an SM (at head_dim 64 their shared memory
+// allows no more once N > 64), so up to 128 registers a thread; ptxas left
+// to itself held some of them at 64 and spilled.
+template <int DH, bool ROUND>
+__global__ void __launch_bounds__(ATT_THREADS, 2)
+attention_kernel(const float* __restrict__ qkv, float* __restrict__ o, float* __restrict__ P,
+                 int N, int D, float scale) {
+  const long long ld = 3LL * D, row0 = static_cast<long long>(blockIdx.z) * N;
+  const float* base = qkv + row0 * ld + blockIdx.y * DH;
+  attention_rows<DH, ROUND, false>(base, ld, base + D, base + 2 * D, ld, P, nullptr, 0,
+                                   o + row0 * D + blockIdx.y * DH, D, N, scale);
+}
+
+template <int DH, bool ROUND>
+__global__ void __launch_bounds__(ATT_THREADS, 2)
+attn_bwd_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ P,
+                     const float* __restrict__ g_o, GsT<ROUND>* __restrict__ gS, int ldn,
+                     float* __restrict__ g_qkv, int N, int D, float scale) {
+  const long long ld = 3LL * D, row0 = static_cast<long long>(blockIdx.z) * N;
+  const float* base = qkv + row0 * ld + blockIdx.y * DH;
+  attention_rows<DH, ROUND, true>(g_o + row0 * D + blockIdx.y * DH, D, base + 2 * D, base + D, ld,
+                                  const_cast<float*>(P), gS, ldn,
+                                  g_qkv + row0 * ld + blockIdx.y * DH, ld, N, scale);
+}
+
+// A column block's stage: the tiles of g_s (in the compute dtype) and of p,
+// [BI][BJ] each, and of q and g_o, [BI][DH]
+template <int DH, bool ROUND>
+struct ColsStage {
+  using C = Att<DH>;
+  using TG = GsT<ROUND>;
+  static constexpr int LDG = C::BJ + 16 / static_cast<int>(sizeof(TG)), LDP = C::BJ + 4;
+  static constexpr int G_BYTES = C::BI * LDG * static_cast<int>(sizeof(TG));
+  static constexpr int P_FLOATS = C::BI * LDP, R_FLOATS = C::BI * C::LDN;
+  static constexpr int BYTES = G_BYTES + 4 * (P_FLOATS + 2 * R_FLOATS);
+};
+
+template <int DH, bool ROUND>
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_bwd_cols_kernel(const float* __restrict__ qkv, const float* __restrict__ P,
+                     const float* __restrict__ g_o, const GsT<ROUND>* __restrict__ gS, int ldn,
+                     float* __restrict__ g_qkv, int N, int D) {
+  using C = Att<DH>;
+  using St = ColsStage<DH, ROUND>;
+  using TG = GsT<ROUND>;
+  constexpr int BI = C::BI, BJ = C::BJ, LDN = C::LDN;
+  constexpr int CW = DH / C::WCJ, NT = CW / 8;
+  extern __shared__ __align__(16) unsigned char raw[];
+  const int j0 = blockIdx.x * BJ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int role = warp / 4, wr = warp % 4 % C::WRJ, wc = warp % 4 / C::WRJ;
+  const bool live = j0 + 16 * wr < N;
+  const long long ld = 3LL * D;
+  const size_t bh = static_cast<size_t>(b) * gridDim.y + h;
+  const float* qh = qkv + b * N * ld + h * DH;
+  const float* gh = g_o + static_cast<long long>(b) * N * D + h * DH;
+  const float* ph = P + bh * N * N + j0;
+  const TG* sh = gS + bh * N * ldn + j0;
+  const auto at = [&](int s) { return raw + (s & 1) * St::BYTES; };
+
+  // query rows i0 .. i0 + BI - 1 into a stage; rows at or beyond N, and
+  // columns at or beyond N of p and g_s, zero-filled
+  const auto load = [&](int i0, unsigned char* st) {
+    TG* Gt = reinterpret_cast<TG*>(st);
+    float* Pt = reinterpret_cast<float*>(st + St::G_BYTES);
+    float* Qt = Pt + St::P_FLOATS;
+    const int rows = N - i0;
+    constexpr int PER = 16 / static_cast<int>(sizeof(TG)), CPR = BJ / PER;
+    for (int e = threadIdx.x; e < BI * CPR; e += ATT_THREADS) {
+      const int r = e / CPR, c = e % CPR * PER;
+      const bool ok = r < rows && j0 + c < N;
+      cp_async16(Gt + r * St::LDG + c, sh + (ok ? static_cast<long long>(i0 + r) * ldn + c : 0),
+                 ok);
+    }
+    for (int e = threadIdx.x; e < BI * BJ; e += ATT_THREADS) {
+      const int r = e / BJ, c = e % BJ;
+      const bool ok = r < rows && j0 + c < N;
+      cp_async4(Pt + r * St::LDP + c, ph + (ok ? static_cast<long long>(i0 + r) * N + c : 0), ok);
+    }
+    stage_rows<DH, BI, LDN>(Qt, qh + i0 * ld, ld, rows);
+    stage_rows<DH, BI, LDN>(Qt + St::R_FLOATS, gh + static_cast<long long>(i0) * D, D, rows);
+  };
+
+  const int steps = (N + BI - 1) / BI;
+  load(0, at(0));
+  cp_commit();
+  float acc[NT][4] = {};  // g_k (role 0) or g_v (role 1)
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) load((s + 1) * BI, at(s + 1));
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    if (live) {
+      const unsigned char* st = at(s);
+      const float* Pt = reinterpret_cast<const float*>(st + St::G_BYTES);
+      const float* Qt = Pt + St::P_FLOATS;
+      if (role == 0)
+        mma_cols<ROUND, NT, BI, St::LDG, LDN>(reinterpret_cast<const TG*>(st) + 16 * wr,
+                                              Qt + wc * CW, acc);
+      else
+        mma_cols<ROUND, NT, BI, St::LDP, LDN>(Pt + 16 * wr, Qt + St::R_FLOATS + wc * CW, acc);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = j0 + 16 * wr + g + 8 * r;
+    if (!live || j >= N) continue;
+    float* o = g_qkv + (static_cast<long long>(b) * N + j) * ld + (role + 1) * D + h * DH +
+               wc * CW + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+      *reinterpret_cast<float2*>(o + 8 * c) = make_float2(acc[c][2 * r], acc[c][2 * r + 1]);
+  }
+}
+
+template <int DH>
+size_t rows_smem_bytes(int n) {
+  using C = Att<DH>;
+  return sizeof(float) * (static_cast<size_t>(C::BQ) * ((n + 15) / 16 * 16 + 8) +
+                          static_cast<size_t>(C::BQ + 2 * C::BK) * C::LDK);
 }
 
 #define S3F_TRY(expr)                          \
@@ -528,12 +907,11 @@ template <int DH, bool ROUND>
 cudaError_t launch_attention(const float* qkv, float* o, float* P, int B, int N, int D, int H,
                              cudaStream_t stream) {
   static SmemOnce once;
-  S3F_TRY(static_cast<cudaError_t>(once(attention_kernel<DH, ROUND>,
-                                        attention_smem_bytes<DH>(kMaxN))));
-  const size_t smem = attention_smem_bytes<DH>(N);
-  const dim3 grid((N + BQ - 1) / BQ, H, B);
+  S3F_TRY(static_cast<cudaError_t>(once(attention_kernel<DH, ROUND>, rows_smem_bytes<DH>(kMaxN))));
+  const dim3 grid((N + Att<DH>::BQ - 1) / Att<DH>::BQ, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  attention_kernel<DH, ROUND><<<grid, ATT_THREADS, smem, stream>>>(qkv, o, P, N, D, scale);
+  attention_kernel<DH, ROUND><<<grid, ATT_THREADS, rows_smem_bytes<DH>(N), stream>>>(
+      qkv, o, P, N, D, scale);
   return cudaGetLastError();
 }
 
@@ -737,197 +1115,26 @@ cudaError_t ln_grads(const float* G, const float* X, const float* mean, const fl
   return cudaGetLastError();
 }
 
-// Attention backward, pass 1: one block per (query tile, head, sample), the
-// [BQ, N] tile of g_p in shared memory as the forward holds its scores:
-//   g_p = g_o v^T,  g_s = p * (g_p - sum_j g_p p) * scale   (f32, also to gS),
-//   g_q = g_s k     -> columns [h*DH, (h+1)*DH) of g_qkv.
+// The attention backward: the row kernel (g_q, and cdt(g_s) to gs, B*H*N*ldn
+// values of the compute dtype), then the column kernel (g_k, g_v).
 template <int DH, bool ROUND>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_bwd_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ P,
-                     const float* __restrict__ g_o, float* __restrict__ gS,
-                     float* __restrict__ g_qkv, int N, int D, float scale) {
-  static_assert((BQ * DH) % ATT_THREADS == 0, "outputs must split evenly over threads");
-  constexpr int LD = DH + 1;
-  constexpr int PER = BQ * DH / ATT_THREADS;
-  extern __shared__ float smem[];
-  float* Gs = smem;             // [BQ][LD] rows of g_o
-  float* KVs = Gs + BQ * LD;    // [BKV][LD], a V chunk, later a K chunk
-  float* S = KVs + BKV * LD;    // [BQ][N], g_p, then g_s rounded
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int nq = min(BQ, N - q0);
-  const size_t ld = 3 * static_cast<size_t>(D);
-  const float* base = qkv + static_cast<size_t>(b) * N * ld;
-  const float* gbase = g_o + static_cast<size_t>(b) * N * D;
-  const size_t pbase = (static_cast<size_t>(b) * gridDim.y + h) * N * N;
-
-  for (int idx = tid; idx < BQ * DH; idx += ATT_THREADS) {
-    const int i = idx / DH, d = idx % DH;
-    Gs[i * LD + d] = i < nq ? operand<ROUND>(gbase[(q0 + i) * static_cast<size_t>(D) + h * DH + d])
-                            : 0.f;
-  }
-
-  for (int k0 = 0; k0 < N; k0 += BKV) {
-    const int nk = min(BKV, N - k0);
-    __syncthreads();
-    for (int idx = tid; idx < BKV * DH; idx += ATT_THREADS) {
-      const int j = idx / DH, d = idx % DH;
-      KVs[j * LD + d] = j < nk ? operand<ROUND>(base[(k0 + j) * ld + 2 * D + h * DH + d]) : 0.f;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < BQ * BKV; idx += ATT_THREADS) {
-      const int i = idx / BKV, j = idx % BKV;
-      if (i < nq && j < nk) {
-        float s = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < DH; ++d) s = fmaf(Gs[i * LD + d], KVs[j * LD + d], s);
-        S[i * N + k0 + j] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int i = warp; i < nq; i += ATT_THREADS / 32) {
-      float* row = S + i * N;
-      const float* prow = P + pbase + static_cast<size_t>(q0 + i) * N;
-      float r = 0.f;
-      for (int j = lane; j < N; j += 32) r += row[j] * prow[j];
-      r = warp_sum(r);
-      float* grow = gS + pbase + static_cast<size_t>(q0 + i) * N;
-      for (int j = lane; j < N; j += 32) {
-        const float gs = prow[j] * (row[j] - r) * scale;
-        grow[j] = gs;
-        row[j] = operand<ROUND>(gs);
-      }
-    }
-  }
-
-  float acc[PER];
-#pragma unroll
-  for (int r = 0; r < PER; ++r) acc[r] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += BKV) {
-    const int nk = min(BKV, N - k0);
-    __syncthreads();
-    for (int idx = tid; idx < BKV * DH; idx += ATT_THREADS) {
-      const int j = idx / DH, d = idx % DH;
-      KVs[j * LD + d] = j < nk ? operand<ROUND>(base[(k0 + j) * ld + D + h * DH + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      const int idx = tid + r * ATT_THREADS;
-      const int i = idx / DH, d = idx % DH;
-      if (i < nq) {
-        float a = acc[r];
-        for (int j = 0; j < nk; ++j) a = fmaf(S[i * N + k0 + j], KVs[j * LD + d], a);
-        acc[r] = a;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < PER; ++r) {
-    const int idx = tid + r * ATT_THREADS;
-    const int i = idx / DH, d = idx % DH;
-    if (i < nq) g_qkv[(static_cast<size_t>(b) * N + q0 + i) * ld + h * DH + d] = acc[r];
-  }
-}
-
-// Attention backward, pass 2: one block per (key tile of BJ, head, sample),
-// summing over every query in chunks of BI:
-//   g_k = g_s^T q -> columns D + [h*DH, ...),  g_v = p^T g_o -> columns 2D + [h*DH, ...).
-constexpr int BJ = 16, BI = 16;
-
-template <int DH, bool ROUND>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_bwd_cols_kernel(const float* __restrict__ qkv, const float* __restrict__ P,
-                     const float* __restrict__ g_o, const float* __restrict__ gS,
-                     float* __restrict__ g_qkv, int N, int D) {
-  static_assert((BJ * DH) % ATT_THREADS == 0, "outputs must split evenly over threads");
-  constexpr int LD = DH + 1;
-  constexpr int PER = BJ * DH / ATT_THREADS;
-  __shared__ float Pc[BI][BJ];
-  __shared__ float Gc[BI][BJ];
-  __shared__ float GOc[BI * LD];
-  __shared__ float Qc[BI * LD];
-
-  const int j0 = blockIdx.x * BJ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int nj = min(BJ, N - j0);
-  const size_t ld = 3 * static_cast<size_t>(D);
-  const float* base = qkv + static_cast<size_t>(b) * N * ld;
-  const float* gbase = g_o + static_cast<size_t>(b) * N * D;
-  const size_t pbase = (static_cast<size_t>(b) * gridDim.y + h) * N * N;
-
-  float acc_k[PER], acc_v[PER];
-#pragma unroll
-  for (int r = 0; r < PER; ++r) acc_k[r] = acc_v[r] = 0.f;
-
-  for (int i0 = 0; i0 < N; i0 += BI) {
-    const int ni = min(BI, N - i0);
-    __syncthreads();
-    for (int idx = tid; idx < BI * BJ; idx += ATT_THREADS) {
-      const int ii = idx / BJ, jj = idx % BJ;
-      const bool ok = ii < ni && jj < nj;
-      const size_t at = pbase + static_cast<size_t>(i0 + ii) * N + j0 + jj;
-      Pc[ii][jj] = ok ? operand<ROUND>(P[at]) : 0.f;
-      Gc[ii][jj] = ok ? operand<ROUND>(gS[at]) : 0.f;
-    }
-    for (int idx = tid; idx < BI * DH; idx += ATT_THREADS) {
-      const int ii = idx / DH, d = idx % DH;
-      const bool ok = ii < ni;
-      GOc[ii * LD + d] =
-          ok ? operand<ROUND>(gbase[(i0 + ii) * static_cast<size_t>(D) + h * DH + d]) : 0.f;
-      Qc[ii * LD + d] = ok ? operand<ROUND>(base[(i0 + ii) * ld + h * DH + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      const int idx = tid + r * ATT_THREADS;
-      const int jj = idx / DH, d = idx % DH;
-      float ak = acc_k[r], av = acc_v[r];
-      for (int ii = 0; ii < ni; ++ii) {
-        ak = fmaf(Gc[ii][jj], Qc[ii * LD + d], ak);
-        av = fmaf(Pc[ii][jj], GOc[ii * LD + d], av);
-      }
-      acc_k[r] = ak;
-      acc_v[r] = av;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < PER; ++r) {
-    const int idx = tid + r * ATT_THREADS;
-    const int jj = idx / DH, d = idx % DH;
-    if (jj < nj) {
-      const size_t row = (static_cast<size_t>(b) * N + j0 + jj) * ld;
-      g_qkv[row + D + h * DH + d] = acc_k[r];
-      g_qkv[row + 2 * D + h * DH + d] = acc_v[r];
-    }
-  }
-}
-
-template <int DH, bool ROUND>
-cudaError_t launch_attention_bwd(const float* qkv, const float* P, const float* g_o, float* gS,
+cudaError_t launch_attention_bwd(const float* qkv, const float* P, const float* g_o, float* gs,
                                  float* g_qkv, int B, int N, int D, int H, cudaStream_t stream) {
-  static SmemOnce once;
-  S3F_TRY(static_cast<cudaError_t>(once(attn_bwd_rows_kernel<DH, ROUND>,
-                                        attention_smem_bytes<DH>(kMaxN))));
-  const size_t smem = attention_smem_bytes<DH>(N);
+  using C = Att<DH>;
+  constexpr size_t cols_smem = 2 * ColsStage<DH, ROUND>::BYTES;
+  static SmemOnce rows_once, cols_once;
+  S3F_TRY(static_cast<cudaError_t>(rows_once(attn_bwd_rows_kernel<DH, ROUND>,
+                                             rows_smem_bytes<DH>(kMaxN))));
+  S3F_TRY(static_cast<cudaError_t>(cols_once(attn_bwd_cols_kernel<DH, ROUND>, cols_smem)));
+  GsT<ROUND>* gst = reinterpret_cast<GsT<ROUND>*>(gs);
+  const int ldn = gs_ld(N);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  attn_bwd_rows_kernel<DH, ROUND><<<dim3((N + BQ - 1) / BQ, H, B), ATT_THREADS, smem, stream>>>(
-      qkv, P, g_o, gS, g_qkv, N, D, scale);
+  attn_bwd_rows_kernel<DH, ROUND><<<dim3((N + C::BQ - 1) / C::BQ, H, B), ATT_THREADS,
+                                    rows_smem_bytes<DH>(N), stream>>>(qkv, P, g_o, gst, ldn,
+                                                                      g_qkv, N, D, scale);
   S3F_TRY(cudaGetLastError());
-  attn_bwd_cols_kernel<DH, ROUND><<<dim3((N + BJ - 1) / BJ, H, B), ATT_THREADS, 0, stream>>>(
-      qkv, P, g_o, gS, g_qkv, N, D);
+  attn_bwd_cols_kernel<DH, ROUND><<<dim3((N + C::BJ - 1) / C::BJ, H, B), ATT_THREADS, cols_smem,
+                                    stream>>>(qkv, P, g_o, gst, ldn, g_qkv, N, D);
   return cudaGetLastError();
 }
 
@@ -957,13 +1164,19 @@ size_t backward_partial_floats(int M, int D) {
                    wgrad_partial_floats(M, D, D), wgrad_partial_floats(M, 3 * D, D)});
 }
 
-size_t backward_floats(int B, int N, int D, int H) {
+// g_s in the compute dtype, [B*H, N, gs_ld(N)], in floats
+size_t gs_floats(int B, int N, int H, int cdt_bf16) {
+  const size_t n = static_cast<size_t>(B) * H * N * gs_ld(N);
+  return cdt_bf16 ? (n + 1) / 2 : n;
+}
+
+size_t backward_floats(int B, int N, int D, int H, int cdt_bf16) {
   const int M = B * N;
   const size_t md = static_cast<size_t>(M) * D;
   // x and g in f32, g_a1 4, g_z2, g_h1, g_o, g_z1, g_qkv 3; the partials; the
   // arrival counters; LayerNorm stats; g_s
   return 2 * md + 4 * md + 4 * md + 3 * md + backward_partial_floats(M, D) + kMaxSplitTiles +
-         4 * static_cast<size_t>(M) + static_cast<size_t>(B) * H * N * N;
+         4 * static_cast<size_t>(M) + gs_floats(B, N, H, cdt_bf16);
 }
 
 // The backward from the residuals (the TPU kernel's _bwd_kernel_res :394).
@@ -1158,9 +1371,11 @@ void s3f_vit_block_gemm_grids(int B, int N, int D, int* out) {
   }
 }
 
-// f32 scratch of s3f_vit_block_bwd_res, and of s3f_vit_block_bwd (recompute).
-long long s3f_vit_block_bwd_scratch_floats(int B, int N, int D, int H, int recompute) {
-  size_t n = backward_floats(B, N, D, H);
+// f32 scratch of s3f_vit_block_bwd_res, and of s3f_vit_block_bwd (recompute),
+// for the compute dtype cdt_bf16 (g_s is kept in it).
+long long s3f_vit_block_bwd_scratch_floats(int B, int N, int D, int H, int recompute,
+                                           int cdt_bf16) {
+  size_t n = backward_floats(B, N, D, H, cdt_bf16);
   if (recompute)  // the residuals, the forward's scratch and y
     n += aligned4(residual_floats(B, N, D, H)) + forward_floats(B, N, D, 0) +
          static_cast<size_t>(B) * N * D;

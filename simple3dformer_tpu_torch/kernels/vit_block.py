@@ -34,20 +34,24 @@ runs on the tensor-core core shared with the vector attention
 for an f32 compute dtype, bf16 ``mma.sync`` for bf16. Forward: each
 LayerNorm's row statistics once, GEMMs that apply the LayerNorm to the staged
 operand (qkv, fc1, the latter with a GELU epilogue keeping a1), an attention
-kernel per (query tile, head, sample) that holds the whole score row in
-shared memory (N <= 512), and GEMMs with bias and residual epilogues (proj,
-fc2). Backward: each input gradient one GEMM (dX = dY W), each weight
-gradient one GEMM over the M = B*N token rows in fixed chunks with its bias
-gradient summed in the same pass (dW = dY^T X, in [out, in] layout; the
-chunks' partials added in order), LayerNorm weight gradients column sums in a
-fixed order, the LayerNorm input gradient a row kernel, and the attention
-backward two kernels per (tile, head, sample), one over query rows and one
-over key rows. Where a GEMM's output tiles do not fill the card's 132 SMs its
-contraction is split in fixed chunks too. No float atomics, so two runs give
-the same bits. At the flagship shape (B=32, N=26, D=384) the products bound
-a call (2.98 GFLOP a forward), and M = 832 rows make the GEMMs small, so
-launch latency weighs too. ``wgmma``, TMA and one persistent launch are later
-work.
+kernel per (64 query rows, head, sample; 32 at head_dim 256) that holds the
+whole score row in shared memory (N <= 512), so the softmax is the exact
+one, and GEMMs with bias and residual epilogues (proj, fc2). Backward: each
+input gradient one GEMM (dX = dY W), each weight gradient one GEMM over the
+M = B*N token rows in fixed chunks with its bias gradient summed in the same
+pass (dW = dY^T X, in [out, in] layout; the chunks' partials added in order),
+LayerNorm weight gradients column sums in a fixed order, the LayerNorm input
+gradient a row kernel, and the attention backward two kernels: one over query
+rows (g_p = g_o v^T, g_s, g_q = g_s k; g_s passed on in the compute dtype)
+and one over key rows (g_k = g_s^T q and g_v = p^T g_o, summed over the query
+tiles in order in registers). The attention's products run on the tensor
+cores as the GEMMs' do (``mma.sync``, 3-pass TF32 or bf16), their tiles
+staged with cp.async, double-buffered. Where a GEMM's output tiles do not
+fill the card's 132 SMs its contraction is split in fixed chunks too. No
+float atomics, so two runs give the same bits. At the flagship shape (B=32,
+N=26, D=384) the products bound a call (2.98 GFLOP a forward), and M = 832
+rows make the GEMMs small, so launch latency weighs too. ``wgmma``, TMA and
+one persistent launch are later work.
 
 On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
@@ -280,7 +284,7 @@ def _lib():
         fn.restype = ctypes.c_int
     lib.s3f_vit_block_residual_floats.argtypes = [i32] * 4
     lib.s3f_vit_block_fwd_scratch_floats.argtypes = [i32] * 5
-    lib.s3f_vit_block_bwd_scratch_floats.argtypes = [i32] * 5
+    lib.s3f_vit_block_bwd_scratch_floats.argtypes = [i32] * 6
     for fn in (lib.s3f_vit_block_residual_floats, lib.s3f_vit_block_fwd_scratch_floats,
                lib.s3f_vit_block_bwd_scratch_floats):
         fn.restype = ctypes.c_longlong
@@ -410,7 +414,8 @@ def fused_vit_block_train_bwd(x: torch.Tensor, g: torch.Tensor, weights: dict, h
     res = _residual_buffer(residuals, x, heads)
     gx = torch.empty_like(x)
     grads = _grad_buffers(x)
-    scratch = torch.empty(lib.s3f_vit_block_bwd_scratch_floats(b, n, d, heads, 0),
+    scratch = torch.empty(lib.s3f_vit_block_bwd_scratch_floats(b, n, d, heads, 0,
+                                                                    _flags(x, cdt)[1]),
                           device=x.device, dtype=torch.float32)
     _launch("fused_vit_block_train_bwd", x, lib.s3f_vit_block_bwd_res, x.data_ptr(),
             g.data_ptr(), gx.data_ptr(), *_flags(x, cdt), b, n, d, heads,
@@ -433,7 +438,8 @@ def fused_vit_block_bwd(x: torch.Tensor, g: torch.Tensor, weights: dict, heads: 
     lib = _lib()
     gx = torch.empty_like(x)
     grads = _grad_buffers(x)
-    scratch = torch.empty(lib.s3f_vit_block_bwd_scratch_floats(b, n, d, heads, 1),
+    scratch = torch.empty(lib.s3f_vit_block_bwd_scratch_floats(b, n, d, heads, 1,
+                                                                    _flags(x, cdt)[1]),
                           device=x.device, dtype=torch.float32)
     _launch("fused_vit_block_bwd", x, lib.s3f_vit_block_bwd, x.data_ptr(), g.data_ptr(),
             gx.data_ptr(), *_flags(x, cdt), b, n, d, heads,

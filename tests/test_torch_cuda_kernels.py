@@ -70,9 +70,12 @@ def test_fused_vit_block_rejects_what_it_cannot_take(device):
 
 
 # the flagship, the partseg training shape in both dtypes, M = 858 token rows,
-# not a multiple of the GEMMs' 64-row tiles, and the LwF paths' shapes
+# not a multiple of the GEMMs' 64-row tiles, the attention kernels' other
+# tiles and edges (head_dim 128, N=512 at head_dim 256, N=1, N=197 at bf16),
+# and the LwF paths' shapes
 BLOCK_TRAIN_SHAPES = TRAIN_SHAPES[:2] + [s for s in TRAIN_SHAPES if s[0] in (
-    "B=33", "partseg N=257", "partseg N=257 bf16")] + LWF_BLOCK_SHAPES
+    "B=33", "partseg N=257", "partseg N=257 bf16", "dh=128", "dh=128 bf16", "N=512 dh=256",
+    "N=1", "N=197 bf16")] + LWF_BLOCK_SHAPES
 
 
 @pytest.mark.parametrize("label,b,n,d,heads,dtype", BLOCK_TRAIN_SHAPES,
@@ -100,6 +103,8 @@ def test_training_block_kernels_match_plain(device, label, b, n, d, heads, dtype
     assert torch.equal(gx, gx2) and all(torch.equal(gw[k], gw2[k]) for k in WNAMES)
     cx2, cw2 = vb.fused_vit_block_bwd(x, g, w, heads)
     assert torch.equal(cx, cx2) and all(torch.equal(cw[k], cw2[k]) for k in WNAMES)
+    y2, res2 = vb.fused_vit_block_train_fwd(x, w, heads)
+    assert torch.equal(y, y2) and all(torch.equal(res[k], res2[k]) for k in vb.RNAMES)
 
 
 def test_training_block_through_autograd_in_a_block(device):
