@@ -127,6 +127,20 @@ Phases, one line each (and a line per kernel shape):
               train_cls_voxel --lwf --pretrained at the flagship width (a DeiT
               file the phase writes loaded, the 2D leaves unchanged, launch
               counts, ms a step)
+ 21. group_embed  BASELINE.json's second config (ShapeNetV2 at 128^3, deit_base
+              with 3 heads, VoxelEmbed_no_average cell 9 / patch 14, B=16): the
+              block kernels at stage 1's [3136, 15, 768] (3 and 12 heads, f32
+              and bf16 matmuls on the f32 stream) against their plain versions,
+              each twice bit-equal, rows 1, 3, 4 timed beside
+              TransformerEncoderLayer and the attention beside its bound and
+              SDPA's; the CLI in f32 and bf16 (epoch lines, launch counts, no
+              plain attention); ms a step, samples/s, a profile, the device
+              time by part (tokenizer, group encoder, stage 1 by kind, stage
+              2, Adam) and the peak memory; 3 steps card vs CPU at B=2 in each
+              dtype, the group dropout off; a loss-falls run through the CLI
+              on binvox grids with half the pillars empty; weight_sharing
+              (ModelNet40, deit_small, bf16) and VoxelEmbed_Hybrid (128^3,
+              deit_small) through the CLI for an epoch with launch counts
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -2519,8 +2533,8 @@ def block_cdt_check(torch, b, n, d, heads, x_dtype, cdt, seed=0, device="cuda"):
     """The fused block kernels with x in ``x_dtype`` and matmuls in ``cdt`` (the
     bf16 3DViT's f32 residual stream at bf16 compute) against their plain
     versions: the forward, the training forward's residuals and both
-    backwards, errors over each output's largest value; each backward twice
-    bit-equal. -> (errors, bit-equal)."""
+    backwards, errors over each output's largest value; the training forward
+    and each backward twice bit-equal. -> (errors, bit-equal)."""
     from simple3dformer_tpu_torch.kernels import vit_block as vb
 
     x, w = block_inputs(torch, b, n, d, x_dtype, seed, device)
@@ -2528,6 +2542,7 @@ def block_cdt_check(torch, b, n, d, heads, x_dtype, cdt, seed=0, device="cuda"):
     g = g.to(device=device, dtype=x_dtype)
     out = vb.fused_vit_block(x, w, heads, cdt)
     y, res = vb.fused_vit_block_train_fwd(x, w, heads, cdt)
+    y2, res2 = vb.fused_vit_block_train_fwd(x, w, heads, cdt)
     y_ref, res_ref = vb.vit_block_train_reference(x, w, heads, cdt)
     gx, gw = vb.fused_vit_block_train_bwd(x, g, w, heads, cdt, residuals=res)
     gx2, gw2 = vb.fused_vit_block_train_bwd(x, g, w, heads, cdt, residuals=res)
@@ -2540,7 +2555,8 @@ def block_cdt_check(torch, b, n, d, heads, x_dtype, cdt, seed=0, device="cuda"):
             "train_fwd": errors({"y": y, **res}, {"y": y_ref, **res_ref})[1],
             "bwd_res": errors({"gx": gx, **gw}, {"gx": want_x, **want_w})[1],
             "bwd": errors({"gx": cx, **cw}, {"gx": rec_x, **rec_w})[1]}
-    same = all(torch.equal(a, c) for a, c in [(gx, gx2), (cx, cx2)]
+    same = all(torch.equal(a, c) for a, c in [(y, y2), (gx, gx2), (cx, cx2)]
+               + [(res[k], res2[k]) for k in res]
                + [(gw[k], gw2[k]) for k in gw] + [(cw[k], cw2[k]) for k in cw])
     if not (out.dtype == y.dtype == gx.dtype == x_dtype):
         raise AssertionError(f"block kernels at x {x_dtype}: outputs {out.dtype}, {gx.dtype}")
@@ -2590,7 +2606,8 @@ def phase_point_vit_bf16(torch):
     errs, same = block_cdt_check(torch, PB, 257, 192, 3, torch.float32, torch.bfloat16)
     print(f"kernel fused block partseg N=257 x f32, bf16 matmuls: error relative to the largest "
           f"value {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tolerance "
-          f"{GRAD_REL['bfloat16']}); two runs of each backward bit-equal {same}")
+          f"{GRAD_REL['bfloat16']}); two runs of the training forward and of each backward "
+          f"bit-equal {same}")
     if max(errs.values()) > GRAD_REL["bfloat16"] or not same:
         raise AssertionError(f"block kernels at bf16 compute on f32 x: {errs}, bit-equal {same}")
 
@@ -2671,6 +2688,25 @@ def phase_point_vit_bf16(torch):
     return out
 
 
+def voxel_counters():
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+    from simple3dformer_tpu_torch.kernels.adam import fused_adam
+
+    return {fn.__name__: fn for fn in (vb.fused_vit_block, vb.fused_vit_block_bwd,
+                                       vb.fused_vit_block_train_fwd, vb.fused_vit_block_train_bwd,
+                                       fused_adam)}
+
+
+def voxel_launches(passes, steps, evals, adam) -> dict:
+    """A voxel model's launches: ``passes`` core passes of 12 blocks a forward,
+    the training pair in a train step, the forward in an eval batch; the
+    Adam kernel once a step where ``adam`` (f32 nu)."""
+    return {"fused_vit_block": 12 * passes * evals, "fused_vit_block_bwd": 0,
+            "fused_vit_block_train_fwd": 12 * passes * steps,
+            "fused_vit_block_train_bwd": 12 * passes * steps,
+            "fused_adam": steps if adam else 0}
+
+
 def phase_flagship_bf16(torch):
     """The flagship at --dtype bf16 with Adam's second moment in bf16 (the JAX
     trainer's --bf16-nu auto): the CLI on a synthetic corpus on the card (its
@@ -2681,16 +2717,12 @@ def phase_flagship_bf16(torch):
     from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
     from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
     from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
-    from simple3dformer_tpu_torch.kernels import vit_block as vb
-    from simple3dformer_tpu_torch.kernels.adam import fused_adam
     from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT, frozen_mask
     from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbed
     from simple3dformer_tpu_torch.train.loop import TrainState, make_scanned_train_steps
     from simple3dformer_tpu_torch.train.optim import make_optimizer
 
-    counters = {fn.__name__: fn for fn in (vb.fused_vit_block, vb.fused_vit_block_bwd,
-                                           vb.fused_vit_block_train_fwd,
-                                           vb.fused_vit_block_train_bwd, fused_adam)}
+    counters = voxel_counters()
     argv = ["--dataset", "ModelNet40", "--synthetic", str(TRAIN_SAMPLES), "--epochs",
             str(TRAIN_EPOCHS), "--batchSize", str(BATCH), "--lr", str(TRAIN_LR),
             "--transformer-name", BACKBONE, "--cell-size", str(CELL), "--patch-size", str(PATCH),
@@ -2700,8 +2732,7 @@ def phase_flagship_bf16(torch):
     steps = TRAIN_EPOCHS * (TRAIN_SAMPLES // BATCH)
     evals = TRAIN_EPOCHS * -(-max(TRAIN_SAMPLES // 5, BATCH) // BATCH)
     epoch_losses = [float(line.split()[3]) for line in lines if line.startswith("Epoch ")]
-    want = {"fused_vit_block_train_fwd": 12 * steps, "fused_vit_block_train_bwd": 12 * steps,
-            "fused_vit_block": 12 * evals, "fused_vit_block_bwd": 0, "fused_adam": 0}
+    want = voxel_launches(1, steps, evals, adam=False)
     print(f"flagship bf16 CLI (--dtype bf16, --bf16-nu auto): {steps} steps, epoch losses "
           f"{epoch_losses[0]:.4f} -> {epoch_losses[-1]:.4f}; checkpoints at epochs {saved}; "
           f"launches {launches} (want {want})")
@@ -2758,6 +2789,50 @@ CROP_ATOL = 1e-3  # the crop on the 0-255 scale: f32 sums of products in another
 LWF_LOSS_RTOL = 1e-3  # as the other f32 phases: 24 blocks and the point path in another order
 
 
+def block_row_times(torch, label, x, w, heads, g, iters=20):
+    """Rows 1, 3 and 4 at one shape, x f32: each beside its plain version
+    (in turns) and TransformerEncoderLayer, with its bound; the training
+    forward's and backward's device time by GEMM; the attention's device time
+    beside its bound and SDPA's."""
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    b, n, d = x.shape
+    y0 = vb.fused_vit_block(x, w, heads)
+    y, res = vb.fused_vit_block_train_fwd(x, w, heads)
+    gx, gw = vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res)
+    lib = library_times(torch, x, w, heads, g, iters)
+    flops = block_flops(b, n, d, heads)
+    ws = [w[k] for k in vb.WNAMES]
+    rows = {
+        "fused_vit_block (row 1)": (lambda: vb.fused_vit_block(x, w, heads),
+                                    lambda: vb.vit_block_reference(x, w, heads),
+                                    nbytes(x, *ws, y0), flops, lib["fwd"]),
+        "fused_vit_block_train_fwd (row 3)": (
+            lambda: vb.fused_vit_block_train_fwd(x, w, heads),
+            lambda: vb.vit_block_train_reference(x, w, heads),
+            nbytes(x, *ws, y, res), flops, lib["train_fwd"]),
+        "fused_vit_block_train_bwd (row 4)": (
+            lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+            lambda: vb.vit_block_backward_reference(x, g, w, heads, residuals=res),
+            nbytes(x, g, *ws, res, gx, gw), 2 * flops, lib["bwd"]),
+    }
+    for name, (kernel, plain, moved, ops, library_ms) in rows.items():
+        ms, plain_ms = in_turns(torch, kernel, plain, iters)
+        bound_ms, bound_by = bound(moved, ops)
+        print(f"kernel {name} {label}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"{library_ms:.4f} ms TransformerEncoderLayer, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {moved / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP), mean of {iters} "
+              "launches each, in turns")
+    block_split(torch, lambda: vb.fused_vit_block_train_fwd(x, w, heads), b, n, d,
+                f"kernel fused_vit_block_train_fwd {label}", FWD_GEMMS, calls=3)
+    block_split(torch, lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+                b, n, d, f"kernel fused_vit_block_train_bwd {label}", BWD_GEMMS, calls=3)
+    attention_report(torch, label, b, n, d, heads,
+                     lambda: vb.fused_vit_block_train_fwd(x, w, heads),
+                     lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+                     res["qkv"], g)
+
+
 def lwf_block_check(torch, label, b, n, d, heads, dtype):
     """The fused forward (row 1) and the training forward and backward (rows 3-4)
     at an LwF shape against their plain versions, the backward twice bit-equal;
@@ -2792,40 +2867,8 @@ def lwf_block_check(torch, label, b, n, d, heads, dtype):
     if max(train_err, bwd_err) > GRAD_REL[dtype] or not same:
         raise AssertionError(f"LwF block kernels {label}: errors {train_err}, {bwd_err}, "
                              f"bit-equal {same}")
-    if label not in LWF_TIMED:
-        return
-    iters = 20
-    lib = library_times(torch, x, w, heads, g, iters)
-    flops = block_flops(b, n, d, heads)
-    ws = [w[k] for k in vb.WNAMES]
-    rows = {
-        "fused_vit_block (row 1)": (lambda: vb.fused_vit_block(x, w, heads),
-                                    lambda: vb.vit_block_reference(x, w, heads),
-                                    nbytes(x, *ws, y0), flops, lib["fwd"]),
-        "fused_vit_block_train_fwd (row 3)": (
-            lambda: vb.fused_vit_block_train_fwd(x, w, heads),
-            lambda: vb.vit_block_train_reference(x, w, heads),
-            nbytes(x, *ws, y, res), flops, lib["train_fwd"]),
-        "fused_vit_block_train_bwd (row 4)": (
-            lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
-            lambda: vb.vit_block_backward_reference(x, g, w, heads, residuals=res),
-            nbytes(x, g, *ws, res, gx, gw), 2 * flops, lib["bwd"]),
-    }
-    for name, (kernel, plain, moved, ops, library_ms) in rows.items():
-        ms, plain_ms = in_turns(torch, kernel, plain, iters)
-        bound_ms, bound_by = bound(moved, ops)
-        print(f"kernel {name} {label}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-              f"{library_ms:.4f} ms TransformerEncoderLayer, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {moved / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP), mean of {iters} "
-              "launches each, in turns")
-    block_split(torch, lambda: vb.fused_vit_block_train_fwd(x, w, heads), b, n, d,
-                f"kernel fused_vit_block_train_fwd {label}", FWD_GEMMS, calls=3)
-    block_split(torch, lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
-                b, n, d, f"kernel fused_vit_block_train_bwd {label}", BWD_GEMMS, calls=3)
-    attention_report(torch, label, b, n, d, heads,
-                     lambda: vb.fused_vit_block_train_fwd(x, w, heads),
-                     lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
-                     res["qkv"], g)
+    if label in LWF_TIMED:
+        block_row_times(torch, label, x, w, heads, g, iters=20)
 
 
 def lwf_crop_check(torch):
@@ -3055,6 +3098,300 @@ def phase_lwf(torch):
     return launches
 
 
+# ShapeNetV2 group_embed: BASELINE.json's second config (bench.py:345-354):
+# ShapeNetV2 at 128^3, deit_base (3 heads of 256, the 3D models' head count),
+# VoxelEmbed_no_average with cell 9 and patch 14, --pos-embedding group_embed,
+# B=16, Adam at lr 1e-3. Stage 1 runs the 12 blocks over 16 * 14 * 14 = 3,136
+# pillars of 14 + 1 tokens, stage 2 over [16, 197, 768].
+GROUP_B, GROUP_VOXEL, GROUP_CELL, GROUP_PATCH = 16, 128, 9, 14
+GROUP_BACKBONE, GROUP_CLASSES = "deit_base_patch16_224", 55
+GROUP_ARGV = ["--dataset", "ShapeNetV2", "--batchSize", str(GROUP_B), "--transformer-name",
+              GROUP_BACKBONE, "--embed-layer", "VoxelEmbed_no_average", "--cell-size",
+              str(GROUP_CELL), "--patch-size", str(GROUP_PATCH), "--pos-embedding", "group_embed"]
+GROUP_PILLARS = GROUP_B * (GROUP_VOXEL // GROUP_CELL) ** 2  # 3,136
+# the fused block at stage 1's shape: (label, B, N, D, heads, x dtype, compute dtype):
+# the model's 3 heads in f32 and at bf16 matmuls on its f32 stream, and 12 heads of 64
+GROUP_BLOCK_SHAPES = [("stage 1 f32", GROUP_PILLARS, 15, 768, 3, "float32", "float32"),
+                      ("stage 1 bf16", GROUP_PILLARS, 15, 768, 3, "float32", "bfloat16"),
+                      ("stage 1 f32, 12 heads", GROUP_PILLARS, 15, 768, 12, "float32", "float32"),
+                      ("stage 1 bf16, 12 heads", GROUP_PILLARS, 15, 768, 12, "float32",
+                       "bfloat16")]
+# card vs CPU at B=2 and full width with the first 4 of the 12 blocks (on the
+# card machine's CPU 12 blocks take 24 s in f32 and 72 s in bf16)
+GROUP_PARITY_B, GROUP_PARITY_DEPTH = 2, 4
+GROUP_LOSS_RTOL = {False: 1e-3, True: 2e-3}  # f32, bf16: as the other paths' checks
+# the loss-falls run: 64 samples (51 train, 13 test), 8 classes, half of each
+# grid's (x, y) pillars empty; the CLI's default base lr, warmed up over epochs
+GROUP_LEARN_SAMPLES, GROUP_LEARN_CLASSES, GROUP_LEARN_EPOCHS, GROUP_LEARN_LR = 64, 8, 6, 0.05
+
+
+def group_model(torch, device, dtype=None, seed=None):
+    """The ShapeNetV2 group_embed model with seeded random weights."""
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT
+    from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbedNoAverage
+
+    seed = DEFAULT_SEED if seed is None else seed
+    g = generator(seed)
+    emb = VoxelEmbedNoAverage(voxel_size=GROUP_VOXEL, cell_size=GROUP_CELL,
+                              patch_size=GROUP_PATCH, embed_dim=768, generator=g, dtype=dtype)
+    return VoxelViT(emb, n_classes=GROUP_CLASSES, transformer_backbone=GROUP_BACKBONE,
+                    pos_embedding="group_embed", dropout_seed=seed, generator=g,
+                    dtype=dtype).to(device)
+
+
+def half_empty_grids(n, seed, fill=0.15):
+    """n random 128^3 occupancy grids (uint8) with a random half of the (x, y)
+    pillars of the cell-9 grid empty in every sample."""
+    rs = np.random.RandomState(seed)
+    p = GROUP_VOXEL // GROUP_CELL
+    out = np.empty((n, GROUP_VOXEL, GROUP_VOXEL, GROUP_VOXEL), np.uint8)
+    for i in range(n):
+        empty = np.zeros(p * p, bool)
+        empty[rs.permutation(p * p)[: p * p // 2]] = True
+        cols = np.zeros((GROUP_VOXEL, GROUP_VOXEL), bool)
+        cols[: p * GROUP_CELL, : p * GROUP_CELL] = np.repeat(np.repeat(
+            empty.reshape(p, p), GROUP_CELL, 0), GROUP_CELL, 1)
+        grid = rs.rand(GROUP_VOXEL, GROUP_VOXEL, GROUP_VOXEL) < fill
+        grid[cols] = False
+        out[i] = grid
+    return out
+
+
+def write_binvox(path, grid):
+    """A binvox file (the format data/binvox.read_as_3d_array reads): x-z-y
+    order, (value, count) byte pairs, runs of at most 255."""
+    flat = np.transpose(grid, (0, 2, 1)).ravel().astype(np.uint8)
+    starts = np.r_[0, np.flatnonzero(np.diff(flat)) + 1]
+    lens = np.diff(np.r_[starts, flat.size])
+    reps = (lens + 254) // 255
+    vals = np.repeat(flat[starts], reps)
+    counts = np.full(int(reps.sum()), 255, np.int64)
+    counts[np.cumsum(reps) - 1] = lens - 255 * (reps - 1)
+    dims = " ".join(str(v) for v in grid.shape)
+    with open(path, "wb") as f:
+        f.write(f"#binvox 1\ndim {dims}\ntranslate 0 0 0\nscale 1\ndata\n".encode())
+        f.write(np.stack([vals, counts], 1).astype(np.uint8).tobytes())
+
+
+def write_shapenet_corpus(directory, grids, labels):
+    """grids as ShapeNetCore.v2 solid binvox files under directory/<synset>/<model>/models/."""
+    import os
+
+    from simple3dformer_tpu_torch.data.classmaps import CLASSES_SHAPENET
+
+    for i, (grid, label) in enumerate(zip(grids, labels)):
+        d = os.path.join(directory, CLASSES_SHAPENET[int(label)], f"m{i:03d}", "models")
+        os.makedirs(d)
+        write_binvox(os.path.join(d, "model_normalized.solid.binvox"), grid)
+
+
+def group_split(torch, model, opt, x):
+    """ms of one train step's parts by CUDA events, each part's forward and
+    backward run alone: the tokenizer, the group encoder (its dropout live),
+    stage 1's 12 blocks and final norm, stage 2, Adam; and stage 1's device
+    ms by kind (torch.profiler: the block GEMMs, the attention kernels, the
+    rest; zeros where it records nothing)."""
+    d = model.norm.weight.shape[0]
+    model.train()
+    emb, enc = model.voxel_embed, model.group_embed
+    core = list(model.blocks.parameters()) + list(model.norm.parameters())
+    tok = emb(x)
+    b, px, py, pz, _ = tok.shape
+    g_tok = torch.randn_like(tok)
+    pil = model._with_cls(tok.detach().reshape(b * px * py, pz, d), model.group_cls_token)
+    pil = (pil + model.group_pos_embed.to(pil.dtype)).detach().requires_grad_()
+    s1 = enc(pil).detach().contiguous().requires_grad_()
+    g_s1 = torch.randn_like(s1)
+    s2 = torch.randn(b, px * py + 1, d, device=x.device, dtype=s1.dtype, requires_grad=True)
+    g_out1 = torch.randn(b * px * py, pz + 1, d, device=x.device)
+    g_out2 = torch.randn(b, px * py + 1, d, device=x.device)
+    grads = {k: torch.zeros_like(p) for k, p in opt.params.items() if p.requires_grad}
+    parts = {
+        "tokenizer": lambda: torch.autograd.grad(emb(x), list(emb.parameters()), g_tok),
+        "group encoder": lambda: torch.autograd.grad(enc(pil), [pil, *enc.parameters()], g_s1),
+        "stage 1 blocks": lambda: torch.autograd.grad(model.encode(s1), [s1, *core], g_out1),
+        "stage 2 blocks": lambda: torch.autograd.grad(model.encode(s2), [s2, *core], g_out2),
+        "Adam": lambda: opt.step(grads, 0.0),
+    }
+    out = {name: time_ms(torch, fn, 3) for name, fn in parts.items()}
+    kinds = {"GEMMs": 0.0, "attention": 0.0, "other": 0.0}
+    for k, (ms, n) in device_split(torch, parts["stage 1 blocks"], iters=3).items():
+        kind = ("attention" if k in ATTENTION_GROUPS else
+                "GEMMs" if k.startswith("BlkEpi") else "other")
+        kinds[kind] += ms * n / 3
+    return out, kinds
+
+
+def group_parity(torch, bf16):
+    """3 train steps on the card and on the CPU's plain path at B=2 from the same
+    weights and batches (grids with empty pillars), the group dropout off, at
+    full width, GROUP_PARITY_DEPTH blocks."""
+    from simple3dformer_tpu_torch.models.voxel_vit import frozen_mask
+    from simple3dformer_tpu_torch.train.loop import TrainState, make_train_step
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    dtype = torch.bfloat16 if bf16 else None
+    grids = half_empty_grids(3 * GROUP_PARITY_B, seed=31)
+    labels = np.random.RandomState(32).randint(0, GROUP_CLASSES, 3 * GROUP_PARITY_B)
+    losses, seconds = {}, {}
+    depth = GROUP_PARITY_DEPTH
+    for device in ("cuda", "cpu"):
+        model = group_model(torch, device, dtype)
+        model.group_embed.dropout = 0.0
+        model.blocks = model.blocks[:depth]
+        opt = make_optimizer(dict(model.named_parameters()), "Adam",
+                             trainable_mask=frozen_mask(model, False), bf16_nu=bf16)
+        step = make_train_step(TrainState(model, opt))
+        t0, out = time.perf_counter(), []
+        for i in range(3):
+            sl = slice(i * GROUP_PARITY_B, (i + 1) * GROUP_PARITY_B)
+            batch = {"x": torch.from_numpy(grids[sl]).float().to(device),
+                     "y": torch.from_numpy(labels[sl]).to(device)}
+            out.append(float(step(batch, 1e-4)["loss"]))
+        losses[device], seconds[device] = out, time.perf_counter() - t0
+    label = "bf16" if bf16 else "f32"
+    print(f"group_embed {label}: 3 steps at B={GROUP_PARITY_B}, {depth} blocks (half the "
+          f"pillars empty, group dropout off), lr 1e-4: on the card {losses['cuda']} vs the CPU's "
+          f"plain path {losses['cpu']} (rtol {GROUP_LOSS_RTOL[bf16]}); {seconds['cuda']:.1f} s "
+          f"on the card, {seconds['cpu']:.1f} s on the CPU")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=GROUP_LOSS_RTOL[bf16])
+
+
+def phase_group_embed(torch):
+    """BASELINE.json's second config on the card (ShapeNetV2 group_embed at full
+    width) and the other voxel routes: the block kernels at stage 1's shape,
+    the CLI in f32 and bf16 with its launch counts, ms a step with its device
+    split, 3 steps card vs CPU in each dtype, a loss-falls run on grids with
+    empty pillars, weight_sharing and VoxelEmbed_Hybrid through the CLI."""
+    import tempfile
+
+    from simple3dformer_tpu_torch.cli import train_cls_voxel
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.models.voxel_vit import frozen_mask
+    from simple3dformer_tpu_torch.nn.layers import Attention
+    from simple3dformer_tpu_torch.train.loop import TrainState, make_scanned_train_steps
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    for label, b, n, d, heads, x_dtype, cdt in GROUP_BLOCK_SHAPES:
+        errs, same = block_cdt_check(torch, b, n, d, heads, getattr(torch, x_dtype),
+                                     getattr(torch, cdt), seed=n + heads)
+        print(f"kernel fused block group_embed {label} B={b} N={n} D={d} H={heads}, x {x_dtype}, "
+              f"{cdt} matmuls: error relative to the largest value "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tolerance {GRAD_REL[cdt]}); "
+              f"two runs of the training forward and of each backward bit-equal {same}")
+        if max(errs.values()) > GRAD_REL[cdt] or not same:
+            raise AssertionError(f"block kernels group_embed {label}: {errs}, bit-equal {same}")
+    # times at the model's 3 heads; the attention also at 12 heads of 64
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    for heads in (3, 12):
+        x, w = block_inputs(torch, GROUP_PILLARS, 15, 768, torch.float32, seed=heads, device="cuda")
+        g = torch.from_numpy(np.random.RandomState(heads + 1).randn(GROUP_PILLARS, 15, 768)
+                             .astype(np.float32)).cuda()
+        label = f"group_embed stage 1 (H={heads})"
+        if heads == 3:
+            block_row_times(torch, label, x, w, heads, g, iters=10)
+        else:
+            res = vb.fused_vit_block_train_fwd(x, w, heads)[1]
+            attention_report(torch, label, GROUP_PILLARS, 15, 768, heads,
+                             lambda: vb.fused_vit_block_train_fwd(x, w, heads),
+                             lambda: vb.fused_vit_block_train_bwd(x, g, w, heads, residuals=res),
+                             res["qkv"], g)
+        del x, w, g
+    print(f"group_embed block kernels: {time.perf_counter() - t0:.1f} s")
+
+    # the CLI at BASELINE.json's second config, f32 and bf16: the main path
+    counters = voxel_counters()
+    for bf16 in (False, True):
+        plain_before = Attention.plain_calls
+        argv = [*GROUP_ARGV, "--synthetic", "48", "--epochs", "2", "--lr", "1e-3"]
+        argv += ["--dtype", "bf16"] if bf16 else []
+        _, lines, launches, saved = run_cli(train_cls_voxel.main,
+                                            lambda o, argv=argv: [*argv, "--outf", o], counters)
+        plain = Attention.plain_calls - plain_before
+        want = voxel_launches(2, steps=2 * (48 // GROUP_B), evals=2, adam=not bf16)
+        epochs = [line for line in lines if line.startswith("Epoch ")]
+        label = "bf16" if bf16 else "f32"
+        print(f"group_embed CLI {label} (ShapeNetV2 128^3, {GROUP_BACKBONE}, cell {GROUP_CELL}, "
+              f"patch {GROUP_PATCH}, B={GROUP_B}): " + " | ".join(epochs)
+              + f"; checkpoints at epochs {saved}; launches {launches} (want {want}); plain "
+              f"attention calls {plain}")
+        losses = [float(line.split()[3]) for line in epochs]
+        if len(epochs) != 2 or not np.isfinite(losses).all() or not saved:
+            raise AssertionError(f"group_embed CLI {label}: {lines[-4:]}")
+        if launches != want or plain:
+            raise AssertionError(f"group_embed CLI {label}: launches {launches}, want {want}; "
+                                 f"plain attention calls {plain}")
+
+    # ms a step at B=16, the corpus on the card, and the device split
+    grids = half_empty_grids(2 * GROUP_B, seed=33)
+    labels = np.random.RandomState(34).randint(0, GROUP_CLASSES, 2 * GROUP_B).astype(np.int32)
+    ds = DeviceResidentDataset({"x": grids, "y": labels}, "cuda")
+    idx = ds.put_indices(np.random.RandomState(35).randint(0, 2 * GROUP_B, (6, GROUP_B)))
+    for bf16 in (False, True):
+        label = "group_embed " + ("bf16" if bf16 else "f32")
+        model = group_model(torch, "cuda", torch.bfloat16 if bf16 else None)
+        opt = make_optimizer(dict(model.named_parameters()), "Adam",
+                             trainable_mask=frozen_mask(model, False), bf16_nu=bf16)
+        run = make_scanned_train_steps(TrainState(model, opt), ds)
+        ms_step = timed_steps(torch, run, idx, 1e-4, 5, label, GROUP_B)
+        split, kinds = group_split(torch, model, opt, ds.gather(idx[0])["x"].float())
+        total = sum(split.values())
+        print(f"{label} ms by part (CUDA events), each part's forward and backward alone: "
+              + ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in split.items())
+              + "; stage 1 blocks by kind, device ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items())
+              + f"; sum {total:.3f} ms against the {ms_step:.3f} ms step")
+        del model, opt, run
+        torch.cuda.empty_cache()
+
+    for bf16 in (False, True):
+        group_parity(torch, bf16)
+
+    # loss falls on grids with empty pillars, through the CLI from binvox files
+    learn = half_empty_grids(GROUP_LEARN_SAMPLES, seed=36)
+    learn_y = np.arange(GROUP_LEARN_SAMPLES) % GROUP_LEARN_CLASSES
+    with tempfile.TemporaryDirectory() as root:
+        write_shapenet_corpus(root, learn, learn_y)
+        argv = [a for a in GROUP_ARGV] + ["--data-root", root, "--epochs",
+                                          str(GROUP_LEARN_EPOCHS), "--lr", str(GROUP_LEARN_LR)]
+        _, lines, launches, _ = run_cli(train_cls_voxel.main,
+                                        lambda o: [*argv, "--outf", o], counters)
+    losses = [float(line.split()[3]) for line in lines if line.startswith("Epoch ")]
+    print(f"group_embed loss-falls run (f32, {GROUP_LEARN_SAMPLES} binvox grids with half the "
+          f"pillars empty, {GROUP_LEARN_CLASSES} classes, base lr {GROUP_LEARN_LR}): "
+          f"{lines[1]}; epoch losses {losses}; launches {launches}")
+    if (len(losses) != GROUP_LEARN_EPOCHS or not np.isfinite(losses).all()
+            or not losses[-1] < 0.75 * losses[0]):
+        raise AssertionError(f"group_embed loss did not fall on grids with empty pillars: {losses}")
+
+    # weight_sharing at bench.py:359-368's shape and VoxelEmbed_Hybrid at 128^3, an epoch each
+    for route, argv, passes, steps, evals, adam in (
+            ("weight_sharing", ["--dataset", "ModelNet40", "--synthetic", "512", "--batchSize",
+                                "32", "--transformer-name", BACKBONE, "--embed-layer",
+                                "VoxelEmbed_no_average", "--cell-size", "6", "--patch-size", "5",
+                                "--pos-embedding", "weight_sharing", "--lr", "1e-3", "--dtype",
+                                "bf16"], 1, 16, 4, False),
+            ("VoxelEmbed_Hybrid", ["--dataset", "ShapeNetV2", "--synthetic", "48", "--batchSize",
+                                   "16", "--transformer-name", BACKBONE, "--embed-layer",
+                                   "VoxelEmbed_Hybrid", "--patch-size", "1", "--lr", "1e-3"],
+             1, 3, 1, True)):
+        plain_before = Attention.plain_calls
+        _, lines, launches, saved = run_cli(
+            train_cls_voxel.main, lambda o, argv=argv: [*argv, "--epochs", "1", "--outf", o],
+            counters)
+        plain = Attention.plain_calls - plain_before
+        want = voxel_launches(passes, steps, evals, adam)
+        epochs = [line for line in lines if line.startswith("Epoch ")]
+        print(f"{route} CLI: {' | '.join(epochs)}; launches {launches} (want {want}); plain "
+              f"attention calls {plain}")
+        if len(epochs) != 1 or launches != want or plain or not saved:
+            raise AssertionError(f"{route} CLI: {lines[-3:]}; launches {launches}, want {want}")
+    print(f"group_embed phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3097,6 +3434,7 @@ def main() -> int:
         phase_point_vit_bf16(torch)
         phase_flagship_bf16(torch)
         phase_lwf(torch)
+        phase_group_embed(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:

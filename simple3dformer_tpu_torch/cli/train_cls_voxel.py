@@ -15,8 +15,13 @@ It runs on the card (``--device cuda``, the default) and on the CPU only when
 asked (``--device cpu``). Without the corpora on disk, ``--synthetic N``
 trains on generated occupancy grids.
 
-Ported: the default route (``--pos-embedding default`` or ``no_embed``),
-``--reweighted``, ``--head``, ``--embed-layer``, ``--model`` restore,
+Ported: every route of ``--pos-embedding`` (``default``, ``no_embed``,
+``group_embed``: a post-norm encoder and the core over each z-pillar, then
+the core over the pillar grid, the encoder's dropout live in training with
+its masks drawn on the device from ``--seed``; ``weight_sharing``: the core
+over the z-slices, their cls tokens averaged), every ``--embed-layer``
+(``VoxelEmbed_Hybrid``, VoxNet's conv stack, takes ``--patch-size 1``),
+``--reweighted``, ``--head``, ``--model`` restore,
 ``--dtype bf16`` (the tokenizer, the blocks and the head compute in bf16, the
 fused block kernels in bf16 on the card; the parameters stay f32),
 ``--bf16-nu`` (Adam's second moment in bf16, the plain
@@ -29,15 +34,22 @@ deit_base teacher with 12 heads, also loaded through ``maybe_load_deit``, and a
 batch of images a step, ImageNet val under ./data or with ``--synthetic``
 random images, cropped and flipped on the device; the loss CE + 0.1 CE(the 2D
 head's logits, the teacher's labels), without class weights as in the JAX
-trainer). Not yet: ``--zero1`` and the other positional-embedding routes,
-which raise.
+trainer). Not yet: ``--zero1``, which raises.
 
-    python -m simple3dformer_tpu_torch.cli.train_cls_voxel --dataset ModelNet40 \
-        --synthetic 2048 --transformer-name deit_small_patch16_224 \
+BASELINE.json's second config, ShapeNetV2 at 128^3 on deit_base with the
+group_embed route (3,136 pillars of 15 tokens a batch of 16 in stage 1):
+
+    python -m simple3dformer_tpu_torch.cli.train_cls_voxel --dataset ShapeNetV2 \\
+        --synthetic 48 --batchSize 16 --epochs 2 --transformer-name deit_base_patch16_224 \\
+        --embed-layer VoxelEmbed_no_average --cell-size 9 --patch-size 14 \\
+        --pos-embedding group_embed --lr 1e-3 --dtype bf16
+
+    python -m simple3dformer_tpu_torch.cli.train_cls_voxel --dataset ModelNet40 \\
+        --synthetic 2048 --transformer-name deit_small_patch16_224 \\
         --cell-size 6 --patch-size 5 --lwf --pretrained
 
-    python -m simple3dformer_tpu_torch.cli.train_cls_voxel --dataset ModelNet40 \
-        --synthetic 2048 --transformer-name deit_small_patch16_224 \
+    python -m simple3dformer_tpu_torch.cli.train_cls_voxel --dataset ModelNet40 \\
+        --synthetic 2048 --transformer-name deit_small_patch16_224 \\
         --cell-size 6 --patch-size 5 --dtype bf16
 """
 
@@ -147,9 +159,6 @@ def load_voxel_arrays(dataset, data_root, synthetic=0, *, reweighted=False, min_
 def _refuse_unported(args) -> None:
     if args.zero1:
         raise NotImplementedError("--zero1 is not ported yet: it comes with the parallelism slice")
-    if args.pos_embedding not in ("default", "no_embed"):
-        raise NotImplementedError(f"--pos-embedding {args.pos_embedding} is not ported yet: it "
-                                  "comes with the slice of the other voxel routes")
 
 
 def _device(name: str) -> torch.device:
@@ -184,8 +193,8 @@ def main(argv=None):
                                  embed_dim=EMBED_DIM[args.transformer_name], generator=g,
                                  dtype=dtype)
     model = VoxelViT(embedding, n_classes=n_classes, transformer_backbone=args.transformer_name,
-                     pos_embedding=args.pos_embedding, head=args.head, generator=g,
-                     dtype=dtype).to(device)
+                     pos_embedding=args.pos_embedding, head=args.head,
+                     dropout_seed=args.seed, generator=g, dtype=dtype).to(device)
     if args.pretrained:
         maybe_load_deit(model, args.transformer_name)
     n_params = sum(p.numel() for p in model.parameters())

@@ -129,8 +129,8 @@ def sample_crop_boxes(generator: torch.Generator, n: int, height: int, width: in
     return crop_boxes(u_area, u_aspect, u_i, u_j, height, width, scale, ratio)
 
 
-def _weight_matrix(in_size: int, out_size: int, scale: torch.Tensor,
-                   translation: torch.Tensor) -> torch.Tensor:
+def weight_matrix(in_size: int, out_size: int, scale: torch.Tensor,
+                  translation: torch.Tensor) -> torch.Tensor:
     """[n, out_size, in_size] f32 resampling weights of jax.image's
     compute_weight_mat (triangle kernel, antialias=True) for n f32 scales and
     translations, evaluated in f64 and rounded once: XLA's own f32 evaluation
@@ -161,8 +161,8 @@ def resized_crop_flip(images: torch.Tensor, i: torch.Tensor, j: torch.Tensor, h:
     b, height, width, c = images.shape
     out_size = h.new_tensor(float(size))  # a true division (torch's size / h is size * (1 / h))
     sy, sx = out_size / h, out_size / w
-    wy = _weight_matrix(height, size, sy, -i * sy)  # [B, size, H]
-    wx = _weight_matrix(width, size, sx, -j * sx)  # [B, size, W]
+    wy = weight_matrix(height, size, sy, -i * sy)  # [B, size, H]
+    wx = weight_matrix(width, size, sx, -j * sx)  # [B, size, W]
     x = images.float()
     rows = torch.bmm(wy, x.reshape(b, height, width * c)).reshape(b, size, width, c)
     out = torch.einsum("bowc,bpw->bopc", rows, wx)

@@ -11,6 +11,10 @@ modules only hold the parameters, in the reference's layout
 conv would trim it. With ``dtype=torch.bfloat16`` the projection computes
 as the JAX tokenizers' (cells, weight and bias cast to bf16, the product and
 the bias added in bf16); the parameters stay f32.
+
+``VoxelEmbedHybrid`` (VoxNet's conv stack) runs its convolutions as unfold
+and ``torch.matmul`` in the input's dtype, f32 at every compute dtype, as the
+JAX tokenizer takes no ``dtype`` cast.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..data.image_augment import weight_matrix
 from .layers import trunc_normal
 
 
@@ -114,6 +119,77 @@ class VoxelNaiveProjection(_CellEmbed):
         return self._project(img.permute(0, 1, 3, 2, 4).reshape(b, p, p, c * c))
 
 
+def _conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            stride: int = 1) -> torch.Tensor:
+    """VALID 3D convolution of channels-last x [B, X, Y, Z, C] with a Conv3d
+    weight [O, C, k, k, k]: the windows unfolded to [.., C k k k] and one
+    ``torch.matmul`` in x's dtype (no cuDNN, so no TF32)."""
+    k = weight.shape[-1]
+    cols = x.unfold(1, k, stride).unfold(2, k, stride).unfold(3, k, stride)
+    cols = cols.reshape(*cols.shape[:4], -1)  # window order (C, kx, ky, kz)
+    return torch.matmul(cols, weight.reshape(weight.shape[0], -1).t()) + bias
+
+
+def _lecun_conv(out_ch: int, in_ch: int, k: int, generator, device) -> nn.Conv3d:
+    """nn.Conv3d holding flax's lecun_normal kernel (truncated normal, variance
+    1 / (in k^3)) and a zero bias."""
+    conv = nn.Conv3d(in_ch, out_ch, k, device=device)
+    std = (1.0 / (in_ch * k ** 3)) ** 0.5 / 0.87962566103423978  # flax's truncation factor
+    with torch.no_grad():
+        conv.weight.copy_(trunc_normal(conv.weight.shape, std, generator))
+        conv.bias.zero_()
+    return conv
+
+
+class VoxelEmbedHybrid(nn.Module):
+    """VoxNet-style conv stack, then a projection; z kept -> [B, q, q, q, D].
+
+    128^3 grids are first resized to 32^3 as ``jax.image.resize(...,
+    "trilinear")`` resizes them (antialiased: a triangle kernel four voxels
+    wide, not ``F.interpolate``): one [32, 128] weight matrix, built once and
+    applied along each axis in turn. Then conv 5^3 stride 2 -> ReLU -> conv
+    3^3 -> ReLU -> 2^3 max-pool -> conv patch^3 stride patch: 6^3 = 216
+    tokens from 32^3 at patch 1, the count ``num_patches`` declares, as in
+    the JAX module. Its two dropouts are never live (VoxelViT calls the
+    tokenizer in deterministic mode), so they are left out. Parameters in
+    Conv3d layout: ``conv1``, ``conv2``, ``proj``.
+    """
+
+    def __init__(self, voxel_size: int = 128, patch_size: int = 1, embed_dim: int = 768,
+                 generator=None, device=None):
+        super().__init__()
+        self.voxel_size = voxel_size
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.conv1 = _lecun_conv(32, 1, 5, generator, device)
+        self.conv2 = _lecun_conv(32, 32, 3, generator, device)
+        self.proj = _lecun_conv(embed_dim, 32, patch_size, generator, device)
+        if voxel_size == 128:
+            w = weight_matrix(128, 32, torch.tensor([0.25]), torch.tensor([0.0]))[0]
+            self.register_buffer("resize", w.to(device), persistent=False)  # [32, 128]
+        else:
+            self.resize = None
+
+    @property
+    def num_patches(self) -> int:
+        return 6 ** 3  # 32^3 -> conv5s2: 14 -> conv3: 12 -> pool2: 6
+
+    def forward(self, x):
+        if x.ndim != 4 or x.shape[1] != self.voxel_size:
+            raise ValueError(f"input voxel grid {tuple(x.shape[1:])} != model "
+                             f"{self.voxel_size}^3")
+        if self.resize is not None:  # the separable resize, x then y then z
+            w = self.resize.to(x.dtype)
+            x = torch.einsum("bxyz,ix->biyz", x, w)
+            x = torch.einsum("biyz,jy->bijz", x, w)
+            x = torch.matmul(x, w.t())
+        x = torch.relu(_conv3d(x[..., None], self.conv1.weight, self.conv1.bias, 2))
+        x = torch.relu(_conv3d(x, self.conv2.weight, self.conv2.bias))
+        b, g, c = x.shape[0], x.shape[1] // 2, x.shape[-1]
+        x = x[:, : 2 * g, : 2 * g, : 2 * g].reshape(b, g, 2, g, 2, g, 2, c).amax((2, 4, 6))
+        return _conv3d(x, self.proj.weight, self.proj.bias, self.patch_size)
+
+
 # VALID_EMBED_LAYER of the reference (its train_cls_voxel.py:46-53):
 # name -> (class, default cell, default patch)
 EMBED_LAYERS = {
@@ -123,19 +199,20 @@ EMBED_LAYERS = {
     "VoxelEmbed_14": (VoxelEmbed, 9, 14),
     "VoxelEmbed_no_average_14": (VoxelEmbedNoAverage, 9, 14),
     "VoxelEmbed_no_zdim_14": (VoxelNaiveProjection, 9, 14),
+    "VoxelEmbed_Hybrid": (VoxelEmbedHybrid, None, 1),
 }
 
 
 def make_embed_layer(name: str, voxel_size: int, cell_size: int | None = None,
                      patch_size: int | None = None, embed_dim: int = 768,
                      generator=None, device=None, dtype: torch.dtype | None = None) -> nn.Module:
-    if name == "VoxelEmbed_Hybrid":
-        raise NotImplementedError(
-            "VoxelEmbed_Hybrid (VoxNet conv stack) is not ported yet: it comes "
-            "with the slice of the other voxel routes")
     if name not in EMBED_LAYERS:
         raise ValueError(f"Unknown type of 3D data embedding: {name}")
     cls, d_cell, d_patch = EMBED_LAYERS[name]
+    if cls is VoxelEmbedHybrid:  # no cell, and no compute dtype (see the class)
+        return cls(voxel_size=voxel_size,
+                   patch_size=patch_size if patch_size is not None else d_patch,
+                   embed_dim=embed_dim, generator=generator, device=device)
     return cls(voxel_size=voxel_size,
                cell_size=cell_size if cell_size is not None else d_cell,
                patch_size=patch_size if patch_size is not None else d_patch,

@@ -5,7 +5,11 @@ The JAX package keeps parameters as a nested dict (flax layout: Dense
 The port names its parameters as timm and the reference do, the names
 ``scripts/refbridge.export_voxelvit_state_dict`` produces: Linear ``weight``
 [out, in], ``blocks.{i}.attn.qkv.weight``, ``norm.weight``,
-``voxel_embed.proj.conv3d_1.weight`` [D, 1, c, c, c], ``voxel_head.weight``.
+``voxel_embed.proj.conv3d_1.weight`` [D, 1, c, c, c], ``voxel_head.weight``;
+the group_embed route's encoder as torch's TransformerEncoderLayer names it
+(``group_embed.self_attn.in_proj_weight``, ``.self_attn.out_proj``,
+``linear1``, ``linear2``, ``norm1``, ``norm2``), and VoxelEmbedHybrid's
+``conv1_kernel`` etc. (DHWIO) as ``voxel_embed.conv1.weight`` [out, in, k, k, k].
 Point models take the reference's names as well (the ones
 ``simple3dformer_tpu/utils/torch_convert.reference_pointvit_to_jax_tree``
 reads): ``fc1.0`` / ``fc1.2``, ``transition_downs.{i}.sa.mlp_convs.{j}.weight``
@@ -78,6 +82,10 @@ def _name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.Tensor]
     parts = [re.sub(r"^blocks_(\d+)$", r"blocks.\1", p) for p in path]
     parts = _point_parts(parts, like)
     leaf = parts[-1]
+    hybrid = re.fullmatch(r"(conv1|conv2|proj)_(kernel|bias)", leaf)
+    if parts[0] == "voxel_embed" and hybrid:  # VoxelEmbedHybrid: DHWIO -> [out, in, k, k, k]
+        key = f"voxel_embed.{hybrid.group(1)}.{'weight' if hybrid.group(2) == 'kernel' else 'bias'}"
+        return key, v.transpose(4, 3, 0, 1, 2) if v.ndim == 5 else v
     if parts[0] == "voxel_embed":
         conv = next(c for c in ("conv3d_1", "conv2d_1")
                     if f"voxel_embed.proj.{c}.weight" in like)
@@ -91,6 +99,11 @@ def _name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.Tensor]
         key = "patch_embed.proj.weight"
         d, c, p, _ = like[key].shape  # [(P P C), D] -> [D, C, P, P]
         return key, v.reshape(p, p, c, d).transpose(3, 2, 0, 1)
+    if parts[:2] == ["group_embed", "qkv"]:  # TransformerEncoderLayer's packed in_proj
+        name = "in_proj_weight" if leaf == "kernel" else "in_proj_bias"
+        return f"group_embed.self_attn.{name}", v.T if leaf == "kernel" else v
+    if parts[:2] == ["group_embed", "out_proj"]:
+        parts = ["group_embed", "self_attn"] + parts[1:]
     if leaf == "kernel":  # [in, out] -> [out, in] (a 1x1 conv's [out, in, 1, ...])
         key = ".".join(parts[:-1] + ["weight"])
         return key, v.T.reshape(like[key].shape) if key in like else v.T

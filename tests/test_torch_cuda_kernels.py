@@ -13,9 +13,9 @@ two checks cannot drift apart.
 import pytest
 import torch
 
-from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, KERNEL_SHAPES,
-                        KNN_SHAPES, LWF_BLOCK_SHAPES, MHSA_REL, MHSA_SHAPES, TOL, TRAIN_SHAPES,
-                        VA_REL, VA_SHAPES,
+from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, GROUP_BLOCK_SHAPES,
+                        KERNEL_SHAPES, KNN_SHAPES, LWF_BLOCK_SHAPES, MHSA_REL, MHSA_SHAPES, TOL,
+                        TRAIN_SHAPES, VA_REL, VA_SHAPES,
                         VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_cdt_check, block_inputs,
                         errors, gather_check,
                         gather_inputs, knn_check, knn_inputs, mhsa_inputs, rel_err, unit_cloud,
@@ -309,10 +309,23 @@ def test_fused_block_kernels_on_an_f32_stream_at_bf16_compute_match_plain(device
                                                                           heads):
     """The bf16 3DViT's blocks: x (the residual stream) in f32, the matmuls in
     bf16; the forward, the training forward and both backwards against their
-    plain versions, each backward twice bit-equal."""
+    plain versions, the training forward and each backward twice bit-equal."""
     errs, same = block_cdt_check(torch, b, n, d, heads, torch.float32, torch.bfloat16,
                                  seed=b + n)
     assert same and max(errs.values()) <= GRAD_REL["bfloat16"], errs
+
+
+@pytest.mark.parametrize("label,b,n,d,heads,x_dtype,cdt", GROUP_BLOCK_SHAPES,
+                         ids=[s[0] for s in GROUP_BLOCK_SHAPES])
+def test_fused_block_kernels_at_the_group_embed_stage_1_shape_match_plain(device, label, b, n, d,
+                                                                          heads, x_dtype, cdt):
+    """The group_embed route's stage 1 (3,136 pillars of 15 tokens at deit_base
+    width) on its f32 residual stream, f32 or bf16 matmuls: the forward, the
+    training forward and both backwards against their plain versions, the
+    training forward and each backward twice bit-equal."""
+    errs, same = block_cdt_check(torch, b, n, d, heads, getattr(torch, x_dtype),
+                                 getattr(torch, cdt), seed=n + heads)
+    assert same and max(errs.values()) <= GRAD_REL[cdt], errs
 
 
 def test_bf16_layered_block_through_autograd_matches_plain(device):

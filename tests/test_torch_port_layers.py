@@ -16,6 +16,7 @@ from simple3dformer_tpu.nn import layers as jl
 from simple3dformer_tpu.nn import voxel_embed as jve
 from simple3dformer_tpu_torch.kernels.vit_block import (
     WNAMES, fused_vit_block, vit_block_reference)
+from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT
 from simple3dformer_tpu_torch.nn import layers as tl
 from simple3dformer_tpu_torch.nn import voxel_embed as tve
 from simple3dformer_tpu_torch.utils.convert import jax_to_state_dict
@@ -166,10 +167,17 @@ def test_voxel_embeds_match_flax(name, voxel, cell):
 
 
 def test_make_embed_layer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="other voxel routes"):
-        tve.make_embed_layer("VoxelEmbed_Hybrid", 32)
-    with pytest.raises(ValueError):
+    """Every tokenizer is ported; what the JAX package rejects, the port
+    rejects: an unknown name, and VoxelEmbed_Hybrid on the group_embed route
+    (patch 1 gives a position embedding of 2 tokens to 7-token pillars)."""
+    with pytest.raises(ValueError, match="Unknown type of 3D data embedding"):
         tve.make_embed_layer("NoSuchEmbed", 32)
+    hybrid = tve.make_embed_layer("VoxelEmbed_Hybrid", 32, embed_dim=192)
+    assert isinstance(hybrid, tve.VoxelEmbedHybrid) and hybrid.patch_size == 1
+    model = VoxelViT(hybrid, n_classes=7, transformer_backbone="deit_tiny_patch16_224",
+                     pos_embedding="group_embed", img_size=32)
+    with pytest.raises(ValueError, match=r"7 tokens .*group_pos_embed \(1, 2, 192\)"):
+        model(torch.zeros(1, 32, 32, 32))
 
 
 def test_mlp_head_matches_flax():

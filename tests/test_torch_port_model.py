@@ -116,11 +116,14 @@ def test_converter_refuses_mismatched_trees():
 
 
 def test_routes_not_ported_raise():
-    for mode in ("group_embed", "weight_sharing"):
-        with pytest.raises(NotImplementedError, match="other voxel routes"):
-            port_model(pos_embedding=mode)
-    with pytest.raises(ValueError):
+    """Every route is ported; what the JAX package rejects, the port rejects:
+    an unknown positional-embedding scheme and an unknown group_axes."""
+    with pytest.raises(ValueError, match="Unknown positional embedding scheme"):
         port_model(pos_embedding="nonsense")
+    emb = VoxelEmbed(voxel_size=V, cell_size=CELL, patch_size=PATCH, embed_dim=192)
+    with pytest.raises(ValueError, match="group_axes"):
+        VoxelViT(emb, n_classes=7, transformer_backbone=BACKBONE, pos_embedding="group_embed",
+                 group_axes="batch", img_size=IMG)
 
 
 def test_seeded_init_is_reproducible_and_complete():

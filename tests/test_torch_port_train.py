@@ -259,12 +259,14 @@ def test_cli_trains_on_the_cpu_and_restores(tmp_path, capsys):
     assert capsys.readouterr().out.count("Epoch 0 loss") == 1
 
 
-@pytest.mark.parametrize("flag,match", [
-    (["--zero1"], "parallelism"), (["--pos-embedding", "group_embed"], "other voxel routes"),
+@pytest.mark.parametrize("flag,error,match", [
+    (["--zero1"], NotImplementedError, "parallelism"),
+    # every route is ported; an unknown one is rejected as the JAX package rejects it
+    (["--pos-embedding", "nonsense"], ValueError, "Unknown positional embedding scheme"),
 ])
-def test_cli_refuses_what_is_not_ported(flag, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["--synthetic", "8", "--device", "cpu"] + flag)
+def test_cli_refuses_what_is_not_ported(flag, error, match):
+    with pytest.raises(error, match=match):
+        cli.main(["--dataset", "ModelNet40", "--synthetic", "8", "--device", "cpu"] + flag)
 
 
 @pytest.mark.parametrize("bf16_nu", ["auto", "0"])
