@@ -141,6 +141,18 @@ Phases, one line each (and a line per kernel shape):
               on binvox grids with half the pillars empty; weight_sharing
               (ModelNet40, deit_small, bf16) and VoxelEmbed_Hybrid (128^3,
               deit_small) through the CLI for an epoch with launch counts
+ 22. ViP-3D and the visualizers  vip3d_s7 (VoxelEmbed_m40_vip_s7: ModelNet40's
+              30^3 grids padded to 32^3, 40 classes, B=32, Adam, drop path 0.1)
+              in f32 and bf16: 3 steps card vs CPU with drop path off,
+              train_pure_mlp on a synthetic corpus on the card (the loss falls
+              over 40 steps, the Adam kernel once a step), ms a step and
+              samples/s over 50 steps, the busy share, the device time by kind,
+              the launches a step and the peak memory; PEG, the 128^3
+              ShapeNetV2 family and vip3d_m7 through the CLI for an epoch each;
+              attention capture on the flagship card vs CPU (maps and rollout
+              masks, no block or mhsa launch during it, the fused block after
+              it); visualize_point_cloud's prediction at the partseg default
+              card vs CPU with its launch counts
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -980,8 +992,11 @@ KERNEL_CATEGORIES = (
     ("Adam", ("adam_",)))
 
 
-def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
-    """Where a train step's device time goes: torch.profiler over len(idx) steps;
+def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4, groups=KERNEL_GROUPS,
+                  categories=KERNEL_CATEGORIES):
+    """Where a train step's device time goes: torch.profiler over len(idx) steps,
+    each kernel in the first of ``groups`` its name holds, each group in the
+    first of ``categories`` whose prefixes it starts with; the launches a step;
     the busy share is against ``ms_step``, the step time without the profiler.
     Informational: a profiler that records no device time is reported, not fatal."""
     from torch.profiler import ProfilerActivity, profile
@@ -991,35 +1006,38 @@ def profile_steps(torch, run, idx, ms_step, label="training", lr=1e-4):
         t0 = time.perf_counter()
         float(run(idx, lr)["loss"][-1])
         wall = time.perf_counter() - t0
-    groups: dict[str, float] = {}
+    times: dict[str, float] = {}
     others: dict[str, float] = {}
+    launches = 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if us <= 0 or str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
             continue
-        name = next((g for g in KERNEL_GROUPS if g in e.key), "other (PyTorch's own kernels, copies)")
-        groups[name] = groups.get(name, 0.0) + us
-        if name not in KERNEL_GROUPS:
+        launches += e.count
+        name = next((g for g in groups if g in e.key), "other (PyTorch's own kernels, copies)")
+        times[name] = times.get(name, 0.0) + us
+        if name not in groups:
             others[e.key[:60]] = others.get(e.key[:60], 0.0) + us
-    total = sum(groups.values())
+    total = sum(times.values())
     if not total:
         print(f"{label} profile: the profiler recorded no device time")
         return
     parts = ", ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in
-                      sorted(groups.items(), key=lambda kv: -kv[1]))
+                      sorted(times.items(), key=lambda kv: -kv[1]))
     device_ms = total / steps / 1e3
     print(f"{label} profile over {steps} steps: device {device_ms:.3f} ms per step, "
           f"{device_ms / ms_step:.1%} of the {ms_step:.3f} ms step without the profiler "
-          f"({wall / steps * 1e3:.3f} ms with it); ms per step by kernel: {parts}")
+          f"({wall / steps * 1e3:.3f} ms with it); {launches / steps:.0f} launches a step; "
+          f"ms per step by kernel: {parts}")
     cats: dict[str, float] = {}
-    for name, us in groups.items():
-        cat = next((c for c, members in KERNEL_CATEGORIES if name.startswith(members)),
+    for name, us in times.items():
+        cat = next((c for c, members in categories if name.startswith(members)),
                    "PyTorch's own kernels")
         cats[cat] = cats.get(cat, 0.0) + us
     print(f"{label} profile by kind, ms per step (share of the device time): " + ", ".join(
         f"{k} {v / steps / 1e3:.3f} ({v / total:.1%})" for k, v in
         sorted(cats.items(), key=lambda kv: -kv[1])))
-    att = sum(groups.get(k, 0.0) for k in ATTENTION_GROUPS)
+    att = sum(times.get(k, 0.0) for k in ATTENTION_GROUPS)
     if att:
         print(f"{label} profile: the ViT block's attention kernels {att / steps / 1e3:.3f} ms per "
               f"step ({att / total:.1%} of the device time)")
@@ -2338,10 +2356,11 @@ def run_cli(main, argv_for, counters, after=None):
     return result, log.getvalue().splitlines(), launches, saved
 
 
-def timed_steps(torch, run, idx, lr, n_steps, label, batch, n_profile=3):
-    """ms a train step (host clock over ``n_steps`` after a warm-up step, corpus
-    on the card), printed with samples/s and the peak device memory; then the
-    per-kernel profile of ``n_profile`` steps."""
+def timed_steps(torch, run, idx, lr, n_steps, label, batch, n_profile=3, **kinds):
+    """ms a train step (host clock over ``n_steps`` after a warm-up step, ending
+    in a sync, corpus on the card), printed with samples/s and the peak device
+    memory; then the per-kernel profile of ``n_profile`` steps (``kinds``: the
+    profile's groups and categories)."""
     torch.cuda.reset_peak_memory_stats()
     run(idx[:1], lr)  # warm-up step
     torch.cuda.synchronize()
@@ -2352,7 +2371,7 @@ def timed_steps(torch, run, idx, lr, n_steps, label, batch, n_profile=3):
     print(f"{label} training throughput: {ms_step:.3f} ms per step, {n_steps * batch / dt:.2f} "
           f"samples/s at B={batch} (host clock over {n_steps} steps, corpus on the card); peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_steps(torch, run, idx[1:n_profile + 1], ms_step, f"{label} training", lr)
+    profile_steps(torch, run, idx[1:n_profile + 1], ms_step, f"{label} training", lr, **kinds)
     return ms_step
 
 
@@ -3392,6 +3411,247 @@ def phase_group_embed(torch):
     print(f"group_embed phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ViP-3D: the JAX package's bench.py:338-343 record (vip3d_s7 with
+# VoxelEmbed_m40_vip_s7: ModelNet40's 30^3 grids padded to 32^3, 8^3 tokens,
+# 40 classes, B=32, Adam, drop path 0.1), through train_pure_mlp in f32 and bf16
+VIP_MODEL, VIP_EMBED, VIP_B = "vip3d_s7", "VoxelEmbed_m40_vip_s7", 32
+VIP_LOSS_RTOL = {False: 1e-3, True: 2e-3}  # f32, bf16: as the other paths' checks
+# each leaf's gradient card vs CPU, of its largest value: f32 sums in another
+# order; bf16 rounding
+VIP_GRAD_REL = {False: 1e-4, True: 2e-2}
+# the loss-falls run: 64 samples, 2 steps an epoch, 20 epochs (40 steps); the
+# base lr the untuned warmup scales by (epoch + 1) / 2000
+VIP_SAMPLES, VIP_EPOCHS, VIP_LR = 64, 20, 0.05
+VIP_TIMED_STEPS = 50
+# the device time of a ViP-3D step by kind: the first kind whose pattern a
+# kernel's name holds (PyTorch's and cuBLAS's kernels, and the Adam kernel);
+# profile_steps groups by the patterns and sorts the groups into the kinds
+VIP_KINDS = (("Adam", ("adam_kernel",)),
+             ("products", ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "splitK", "gemv",
+                           "dot_kernel")),
+             ("permutes/copies", ("copy", "Copy")),
+             ("LayerNorm", ("layer_norm", "LayerNorm", "GammaBeta")),
+             ("reductions", ("reduce_kernel",)),
+             ("softmax", ("softmax", "Softmax")),
+             ("elementwise", ("elementwise", "Elementwise", "vectorized")))
+
+
+def vip_argv(*extra) -> list[str]:
+    return ["--dataset", "ModelNet40", "--model-name", VIP_MODEL, "--embed-layer", VIP_EMBED,
+            "--batchSize", str(VIP_B), *extra]
+
+
+def vip_model(torch, device, dtype=None, drop_path=0.1):
+    """vip3d_s7 on the m40 tokenizer with seeded random weights (the CLI's
+    build_model; drop path 0.1, the CLI's default)."""
+    import argparse
+
+    from simple3dformer_tpu_torch.cli import train_pure_mlp as tpm
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED
+
+    args = argparse.Namespace(embed_layer=VIP_EMBED, model_name=VIP_MODEL, seed=DEFAULT_SEED,
+                              drop_path=drop_path, pos_embedding="default")
+    return tpm.build_model(args, N_CLASSES, dtype).to(device)
+
+
+def vip_grids(n, seed):
+    """n synthetic ModelNet40 grids, 30^3 padded to 32^3 as the CLI pads them."""
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED
+    from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
+
+    x, y = synthetic_voxels(n, VOXEL, N_CLASSES, seed=DEFAULT_SEED + seed)
+    return np.pad(x, [(0, 0), (0, 2), (0, 2), (0, 2)]), y
+
+
+def vip_parity(torch, bf16):
+    """The gradients of the first batch, then 3 train steps, at B=32 on the card
+    and on the CPU's plain path from the same weights and batches, drop path
+    off."""
+    from simple3dformer_tpu_torch.train.loop import TrainState, cross_entropy, make_train_step
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    dtype = torch.bfloat16 if bf16 else None
+    x, y = vip_grids(3 * VIP_B, 4)
+    grads, losses, seconds = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        model = vip_model(torch, device, dtype, drop_path=0.0)
+        names, leaves = zip(*model.named_parameters())
+        grads[device] = dict(zip(names, (g.cpu() for g in torch.autograd.grad(cross_entropy(
+            model.train()(torch.from_numpy(x[:VIP_B]).float().to(device)),
+            torch.from_numpy(y[:VIP_B]).to(device)), leaves))))
+        step = make_train_step(TrainState(model, make_optimizer(dict(model.named_parameters()),
+                                                                "Adam")))
+        t0, out = time.perf_counter(), []
+        for i in range(3):
+            sl = slice(i * VIP_B, (i + 1) * VIP_B)
+            out.append(float(step({"x": torch.from_numpy(x[sl]).float().to(device),
+                                   "y": torch.from_numpy(y[sl]).to(device)}, 1e-4)["loss"]))
+        losses[device], seconds[device] = out, time.perf_counter() - t0
+    errs = {k: float((grads["cuda"][k] - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for k, b in grads["cpu"].items()}
+    worst = max(errs, key=lambda k: (np.isnan(errs[k]), errs[k]))
+    grad_err = errs[worst]
+    label = "bf16" if bf16 else "f32"
+    print(f"ViP-3D {label}: {VIP_MODEL} at B={VIP_B}, drop path off: gradients card vs the CPU's "
+          f"plain path within {grad_err:.3e} of each leaf's largest, at {worst} (tolerance "
+          f"{VIP_GRAD_REL[bf16]}); 3 steps at lr 1e-4, losses on the card {losses['cuda']} vs "
+          f"the CPU's {losses['cpu']} (rtol {VIP_LOSS_RTOL[bf16]}); {seconds['cuda']:.1f} s on "
+          f"the card, {seconds['cpu']:.1f} s on the CPU")
+    if not grad_err <= VIP_GRAD_REL[bf16]:
+        raise AssertionError(f"ViP-3D {label} gradients differ from the CPU's: {grad_err}")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=VIP_LOSS_RTOL[bf16])
+
+
+def vip_cli(torch, counters, argv, label, samples, epochs, batch):
+    """train_pure_mlp through run_cli; checks its lines and that the Adam kernel
+    ran once a step; returns the epoch losses and the launches."""
+    from simple3dformer_tpu_torch.cli import train_pure_mlp
+
+    _, lines, launches, saved = run_cli(
+        train_pure_mlp.main, lambda o: [*argv, "--synthetic", str(samples), "--epochs",
+                                        str(epochs), "--outf", o], counters)
+    steps = epochs * (samples // batch)
+    epoch_lines = [line for line in lines if line.startswith("Epoch ")]
+    losses = [float(line.split()[3]) for line in epoch_lines]
+    print(f"ViP-3D CLI {label}: {steps} steps, epoch losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{epoch_lines[-1]}; checkpoints at epochs {saved}; launches {launches} (want "
+          f"fused_adam {steps})")
+    if (len(losses) != epochs or not np.isfinite(losses).all() or not saved
+            or not lines[-1].startswith("Best test accuracy: epoch ")):
+        raise AssertionError(f"ViP-3D CLI {label}: {lines[-3:]}")
+    if launches != {"fused_adam": steps}:
+        raise AssertionError(f"ViP-3D CLI {label}: launches {launches}, want {steps} Adam")
+    return losses, launches
+
+
+def capture_check(torch):
+    """capture_attention on the flagship (deit_small, 26 tokens) on the card
+    against the CPU: the maps and the rollout masks within 1e-4, no block or
+    mhsa kernel launched and 12 plain attention calls a capture; the next
+    ordinary forward launches the fused block again."""
+    from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
+    from simple3dformer_tpu_torch.kernels import mhsa as mk
+    from simple3dformer_tpu_torch.nn.layers import Attention
+    from simple3dformer_tpu_torch.utils.attention_rollout import capture_attention, rollout
+
+    x = torch.from_numpy(synthetic_voxels(4, VOXEL, N_CLASSES, seed=41)[0]).float()
+    counters = {**voxel_counters(), "mhsa_fwd": mk.mhsa_fwd, "mhsa_bwd": mk.mhsa_bwd}
+    for fn in counters.values():
+        fn.launches = 0
+    plain = Attention.plain_calls
+    model = flagship_model(torch, "cuda")
+    out, maps = capture_attention(model, x.cuda())
+    torch.cuda.synchronize()
+    during = {k: fn.launches for k, fn in counters.items()}
+    plain = Attention.plain_calls - plain
+    with torch.inference_mode():
+        model.eval()(x.cuda())
+    torch.cuda.synchronize()
+    after = counters["fused_vit_block"].launches - during["fused_vit_block"]
+    cpu_out, cpu_maps = capture_attention(flagship_model(torch, "cpu"), x)
+    err = float((maps.cpu() - cpu_maps).abs().max())
+    logit_err = float((out.cpu() - cpu_out).abs().max())
+    mask_err = max(float(np.abs(rollout(maps[:, i].cpu().numpy())[0]
+                                - rollout(cpu_maps[:, i].numpy())[0]).max()) for i in range(4))
+    print(f"attention capture (flagship, deit_small, 26 tokens, B=4): maps {tuple(maps.shape)} "
+          f"card vs CPU max abs {err:.3e}, rollout masks {mask_err:.3e} (tolerance 1e-4), logits "
+          f"{logit_err:.3e}; launches during the capture {during}, plain attention calls {plain}; "
+          f"fused block launches of the next ordinary forward {after}")
+    if tuple(maps.shape) != (12, 4, 6, 26, 26) or err > 1e-4 or mask_err > 1e-4:
+        raise AssertionError(f"attention capture differs from the CPU's: {err}, {mask_err}")
+    if any(during.values()) or plain != 12 or after != 12:
+        raise AssertionError(f"attention capture launches {during}, plain {plain}, after {after}")
+
+
+def point_cloud_prediction_check(torch):
+    """visualize_point_cloud.predict at the partseg default (3DViT, deit_tiny,
+    N=1024, B=1) on the card against the CPU; the launches of the fused block,
+    FPS, kNN and the gather forward equal to the model's."""
+    from simple3dformer_tpu_torch.cli import visualize_point_cloud as vpc
+    from simple3dformer_tpu_torch.cli.train_partseg import load_arrays
+
+    n = 2
+    cfg = seg_config("partseg", synthetic=n, num_point=PN, seed=9)
+    _, (te_x, te_c, te_s) = load_arrays(cfg)
+    te_x, te_c, te_s = te_x[:n], te_c[:n], te_s[:n]
+    counters = point_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    got = vpc.predict(partseg_model(torch, "cuda"), te_x, te_c, te_s, "cuda")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = vpc.predict(partseg_model(torch, "cpu"), te_x, te_c, te_s, "cpu")
+    # a forward: FPS 1, kNN 4, gathers 8 (as the partseg phase counts), 12 blocks
+    want_launches = {"fps": n, "knn": 4 * n, "gather_fwd": 8 * n, "gather_bwd": 0,
+                     "fused_vit_block": 12 * n, "fused_vit_block_train_fwd": 0,
+                     "fused_vit_block_train_bwd": 0}
+    errs, flips = [], 0
+    for (lg, pred, cat), (lc, pc, cc) in zip(got, want):
+        errs.append(float(np.abs(lg - lc).max() / np.abs(lc).max()))
+        top2 = np.sort(lc, -1)[:, -2:]
+        near = (top2[:, 1] - top2[:, 0]) <= 1e-3 * np.abs(lc).max()
+        flips += int(((pred != pc) & ~near).sum())
+        assert cat == cc
+    print(f"point-cloud prediction (partseg default, 3DViT deit_tiny, N={PN}, {n} samples at "
+          f"B=1): logits card vs CPU {max(errs):.3e} of the largest (tolerance 1e-3), predicted "
+          f"labels differing beyond near-ties {flips}; launches {launches} (want {want_launches})")
+    if max(errs) > 1e-3 or flips or launches != want_launches:
+        raise AssertionError(f"point-cloud prediction: {errs}, {flips} flips, {launches}")
+
+
+def phase_vip3d(torch):
+    """ViP-3D through train_pure_mlp at full width in f32 and bf16, its other
+    routes through the CLI, and the visualizers' compute: the attention
+    capture and the point-cloud prediction."""
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.kernels.adam import fused_adam
+    from simple3dformer_tpu_torch.train.loop import TrainState, make_scanned_train_steps
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    for bf16 in (False, True):
+        vip_parity(torch, bf16)
+
+    # the main path: the CLI on a synthetic corpus on the card, the loss falls
+    counters = {"fused_adam": fused_adam}
+    for bf16 in (False, True):
+        label = f"{VIP_MODEL} {'bf16' if bf16 else 'f32'}"
+        argv = vip_argv("--lr", str(VIP_LR), *(["--dtype", "bf16"] if bf16 else []))
+        losses, _ = vip_cli(torch, counters, argv, label, VIP_SAMPLES, VIP_EPOCHS, VIP_B)
+        if not losses[-1] < 0.75 * losses[0]:
+            raise AssertionError(f"ViP-3D {label} training loss did not fall: {losses}")
+
+    # ms a step over 50 steps ending in a sync, the busy share, the device time
+    # by kind, the launches a step and the peak memory
+    x, y = vip_grids((VIP_TIMED_STEPS + 1) * VIP_B, 5)
+    ds = DeviceResidentDataset({"x": x, "y": y}, "cuda")
+    idx = ds.put_indices(np.arange(len(x)).reshape(-1, VIP_B))
+    kinds = dict(groups=tuple(p for _, pats in VIP_KINDS for p in pats), categories=VIP_KINDS)
+    for bf16 in (False, True):
+        label = f"ViP-3D {VIP_MODEL} {'bf16' if bf16 else 'f32'}"
+        model = vip_model(torch, "cuda", torch.bfloat16 if bf16 else None)
+        run = make_scanned_train_steps(TrainState(model, make_optimizer(
+            dict(model.named_parameters()), "Adam")), ds)
+        timed_steps(torch, run, idx, 1e-4, VIP_TIMED_STEPS, label, VIP_B, **kinds)
+        del model, run
+    del ds, idx
+    torch.cuda.empty_cache()
+
+    # the other routes, an epoch each: PEG, the 128^3 ShapeNetV2 family, vip3d_m7
+    for label, argv, samples, batch in (
+            ("PEG", vip_argv("--pos-embedding", "PEG"), 64, VIP_B),
+            ("VoxelEmbed_vip_s7 128^3", ["--dataset", "ShapeNetV2", "--embed-layer",
+                                         "VoxelEmbed_vip_s7", "--batchSize", "16"], 48, 16),
+            ("vip3d_m7", ["--dataset", "ModelNet40", "--model-name", "vip3d_m7",
+                          "--embed-layer", "VoxelEmbed_m40_vip_m7", "--batchSize",
+                          str(VIP_B)], 64, VIP_B)):
+        vip_cli(torch, counters, argv, label, samples, 1, batch)
+
+    capture_check(torch)
+    point_cloud_prediction_check(torch)
+    print(f"ViP-3D and visualizers phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3435,6 +3695,7 @@ def main() -> int:
         phase_flagship_bf16(torch)
         phase_lwf(torch)
         phase_group_embed(torch)
+        phase_vip3d(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:

@@ -24,3 +24,19 @@ def step_seed(seed: int, step: int) -> int:
     only, so a run resumed from a checkpoint (which restores the step) draws
     what an unbroken run draws at the same step."""
     return (seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)
+
+
+class DeviceGenerators(dict):
+    """One ``torch.Generator`` a device (keyed by name), each seeded with
+    ``seed`` on first use there: dropout masks drawn on the card from it copy
+    nothing from the host."""
+
+    def __init__(self, seed: int):
+        super().__init__()
+        self.seed = seed
+
+    def __call__(self, device: torch.device) -> torch.Generator:
+        key = str(device)
+        if key not in self:
+            self[key] = torch.Generator(device=device).manual_seed(self.seed)
+        return self[key]

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.rng import DeviceGenerators
 from ..nn.layers import AMSoftmaxLayer, LayerNorm, dense, linear, softmax_last, trunc_normal
 from ..nn.vit import BACKBONES, PatchEmbed2D, ViTCore
 
@@ -75,7 +76,6 @@ class PostNormEncoderLayer(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
-        self.dropout_seed = dropout_seed
         self.compute_dtype = dtype
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.self_attn = _SelfAttn(dim, **kw)
@@ -83,20 +83,13 @@ class PostNormEncoderLayer(nn.Module):
         self.linear2 = dense(dim, dim, **kw)
         self.norm1 = LayerNorm(dim, eps=1e-6, device=device)
         self.norm2 = LayerNorm(dim, eps=1e-6, device=device)
-        self._generators: dict[str, torch.Generator] = {}
-
-    def _generator(self, device: torch.device) -> torch.Generator:
-        """The generator the masks on ``device`` are drawn from."""
-        key = str(device)
-        if key not in self._generators:
-            self._generators[key] = torch.Generator(device=device).manual_seed(self.dropout_seed)
-        return self._generators[key]
+        self.generators = DeviceGenerators(dropout_seed)
 
     def drop(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.dropout == 0.0:
             return x
         keep = 1.0 - self.dropout
-        mask = torch.rand(x.shape, generator=self._generator(x.device), device=x.device) < keep
+        mask = torch.rand(x.shape, generator=self.generators(x.device), device=x.device) < keep
         return torch.where(mask, x / keep, 0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

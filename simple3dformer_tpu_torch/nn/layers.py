@@ -24,12 +24,14 @@ dtype it enters with.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.rng import DeviceGenerators
 from ..kernels import mhsa as mhsa_kernel
 from ..kernels.vit_block import (fused_vit_block, fused_vit_block_train, records_grad,
                                  unsupported)
@@ -147,9 +149,14 @@ class Attention(nn.Module):
     162-191). The route is chosen by shape before any launch: a kernel that
     fails still raises. ``Attention.plain_calls`` counts the plain attention
     calls on the card. On a CPU tensor it is the plain products.
+
+    Inside ``recording_attention()`` every call takes the plain products and
+    the first call of each module keeps its post-softmax, pre-dropout map
+    [B, H, N, N], as the JAX Attention sows it (its ``intermediates``).
     """
 
     plain_calls = 0
+    recorder: dict | None = None  # module -> map while recording_attention() is open
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -172,6 +179,8 @@ class Attention(nn.Module):
             return "attention dropout is live (training mode with a nonzero rate)"
         if seg_len is not None:
             return "the kernel takes no seg_len mask"
+        if Attention.recorder is not None:
+            return "attention maps are being recorded"
         return mhsa_kernel.unsupported(n, c // self.num_heads, self.qkv.compute_dtype or x.dtype)
 
     def forward_kernel(self, x):
@@ -194,26 +203,49 @@ class Attention(nn.Module):
         if seg_len is not None and 0 < seg_len < n:
             seg = torch.arange(n, device=x.device) // seg_len
             attn = attn.masked_fill(seg[:, None] != seg[None, :], float("-inf"))
-        attn = self.attn_drop(softmax_last(attn))
-        out = (attn @ v).transpose(1, 2).reshape(b, n, c)
+        attn = softmax_last(attn)
+        if Attention.recorder is not None:
+            Attention.recorder.setdefault(self, attn.detach())
+        out = (self.attn_drop(attn) @ v).transpose(1, 2).reshape(b, n, c)
         return self.proj_drop(self.proj(out))
 
 
-class DropPath(nn.Module):
-    """Stochastic depth: drop the residual branch per sample while training."""
+@contextlib.contextmanager
+def recording_attention():
+    """Within the block, every ``Attention`` takes the plain products (every
+    ``Block`` its layered route: no fused block and no ``mhsa`` launch) and
+    the first call of each keeps its attention map; yields the dict
+    module -> map [B, H, N, N], in the order of the first calls. The kernels
+    are back once the block is left."""
+    before = Attention.recorder
+    Attention.recorder = {}
+    try:
+        yield Attention.recorder
+    finally:
+        Attention.recorder = before
 
-    def __init__(self, rate: float = 0.0, generator: torch.Generator | None = None):
+
+class DropPath(nn.Module):
+    """Stochastic depth: drop the residual branch per sample while training.
+
+    As the JAX module: one Bernoulli(1 - rate) draw a sample, kept samples
+    divided by 1 - rate. The mask is drawn on the input's device, from a
+    generator there seeded with ``seed`` on first use, so a step on the card
+    copies nothing from the host.
+    """
+
+    def __init__(self, rate: float = 0.0, seed: int = 0):
         super().__init__()
         self.rate = rate
-        self.generator = generator
+        self.generators = DeviceGenerators(seed)
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=self.generator).to(x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        mask = torch.rand(shape, generator=self.generators(x.device), device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
 
 
 class Block(nn.Module):
@@ -242,7 +274,7 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path: float = 0.0, norm_eps: float = 1e-6,
+                 drop_path: float = 0.0, norm_eps: float = 1e-6, drop_path_seed: int = 0,
                  generator=None, device=None, dtype: torch.dtype | None = None):
         super().__init__()
         self.num_heads = num_heads
@@ -253,7 +285,7 @@ class Block(nn.Module):
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.norm1 = LayerNorm(dim, eps=norm_eps, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop, **kw)
-        self.drop_path = DropPath(drop_path, generator=generator)
+        self.drop_path = DropPath(drop_path, drop_path_seed)
         self.norm2 = LayerNorm(dim, eps=norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, **kw)
 
@@ -280,6 +312,8 @@ class Block(nn.Module):
             return "dropout or drop-path is live (training mode with a nonzero rate)"
         if seg_len is not None:
             return "the kernel takes no seg_len mask"
+        if Attention.recorder is not None:
+            return "attention maps are being recorded"
         return unsupported(x.shape[1], x.shape[2], self.num_heads)
 
     def route(self, x: torch.Tensor, seg_len: int | None = None) -> str:

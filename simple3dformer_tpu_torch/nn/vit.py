@@ -56,6 +56,8 @@ class ViTCore(nn.Module):
     state dict loads as it is. The blocks are unrolled; the JAX package's
     ``scan_blocks`` only shrinks XLA programs. ``dtype`` is every block's
     compute dtype; the final norm returns f32, as flax's LayerNorm does.
+    Block i draws its drop-path masks from seed i, so no two blocks drop the
+    same samples.
     """
 
     def __init__(self, dim: int, depth: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -65,8 +67,8 @@ class ViTCore(nn.Module):
         super().__init__()
         self.blocks = nn.ModuleList(
             Block(dim, num_heads, mlp_ratio, qkv_bias, drop, attn_drop, drop_path,
-                  generator=generator, device=device, dtype=dtype)
-            for _ in range(depth))
+                  drop_path_seed=i, generator=generator, device=device, dtype=dtype)
+            for i in range(depth))
         self.norm = LayerNorm(dim, eps=1e-6, device=device)
 
     def encode(self, x, seg_len: int | None = None):

@@ -19,7 +19,13 @@ models' the names ``reference_hengshuang_to_jax_tree`` reads:
 ``backbone.fc1.{0,2}`` (JAX ``fc1_1`` / ``fc1_2``), ``fc_delta.{0,2}`` and
 ``fc_gamma.{0,2}`` (an MLP2's ``fc1`` / ``fc2``), ``transformers.{i}`` (JAX
 ``transformers_i`` and, in the seg model, ``up_transformers_i``) and the heads
-``fc2.{0,2,4}`` / ``fc3.{0,2,4}`` (JAX ``fc1..fc3``). flax BatchNorm
+``fc2.{0,2,4}`` / ``fc3.{0,2,4}`` (JAX ``fc1..fc3``). ViP-3D takes the names
+``scripts/refbridge.export_vip3d_state_dict`` writes: JAX ``embed_layer`` is
+``patch_embed.proj.conv3d_1``, ``stage{i}_block{b}`` is ``network.{ni}.{bj}``
+(``ni`` counts the stages and the downsamples before them, ``bj`` skips the
+PEG after block 0), ``stage{i}_peg`` is ``network.{ni}.1.proj.0`` (DHWIO ->
+[C, 1, 3, 3, 3]) and ``downsample{i}/proj/kernel`` [p^3 Ci, Co] is
+``network.{ni + 1}.proj.weight`` [Co, Ci, p, p, p]. flax BatchNorm
 ``scale`` / ``bias`` become ``weight`` / ``bias``, and the ``batch_stats``
 tree's ``mean`` / ``var`` the ``running_mean`` / ``running_var`` buffers.
 Leaves may be numpy or jax arrays; nothing here imports jax.
@@ -75,8 +81,44 @@ def _point_parts(parts: list[str], like: Mapping[str, torch.Tensor]) -> list[str
     return out[:-1] + [leaf] if leaf else out
 
 
+def _vip3d_stages(like: Mapping[str, torch.Tensor]) -> list[int]:
+    """ViP-3D: the ``network`` index of each stage, in order (an entry holding
+    ``proj.weight`` is a downsample)."""
+    entries = sorted({int(m.group(1)) for k in like
+                      for m in [re.match(r"network\.(\d+)\.", k)] if m})
+    return [n for n in entries if f"network.{n}.proj.weight" not in like]
+
+
+def _vip3d_name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.Tensor]):
+    """A ViP-3D leaf -> (key, array), or None for a leaf of another model."""
+    if path[0] == "embed_layer":
+        key = f"patch_embed.proj.conv3d_1.{'weight' if path[-1] == 'kernel' else 'bias'}"
+        return key, v.T.reshape(tuple(like[key].shape)) if path[-1] == "kernel" else v
+    m = re.fullmatch(r"stage(\d+)_(?:block(\d+)|(peg))|downsample(\d+)", path[0])
+    if m is None or not any(k.startswith("network.") for k in like):
+        return None
+    stages = _vip3d_stages(like)
+    if m.group(4) is not None:  # downsample: [p^3 Ci, Co] -> Conv3d [Co, Ci, p, p, p]
+        key = f"network.{stages[int(m.group(4))] + 1}.proj.weight"
+        co, ci, p = like[key].shape[:3]
+        return key, v.reshape(p, p, p, ci, co).transpose(4, 3, 0, 1, 2)
+    ni = stages[int(m.group(1))]
+    if m.group(3):  # the PEG's depthwise conv: DHWIO -> [C, 1, 3, 3, 3]
+        if path[-1] == "kernel":
+            return f"network.{ni}.1.proj.0.weight", v.transpose(4, 3, 0, 1, 2)
+        return f"network.{ni}.1.proj.0.bias", v
+    b = int(m.group(2))
+    peg = f"network.{ni}.1.proj.0.weight" in like
+    parts = [f"network.{ni}.{b + (1 if peg and b >= 1 else 0)}", *path[1:-1]]
+    leaf = {"kernel": "weight", "scale": "weight"}.get(path[-1], path[-1])
+    return ".".join([*parts, leaf]), v.T if path[-1] == "kernel" else v
+
+
 def _name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.Tensor]):
     """One JAX leaf -> (state-dict key, array in the port's layout)."""
+    vip = _vip3d_name_and_value(path, v, like)
+    if vip is not None:
+        return vip
     if path[0] == "core":
         path = path[1:]
     parts = [re.sub(r"^blocks_(\d+)$", r"blocks.\1", p) for p in path]

@@ -526,3 +526,52 @@ def test_attention_outside_the_mhsa_gate_runs_plain_on_the_card(device):
     want = torch.autograd.grad(blk(x).square().sum(), list(blk.parameters()))
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_vip3d_train_step_on_the_card_matches_the_cpu(device, dtype):
+    """One ViP-3D train step at a narrow width (C=64 on 8^3 tokens, a patch-2
+    downsample, C=96 on 4^3; PEG at f32, which alone takes it): each leaf's
+    gradient card vs CPU within 1e-4 (f32) or 2e-2 (bf16 rounding) of its
+    largest value, the loss within phase 22's rtol (1e-3 f32, 2e-3 bf16), one
+    Adam kernel launch, and at least 99% of the update's elements within lr/10
+    of the CPU's (Adam's first step moves each by lr * sign(g), so a skipped or
+    flipped update is off by lr or 2 lr; only near-zero gradients may tie)."""
+    from simple3dformer_tpu_torch.models.vip3d import VisionPermutator3D
+    from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbedNoAverage
+    from simple3dformer_tpu_torch.train.loop import TrainState, cross_entropy, make_train_step
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    lr = 1e-4
+    x = (torch.rand(4, 32, 32, 32, generator=torch.Generator().manual_seed(0)) < 0.2).float()
+    y = torch.tensor([0, 3, 1, 2])
+    losses, grads, updates = {}, {}, {}
+    for dev in ("cpu", device):
+        g = torch.Generator().manual_seed(1)
+        emb = VoxelEmbedNoAverage(voxel_size=32, cell_size=4, patch_size=8, embed_dim=64,
+                                  generator=g, dtype=dtype)
+        model = VisionPermutator3D(emb, layers=[1, 1], embed_dims=[64, 96],
+                                   transitions=[True, False], segment_dim=[8, 4],
+                                   mlp_ratios=[3, 3], num_classes=5,
+                                   pos_embedding="PEG" if dtype is None else None,
+                                   generator=g, dtype=dtype).to(dev)
+        names, leaves = zip(*model.named_parameters())
+        got = torch.autograd.grad(cross_entropy(model.train()(x.to(dev)), y.to(dev)), leaves)
+        grads[str(dev)] = {k: v.cpu() for k, v in zip(names, got)}
+        before = {k: v.detach().cpu().clone() for k, v in zip(names, leaves)}
+        opt = make_optimizer(dict(model.named_parameters()), "Adam")
+        launches = fused_adam.launches
+        out = make_train_step(TrainState(model, opt))({"x": x.to(dev), "y": y.to(dev)}, lr)
+        assert fused_adam.launches == launches + (str(dev) != "cpu")
+        losses[str(dev)] = float(out["loss"])
+        updates[str(dev)] = {k: v.detach().cpu() - before[k]
+                             for k, v in model.named_parameters()}
+    rel = 1e-4 if dtype is None else 2e-2
+    for k, want in grads["cpu"].items():
+        err = float((grads["cuda"][k] - want).abs().max())
+        assert err <= rel * float(want.abs().max()), (k, err, float(want.abs().max()))
+    rtol = 1e-3 if dtype is None else 2e-3
+    assert abs(losses["cuda"] - losses["cpu"]) <= rtol * abs(losses["cpu"])
+    near = torch.cat([((updates["cuda"][k] - u).abs() <= lr / 10).flatten()
+                      for k, u in updates["cpu"].items()])
+    assert float(near.float().mean()) >= 0.99, float(near.float().mean())

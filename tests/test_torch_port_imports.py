@@ -21,9 +21,12 @@ maps = {n: default_class_names(n) for n in WIDTHS}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
                                     "simple3dformer_tpu"))
-print(json.dumps([len(names), bad, maps]))
+print(json.dumps([names, bad, maps]))
 """
 WIDTHS = (10, 13, 15, 40, 1000)
+# ViP-3D and the two visualizers, imported like every other module
+NEW_ENTRY_POINTS = ("models.vip3d", "cli.train_pure_mlp", "utils.attention_rollout",
+                    "cli.visualize_attention_map_voxel", "cli.visualize_point_cloud")
 
 
 def test_port_imports_no_jax():
@@ -31,8 +34,9 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad, maps = json.loads(out.stdout.strip().splitlines()[-1])
-    assert n_modules >= 44
+    names, bad, maps = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) >= 49
+    assert {f"simple3dformer_tpu_torch.{m}" for m in NEW_ENTRY_POINTS} <= set(names)
     assert bad == [], bad
     from simple3dformer_tpu.serve.server import default_class_names as jax_default_class_names
 

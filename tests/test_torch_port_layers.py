@@ -192,7 +192,7 @@ def test_mlp_head_matches_flax():
 
 
 def test_drop_path_drops_whole_samples_only_in_training():
-    dp = tl.DropPath(0.5, generator=torch.Generator().manual_seed(0))
+    dp = tl.DropPath(0.5, seed=0)
     x = torch.ones(64, 3, 4)
     assert torch.equal(dp.eval()(x), x)
     y = dp.train()(x)
@@ -201,3 +201,14 @@ def test_drop_path_drops_whole_samples_only_in_training():
     assert torch.equal(per_sample[kept], torch.full_like(per_sample[kept], 2.0))
     assert torch.equal(per_sample[~kept], torch.zeros_like(per_sample[~kept]))
     assert 0 < int(kept.sum()) < 64
+
+
+def test_vit_blocks_draw_their_own_drop_path_masks():
+    """Each block of a ViTCore draws from its own seed: the blocks do not all
+    drop the same samples."""
+    from simple3dformer_tpu_torch.nn.vit import ViTCore
+
+    core = ViTCore(8, 3, 2, drop_path=0.5).train()
+    x = torch.ones(64, 1, 1)
+    kept = [blk.drop_path(x).flatten() != 0 for blk in core.blocks]
+    assert not torch.equal(kept[0], kept[1]) and not torch.equal(kept[1], kept[2])
