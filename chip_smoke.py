@@ -126,7 +126,13 @@ Phases, one line each (and a line per kernel shape):
               launch counts a step from the model), ms a step and a profile;
               train_cls_voxel --lwf --pretrained at the flagship width (a DeiT
               file the phase writes loaded, the 2D leaves unchanged, launch
-              counts, ms a step)
+              counts, ms a step); the LwF student at dtype=bf16: its block calls
+              (bf16 images, f32 points, bf16 matmuls) against their plain
+              versions, 3 steps card vs CPU, the CLI (the loss falls, launch
+              counts); model=3DViT_lwf (deit_base with 3 heads, 65 point tokens,
+              a deit_base teacher) through the CLI in f32 and bf16 (launch
+              counts); ms a step, samples/s, busy share and peak memory of the
+              four partseg LwF steps
  21. group_embed  BASELINE.json's second config (ShapeNetV2 at 128^3, deit_base
               with 3 heads, VoxelEmbed_no_average cell 9 / patch 14, B=16): the
               block kernels at stage 1's [3136, 15, 768] (3 and 12 heads, f32
@@ -153,6 +159,13 @@ Phases, one line each (and a line per kernel shape):
               masks, no block or mhsa launch during it, the fused block after
               it); visualize_point_cloud's prediction at the partseg default
               card vs CPU with its launch counts
+ 23. export   Predictor.export of the flagship predictor (batch 32), a
+              group_embed model and vip3d_s7 on the card, each program's
+              s3f::vit_block_fwd nodes counted; load_exported in a fresh
+              process that imports no model code: logits against the eager
+              Predictor's, the block launches a call counted inside the op, the
+              flagship's exported p50/p95 beside the Predictor's; a point
+              model's export refused, naming the row-gather kernel
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -2804,8 +2817,21 @@ LWF_BLOCK_SHAPES = [("LwF deit_small N=197", 64, 197, 384, 6, "float32"),
                     ("3DViT_LWF images N=197", 64, 197, 768, 3, "float32"),
                     ("3DViT_LWF points N=65", 32, 65, 768, 3, "float32")]
 LWF_TIMED = ("LwF deit_small N=197", "LwF deit_base teacher N=197")
+# the student's block calls at dtype=bf16 (bf16 matmuls; the image stream bf16,
+# the point stream f32 after the transitions' BatchNorms), of 3DViT_1_layer
+# (deit_small, 6 heads, 257 point tokens) and of 3DViT_LWF (deit_base with 3
+# heads, 65 point tokens): (label, B, N, D, heads, x dtype, compute dtype)
+LWF_BF16_BLOCK_SHAPES = [
+    ("3DViT_1_layer images", 64, 197, 384, 6, "bfloat16", "bfloat16"),
+    ("3DViT_1_layer points", 32, 257, 384, 6, "float32", "bfloat16"),
+    ("3DViT_LWF images", 64, 197, 768, 3, "bfloat16", "bfloat16"),
+    ("3DViT_LWF points", 32, 65, 768, 3, "float32", "bfloat16"),
+]
 CROP_ATOL = 1e-3  # the crop on the 0-255 scale: f32 sums of products in another order
-LWF_LOSS_RTOL = 1e-3  # as the other f32 phases: 24 blocks and the point path in another order
+# card vs CPU, 3 LwF steps' loss, task and lwf terms: f32, 24 blocks and the
+# point path in another order; bf16, as the other bf16 paths (logits keep 8 bits)
+LWF_LOSS_RTOL = {None: 1e-3, "bf16": 2e-3}
+LWF_BASE_EPOCHS = 5  # model=3DViT_lwf (deit_base student and teacher) through the CLI: 10 steps
 
 
 def block_row_times(torch, label, x, w, heads, g, iters=20):
@@ -2928,6 +2954,44 @@ def lwf_launches(n_td, depth, steps, evals) -> dict:
                 mhsa_fwd=0, mhsa_bwd=0)
 
 
+def lwf_cli_check(torch, tpl, counters, overrides, epochs, label, must_fall=True):
+    """train_partseg_lwf through its CLI on synthetic points and images on the
+    card: the epoch lines, both DeiT files loaded, the launch counts from the
+    model, the loss falling (last epoch < 0.75 x the first) where ``must_fall``;
+    -> the launch counts."""
+    from simple3dformer_tpu_torch.core.config import load_task_config
+    from simple3dformer_tpu_torch.models.registry import make_point_model
+
+    _, lines, launches, saved = run_cli(tpl.main, lambda d: [
+        f"synthetic={LWF_SAMPLES}", f"epoch={epochs}", f"out_dir={d}", *overrides], counters)
+    cfg = load_task_config("partseg_lwf", overrides)
+    cfg.num_class, cfg.input_dim = 50, 22
+    model = make_point_model(cfg, "seg")
+    steps = epochs * (LWF_SAMPLES // LWF_B)
+    evals = epochs * -(-max(LWF_SAMPLES // 5, 32) // LWF_B)
+    want = lwf_launches(len(model.transition_downs), len(model.blocks), steps, evals)
+    per_step = {k: v for k, v in lwf_launches(len(model.transition_downs), len(model.blocks), 1,
+                                              0).items() if v}
+    epochs_lines = [line for line in lines if line.startswith("Epoch ")]
+    epoch_losses = [float(line.split(" loss ")[1].split()[0]) for line in epochs_lines]
+    loaded = [line for line in lines if line.startswith("loaded ")]
+    ious = [line for line in lines if "Inctance avg mIOU" in line]
+    print(f"{label} CLI (B={LWF_B}, N=1024, M={LWF_M}, {cfg.model.name} on "
+          f"{cfg.model.transformer_backbone}, {' '.join(overrides) or 'f32'}, pretrained from a "
+          f"seeded file): {steps} train steps, {evals} eval batches; {epochs_lines[0]} -> "
+          f"{epochs_lines[-1]}; {ious[-1].strip()}; {loaded}; checkpoints at epochs {saved}; "
+          f"launches {launches} (want {want}; a train step: {per_step})")
+    if len(epoch_losses) != epochs or not np.isfinite(epoch_losses).all():
+        raise AssertionError(f"{label} losses: {epoch_losses}")
+    if must_fall and not epoch_losses[-1] < 0.75 * epoch_losses[0]:
+        raise AssertionError(f"{label} loss did not fall: {epoch_losses}")
+    if len(loaded) != 2 or not saved or len(ious) != epochs:
+        raise AssertionError(f"{label} CLI output: {lines[-8:]}")
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches}, want {want}")
+    return launches
+
+
 def write_deit(torch, directory, name, seed):
     """A timm-named DeiT state dict at ``directory/<name>.pth`` from a seeded model."""
     import os
@@ -2951,11 +3015,13 @@ def lwf_timed(torch, run, task_ds, image_ds, lr, label, batch, m, n_steps=10):
 
 
 def phase_lwf(torch):
-    """LwF at full width: the block kernels at the path's new shapes, the device
-    crop, train_partseg_lwf (3 steps card vs CPU, the CLI with its launch
-    counts, ms a step and a profile) and train_cls_voxel --lwf --pretrained (a
+    """LwF at full width: the block kernels at the path's new shapes (f32, and
+    the bf16 student's), the device crop, train_partseg_lwf in f32 and at
+    dtype=bf16 (3 steps card vs CPU, the CLI with its launch counts, ms a step
+    and a profile), model=3DViT_lwf through the CLI in f32 and bf16 (launch
+    counts, ms a step, a profile) and train_cls_voxel --lwf --pretrained (a
     DeiT file loaded, the 2D leaves unchanged, launch counts, ms a step).
-    Returns the launch counts of the partseg CLI run."""
+    Returns the launch counts of the f32 partseg CLI run."""
     import os
     import tempfile
 
@@ -2982,73 +3048,74 @@ def phase_lwf(torch):
     t0 = time.perf_counter()
     for shape in LWF_BLOCK_SHAPES:
         lwf_block_check(torch, *shape)
+    for label, b, n, d, heads, x_dtype, cdt in LWF_BF16_BLOCK_SHAPES:
+        errs, same = block_cdt_check(torch, b, n, d, heads, getattr(torch, x_dtype),
+                                     getattr(torch, cdt), seed=n + d + heads)
+        print(f"kernel LwF block bf16 student {label} B={b} N={n} D={d} H={heads}, x {x_dtype}, "
+              f"{cdt} matmuls: error relative to the largest value "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tolerance {GRAD_REL[cdt]}); "
+              f"two runs of the training forward and of each backward bit-equal {same}")
+        if max(errs.values()) > GRAD_REL[cdt] or not same:
+            raise AssertionError(f"LwF bf16 block kernels {label}: {errs}, bit-equal {same}")
     lwf_crop_check(torch)
 
     cfg = load_task_config("partseg_lwf", [f"synthetic={3 * LWF_PARITY_B}", "seed=9"])
     cfg.num_class, cfg.input_dim = 50, 22
-    backbone = str(cfg.model.transformer_backbone)
+    base_cfg = load_task_config("partseg_lwf", ["model=3DViT_lwf", "seed=9"])
+    base_cfg.num_class, base_cfg.input_dim = 50, 22
 
-    def trainer(device):
-        model = make_point_model(cfg, "seg", generator=generator(DEFAULT_SEED)).to(device)
-        opt, lr = _common.reference_optimizer(cfg, dict(model.named_parameters()),
+    def trainer(device, model_cfg=cfg, dtype=None):
+        model = make_point_model(model_cfg, "seg", dtype=dtype,
+                                 generator=generator(DEFAULT_SEED)).to(device)
+        opt, lr = _common.reference_optimizer(model_cfg, dict(model.named_parameters()),
                                               frozen_mask_point(model, True))
-        teacher = make_teacher(backbone, generator=generator(lwf.TEACHER_SEED)).to(device)
+        teacher = make_teacher(str(model_cfg.model.transformer_backbone),
+                               generator=generator(lwf.TEACHER_SEED)).to(device)
         return TrainState(model, opt), teacher, lr
 
-    # 3 steps on the card and on the CPU's plain path: the same weights, batches
-    # and 224^2 images, the augmentations off (their draws differ by device)
+    # 3 steps on the card and on the CPU's plain path in f32 and at dtype=bf16:
+    # the same weights, batches and 224^2 images, the augmentations off (their
+    # draws differ by device)
     (xs, cats, segs), _ = load_arrays(cfg)
     images = lwf.load_images("", synthetic=3 * LWF_PARITY_M, seed=9, canvas=224)
     prepare = make_prepare_fn()
-    losses, seconds = {}, {}
-    for device in ("cuda", "cpu"):
-        state, teacher, lr = trainer(device)
-        step = lwf.make_lwf_train_step(state, teacher, task_loss_fn=seg_cross_entropy,
-                                       prepare_fn=prepare)
-        t1, out = time.perf_counter(), []
-        for i in range(3):
-            sl, il = slice(i * LWF_PARITY_B, (i + 1) * LWF_PARITY_B), \
-                slice(i * LWF_PARITY_M, (i + 1) * LWF_PARITY_M)
-            batch = {k: torch.from_numpy(v[sl]).to(device)
-                     for k, v in (("x", xs), ("cls", cats), ("y", segs))}
-            metrics = step(batch, torch.from_numpy(images[il]).to(device), lr)
-            out.append([float(metrics[k]) for k in ("loss", "task_loss", "lwf_loss")])
-        losses[device], seconds[device] = out, time.perf_counter() - t1
-    print(f"LwF partseg: 3 steps at B={LWF_PARITY_B}, M={LWF_PARITY_M}, lr {lr} (loss, task, lwf): "
-          f"on the card {losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol "
-          f"{LWF_LOSS_RTOL}); {seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
-    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=LWF_LOSS_RTOL)
+    for dtype in (None, "bf16"):
+        losses, seconds = {}, {}
+        for device in ("cuda", "cpu"):
+            state, teacher, lr = trainer(device, dtype=dtype and torch.bfloat16)
+            step = lwf.make_lwf_train_step(state, teacher, task_loss_fn=seg_cross_entropy,
+                                           prepare_fn=prepare)
+            t1, out = time.perf_counter(), []
+            for i in range(3):
+                sl, il = slice(i * LWF_PARITY_B, (i + 1) * LWF_PARITY_B), \
+                    slice(i * LWF_PARITY_M, (i + 1) * LWF_PARITY_M)
+                batch = {k: torch.from_numpy(v[sl]).to(device)
+                         for k, v in (("x", xs), ("cls", cats), ("y", segs))}
+                metrics = step(batch, torch.from_numpy(images[il]).to(device), lr)
+                out.append([float(metrics[k]) for k in ("loss", "task_loss", "lwf_loss")])
+            losses[device], seconds[device] = out, time.perf_counter() - t1
+        print(f"LwF partseg {dtype or 'f32'}: 3 steps at B={LWF_PARITY_B}, M={LWF_PARITY_M}, lr "
+              f"{lr} (loss, task, lwf): on the card {losses['cuda']} vs the CPU's plain path "
+              f"{losses['cpu']} (rtol {LWF_LOSS_RTOL[dtype]}); {seconds['cuda']:.1f} s on the "
+              f"card, {seconds['cpu']:.1f} s on the CPU")
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=LWF_LOSS_RTOL[dtype])
 
     counters = s3dis_counters()
     with tempfile.TemporaryDirectory() as weights:
-        small = write_deit(torch, weights, backbone, seed=DEFAULT_SEED + 20)
+        small = write_deit(torch, weights, str(cfg.model.transformer_backbone),
+                           seed=DEFAULT_SEED + 20)
+        # deit_base: the voxel --lwf teacher, and 3DViT_lwf's student and teacher
         write_deit(torch, weights, train_cls_voxel.LWF_TEACHER, seed=DEFAULT_SEED + 21)
         old = os.environ.get("DEIT_CKPT_DIR")
         os.environ["DEIT_CKPT_DIR"] = weights
         try:
-            # the CLI on a synthetic corpus and synthetic images on the card: the main path
-            _, lines, launches, saved = run_cli(tpl.main, lambda d: [
-                f"synthetic={LWF_SAMPLES}", f"epoch={LWF_EPOCHS}", f"out_dir={d}"], counters)
-            model = make_point_model(cfg, "seg")
-            steps = LWF_EPOCHS * (LWF_SAMPLES // LWF_B)
-            evals = LWF_EPOCHS * -(-max(LWF_SAMPLES // 5, 32) // LWF_B)
-            want = lwf_launches(len(model.transition_downs), len(model.blocks), steps, evals)
-            per_step = {k: v for k, v in lwf_launches(len(model.transition_downs),
-                                                      len(model.blocks), 1, 0).items() if v}
-            epochs = [line for line in lines if line.startswith("Epoch ")]
-            epoch_losses = [float(line.split(" loss ")[1].split()[0]) for line in epochs]
-            loaded = [line for line in lines if line.startswith("loaded ")]
-            ious = [line for line in lines if "Inctance avg mIOU" in line]
-            print(f"LwF partseg CLI (B={LWF_B}, N=1024, M={LWF_M}, {backbone}, pretrained from a "
-                  f"seeded file): {steps} train steps, {evals} eval batches; {epochs[0]} -> "
-                  f"{epochs[-1]}; {ious[-1].strip()}; {loaded}; checkpoints at epochs {saved}; "
-                  f"launches {launches} (want {want}; a train step: {per_step})")
-            if len(epoch_losses) != LWF_EPOCHS or not epoch_losses[-1] < 0.75 * epoch_losses[0]:
-                raise AssertionError(f"LwF partseg loss did not fall: {epoch_losses}")
-            if len(loaded) != 2 or not saved or len(ious) != LWF_EPOCHS:
-                raise AssertionError(f"LwF partseg CLI output: {lines[-8:]}")
-            if launches != want:
-                raise AssertionError(f"LwF partseg launch counts {launches}, want {want}")
+            # the CLI on a synthetic corpus and synthetic images on the card: the
+            # main path, in f32 and at dtype=bf16; then model=3DViT_lwf in both
+            launches = lwf_cli_check(torch, tpl, counters, [], LWF_EPOCHS, "LwF partseg")
+            lwf_cli_check(torch, tpl, counters, ["dtype=bf16"], LWF_EPOCHS, "LwF partseg bf16")
+            for extra in ([], ["dtype=bf16"]):
+                lwf_cli_check(torch, tpl, counters, ["model=3DViT_lwf", *extra], LWF_BASE_EPOCHS,
+                              f"LwF 3DViT_lwf {extra[0] if extra else 'f32'}", must_fall=False)
 
             # train_cls_voxel --lwf --pretrained at the flagship width
             kept = {}
@@ -3098,11 +3165,17 @@ def phase_lwf(torch):
     task_ds = DeviceResidentDataset({"x": xs, "cls": cats, "y": segs}, "cuda")
     image_ds = DeviceResidentDataset({"images": lwf.load_images("", synthetic=LWF_M, seed=9)},
                                      "cuda")
-    state, teacher, lr = trainer("cuda")
-    run = lwf.make_scanned_lwf_train_steps(
-        state, teacher, task_ds, image_ds, task_loss_fn=seg_cross_entropy, augment_fn=seg_augment,
-        image_augment_fn=device_random_resized_crop_flip, prepare_fn=prepare)
-    lwf_timed(torch, run, task_ds, image_ds, lr, "LwF partseg", LWF_B, LWF_M)
+    for label, model_cfg, dtype in (("LwF partseg", cfg, None),
+                                    ("LwF partseg bf16", cfg, torch.bfloat16),
+                                    ("LwF 3DViT_lwf", base_cfg, None),
+                                    ("LwF 3DViT_lwf bf16", base_cfg, torch.bfloat16)):
+        state, teacher, lr = trainer("cuda", model_cfg, dtype)
+        run = lwf.make_scanned_lwf_train_steps(
+            state, teacher, task_ds, image_ds, task_loss_fn=seg_cross_entropy,
+            augment_fn=seg_augment, image_augment_fn=device_random_resized_crop_flip,
+            prepare_fn=prepare)
+        lwf_timed(torch, run, task_ds, image_ds, lr, label, LWF_B, LWF_M)
+        del state, teacher, run
     grids, labels = synthetic_voxels(11 * BATCH, VOXEL, N_CLASSES, seed=DEFAULT_SEED + 3)
     vds = DeviceResidentDataset({"x": grids, "y": labels}, "cuda")
     vmodel = flagship_model(torch, "cuda")
@@ -3652,6 +3725,132 @@ def phase_vip3d(torch):
     print(f"ViP-3D and visualizers phase: {time.perf_counter() - t0:.1f} s")
 
 
+# Predictor.export: the flagship predictor (phase 4's, batch 32), a group_embed
+# model (phase 21's at batch GROUP_B) and a ViP-3D model (phase 22's vip3d_s7 at
+# batch VIP_B) exported on the card and loaded in a fresh process that imports
+# no model code; their logits against the eager Predictor's
+EXPORT_REL = 1e-6  # of the largest logit: the same ops in the same order
+EXPORT_CALLS = 50  # timed calls of the flagship's exported callable and Predictor
+# the fresh process: load_exported of each artifact, its logits, the block
+# launches a call (counted inside the op), the flagship's latency, and the
+# modules of the port it imported
+EXPORT_LOADER = """
+import json, sys, time
+import numpy as np
+from simple3dformer_tpu_torch.kernels.vit_block import fused_vit_block
+from simple3dformer_tpu_torch.serve.predictor import load_exported
+d, calls = sys.argv[1], int(sys.argv[2])
+report = {"launches": {}}
+for name in json.load(open(f"{d}/names.json")):
+    fn, x = load_exported(f"{d}/{name}.pt2"), np.load(f"{d}/{name}.x.npy")
+    fused_vit_block.launches = 0
+    np.save(f"{d}/{name}.got.npy", fn(x))
+    report["launches"][name] = fused_vit_block.launches
+    if name == "flagship":
+        lat = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn(x)
+            lat.append(time.perf_counter() - t0)
+        report["launches_timed"] = fused_vit_block.launches - report["launches"][name]
+        report["p50"], report["p95"] = (float(np.percentile(lat, q) * 1e3) for q in (50, 95))
+report["modules"] = sorted(m for m in sys.modules if m.startswith("simple3dformer"))
+print(json.dumps(report))
+"""
+EXPORT_MODULES = ["simple3dformer_tpu_torch", "simple3dformer_tpu_torch.kernels",
+                  "simple3dformer_tpu_torch.kernels.build",
+                  "simple3dformer_tpu_torch.kernels.vit_block",
+                  "simple3dformer_tpu_torch.serve", "simple3dformer_tpu_torch.serve.predictor"]
+
+
+def phase_export(torch):
+    """Predictor.export / load_exported on the card. Returns the block launches
+    of the exported flagship's calls (each counted inside the op)."""
+    import os
+    import tempfile
+
+    from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
+    from simple3dformer_tpu_torch.serve.predictor import Predictor
+
+    t0 = time.perf_counter()
+    grids, _ = synthetic_voxels(BATCH, VOXEL, N_CLASSES, seed=11)
+    group_x = half_empty_grids(GROUP_B, seed=12).astype(np.float32)
+    vip_x = vip_grids(VIP_B, seed=13)[0].astype(np.float32)
+    models = {"flagship": (flagship_model(torch, "cuda"), grids.astype(np.float32), 12),
+              "group_embed": (group_model(torch, "cuda"), group_x, 24),
+              "vip3d": (vip_model(torch, "cuda"), vip_x, 0)}
+    want, predictors, depth = {}, {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, (model, x, blocks) in models.items():
+            predictor = Predictor(model, x.shape[1:], device="cuda", batch_size=len(x))
+            t1 = time.perf_counter()
+            predictor.export(os.path.join(d, f"{name}.pt2"))
+            program = torch.export.load(os.path.join(d, f"{name}.pt2"))
+            depth[name] = sum(n.target == torch.ops.s3f.vit_block_fwd.default
+                              for n in program.graph.nodes)
+            mib = os.path.getsize(os.path.join(d, f"{name}.pt2")) / 2**20
+            print(f"export {name}: Predictor at batch {len(x)} on the card exported in "
+                  f"{time.perf_counter() - t1:.1f} s ({mib:.1f} MiB), {depth[name]} "
+                  "s3f::vit_block_fwd nodes in the program")
+            want[name], predictors[name] = predictor(x), predictor
+            np.save(os.path.join(d, f"{name}.x.npy"), x)
+        with open(os.path.join(d, "names.json"), "w") as f:
+            json.dump(list(models), f)
+        out = subprocess.run([sys.executable, "-c", EXPORT_LOADER, d, str(EXPORT_CALLS)],
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode:
+            raise AssertionError(f"loading the exported programs failed:\n{out.stderr[-4000:]}")
+        report = json.loads(out.stdout.splitlines()[-1])
+        got = {name: np.load(os.path.join(d, f"{name}.got.npy")) for name in models}
+
+    for name, (_, x, blocks) in models.items():
+        err = float(np.abs(got[name] - want[name]).max()) / float(np.abs(want[name]).max())
+        same = np.array_equal(got[name], want[name])
+        n = report["launches"][name]
+        print(f"export {name}: the exported program in a fresh process against the eager "
+              f"Predictor: logits {got[name].shape}, error {err:.3e} of the largest (tolerance "
+              f"{EXPORT_REL}), bit-equal {same}; fused_vit_block launches a call {n} (want "
+              f"{blocks})")
+        if (err > EXPORT_REL or got[name].shape != want[name].shape or n != blocks
+                or depth[name] != blocks):
+            raise AssertionError(f"exported {name}: err {err}, launches {n}, op nodes "
+                                 f"{depth[name]}, want {blocks}")
+    if report["modules"] != EXPORT_MODULES:
+        raise AssertionError(f"loading needed more of the port: {report['modules']}")
+    if report["launches_timed"] != 12 * EXPORT_CALLS:
+        raise AssertionError(f"exported flagship: {report['launches_timed']} launches in "
+                             f"{EXPORT_CALLS} calls")
+    x = models["flagship"][1]
+    lat = []
+    for _ in range(EXPORT_CALLS):
+        t1 = time.perf_counter()
+        predictors["flagship"](x)
+        lat.append(time.perf_counter() - t1)
+    lat_ms = np.asarray(lat) * 1e3
+    print(f"export flagship latency at batch {BATCH} (host clock, {EXPORT_CALLS} calls each, "
+          f"numpy in and out): exported callable in a fresh process p50 {report['p50']:.3f} ms, "
+          f"p95 {report['p95']:.3f} ms; the Predictor here p50 {np.percentile(lat_ms, 50):.3f} "
+          f"ms, p95 {np.percentile(lat_ms, 95):.3f} ms; the fresh process imported only "
+          f"{report['modules']}")
+
+    # a forward that reaches a kernel that is no registered op raises, naming
+    # it: the partseg 3DViT's first transition keeps all N points (no FPS), so
+    # the first kernel it reaches is the row gather
+    point = Predictor(partseg_model(torch, "cuda"), (PN, 22), device="cuda", batch_size=2,
+                      warmup=False)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            point.export(os.path.join(d, "point.pt2"))
+    except RuntimeError as e:
+        if "the gather_fwd kernel is not registered as a torch op" not in str(e):
+            raise
+        print(f"export partseg 3DViT: refused, {e}")
+    else:
+        raise AssertionError("the point model's export did not raise")
+    print(f"export phase: {time.perf_counter() - t0:.1f} s")
+    return report["launches"]["flagship"] + report["launches_timed"]
+
+
 def main() -> int:
     try:
         import torch
@@ -3696,6 +3895,7 @@ def main() -> int:
         phase_lwf(torch)
         phase_group_embed(torch)
         phase_vip3d(torch)
+        export_launches = phase_export(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -3707,9 +3907,12 @@ def main() -> int:
     vit_bytes = 4 * (2 * b * n * d + 12 * d * d + 13 * d)  # x, y, weights
     bound_ms, bound_by = bound(vit_bytes, block_flops(b, n, d, heads))
     block_src = "simple3dformer_tpu_torch/csrc/vit_block.cu"
+    # the forward is the op s3f::vit_block_fwd: the serving phase's launches and
+    # those of the exported flagship's run (phase 23), each counted inside the op
     kernels = [dict(name="fused_vit_block", route="cuda", source=block_src,
                     replaces="simple3dformer_tpu/kernels/vit_block.py:264",
-                    launches=launches, bound_ms=bound_ms, bound_by=bound_by, **report)]
+                    launches=launches + export_launches, bound_ms=bound_ms, bound_by=bound_by,
+                    **report)]
     for name, replaces, source in [
             ("fused_vit_block_bwd", "simple3dformer_tpu/kernels/vit_block.py:290", block_src),
             ("fused_vit_block_train_fwd", "simple3dformer_tpu/kernels/vit_block.py:366",

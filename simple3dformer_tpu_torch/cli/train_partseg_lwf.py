@@ -25,8 +25,10 @@ generator, seed 0). Without ImageNet on disk, ``synthetic=N`` (or
 ``--synthetic``) also makes random images (train/lwf.load_images).
 
 It runs on the card (``device=cuda``, the default) and on the CPU only when
-asked (``device=cpu``). ``dtype=bf16`` is refused: the bf16 LwF route is not
-ported.
+asked (``device=cpu``). ``dtype=bf16`` builds the student at the compute dtype,
+as the JAX CLI does (every Linear and the image pathway's patch embedding in
+bf16, the parameters f32); the teacher stays f32, so its labels do not change
+with the dtype, and both cross-entropies take the logits in f32.
 """
 
 from __future__ import annotations
@@ -67,8 +69,6 @@ def balanced_portion(cats: np.ndarray, portion: float, seed: int) -> np.ndarray:
 
 def main(argv=None):
     cfg, device = C.setup("partseg_lwf", argv)
-    if C.compute_dtype(cfg) is not None:
-        raise NotImplementedError("dtype=bf16 is not ported for the LwF trainer: it runs in f32")
     if not has_lwf_pathway(cfg):
         raise ValueError(f"model {cfg.model.name} has no 2D image pathway for LwF")
     cfg.num_class = NUM_PART
@@ -88,7 +88,8 @@ def main(argv=None):
 
     backbone = str(cfg.model.transformer_backbone)
     pretrained = bool(cfg.model.get("pretrained"))
-    model = make_point_model(cfg, task="seg", generator=generator(int(cfg.seed))).to(device)
+    model = make_point_model(cfg, task="seg", dtype=C.compute_dtype(cfg),
+                             generator=generator(int(cfg.seed))).to(device)
     print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     if pretrained:
         maybe_load_deit(model, backbone)

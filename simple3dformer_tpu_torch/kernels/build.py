@@ -8,6 +8,10 @@ checkout, named by a hash of the source, every shared header and the flags,
 so an edited source or header is rebuilt and an unchanged tree is reused.
 Nothing here runs at import time: the first call that needs a library
 builds it.
+
+``refuse_export`` is the guard of the kernels that are not registered as torch
+ops: only the ViT block forward is (``s3f::vit_block_fwd``, kernels/vit_block.py),
+so ``torch.export`` of a forward that reaches any other kernel raises, naming it.
 """
 
 from __future__ import annotations
@@ -78,3 +82,15 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     path, _, _ = build(name)
     return ctypes.CDLL(str(path))
+
+
+def refuse_export(kernel: str) -> None:
+    """Raise while ``torch.export`` traces a call of ``kernel``, a kernel an
+    exported program could not launch (it is no registered torch op)."""
+    import torch
+
+    if torch.compiler.is_exporting():
+        raise RuntimeError(
+            f"the {kernel} kernel is not registered as a torch op, so a forward that reaches "
+            "it cannot be exported (of the port's kernels only the ViT block forward, "
+            "s3f::vit_block_fwd, is)")

@@ -31,6 +31,8 @@ import functools
 
 import torch
 
+from .build import refuse_export
+
 
 def fps_reference(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: xyz [B, N, 3] -> indices [B, npoint] int32."""
@@ -64,6 +66,7 @@ def _lib():
 def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None) -> torch.Tensor:
     """xyz [B, N, 3] -> [B, npoint] int32 indices, starting at ``start`` [B]
     (index 0 when None)."""
+    refuse_export("fps")
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be [B, N, 3], got {tuple(xyz.shape)}")
     # the kernel reads xyz[start] from shared memory: an index outside [0, N) reads past it

@@ -53,6 +53,8 @@ import functools
 
 import torch
 
+from .build import refuse_export
+
 _BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -98,6 +100,7 @@ def _check_idx(idx: torch.Tensor, b: int, device: torch.device) -> torch.Tensor:
 
 def gather_fwd(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points [B, N, C], idx [B, R] -> [B, R, C] (no autograd; see gather_rows)."""
+    refuse_export("gather_fwd")
     if points.ndim != 3:
         raise ValueError(f"points must be [B, N, C], got {tuple(points.shape)}")
     if points.device.type == "cpu":

@@ -40,6 +40,8 @@ import functools
 
 import torch
 
+from .build import refuse_export
+
 
 def square_distance_matmul(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """max(|a|^2 + |b|^2 - 2 a.b, 0): src [B, N, C], dst [B, M, C] -> [B, N, M] f32."""
@@ -100,6 +102,7 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int):
 
     k must be at most N (callers clamp it, as ``ops.pointops.knn_indices`` does).
     """
+    refuse_export("knn")
     if query.ndim != 3 or points.ndim != 3 or query.shape[0] != points.shape[0] \
             or query.shape[-1] != 3 or points.shape[-1] != 3:
         raise ValueError(f"knn takes [B, S, 3] and [B, N, 3], got {tuple(query.shape)} and "

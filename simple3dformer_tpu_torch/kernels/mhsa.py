@@ -53,6 +53,8 @@ import functools
 
 import torch
 
+from .build import refuse_export
+
 # Attention's gate for this kernel, as the JAX package's (simple3dformer_tpu/nn/layers.py:169-171)
 MIN_N, MAX_N = 256, 2048
 HEAD_DIMS = (64, 128, 192, 256)
@@ -151,6 +153,7 @@ def _shape(q: torch.Tensor) -> tuple[int, int, int, int]:
 
 def mhsa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """(o [B, N, H, dh] in q.dtype, row statistics [B*H, N, 2] f32 or None on the CPU)."""
+    refuse_export("mhsa_fwd")
     if q.device.type == "cpu":
         return mhsa_reference(q, k, v, scale), None
     if q.device.type != "cuda":

@@ -69,6 +69,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .build import refuse_export
+
 WNAMES = ("wd1", "bd1", "wd2", "bd2", "wg1", "bg1", "wg2", "bg2")
 MAX_K = 128  # a GEMM row tile (128 rows) holds whole groups of K neighbours
 RESIDUALS = ("x", "u", "hg", "a")
@@ -240,6 +242,7 @@ def vector_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel:
     With ``save`` the residuals are, on the card, the kernel's x, u, relu(hg)
     and a ([B*N*K, D] f32 each); on the CPU, q, k and v themselves (its plain
     backward recomputes the chain)."""
+    refuse_export("vector_attention_fwd")
     if q.device.type == "cpu":
         return vector_attention_reference(q, k, v, rel, weights), (
             {"q": q, "k": k, "v": v} if save else None)
@@ -545,6 +548,7 @@ def gather_attention_fwd(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tens
                          idx: torch.Tensor, rel: torch.Tensor, weights: dict) -> torch.Tensor:
     """The bf16 forward (``fused_vector_attention``, pallas_call :254): out [B, N,
     D] bf16, keeping nothing."""
+    refuse_export("gather_attention_fwd")
     if q.device.type == "cpu":
         return gather_attention_reference(q, k_all, v_all, idx, rel, weights)
     out, _ = _run_forward(q, k_all, v_all, idx, rel, weights, save=False)
@@ -555,6 +559,7 @@ def gather_attention_fwd(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tens
 def gather_attention_resid_fwd(q, k_all, v_all, idx, rel, weights):
     """The residual-saving forward (``_fused_fwd_res``, pallas_call :689): (out,
     the saves {"x", "u", "hg", "a"} [B, N*K, D] bf16)."""
+    refuse_export("gather_attention_resid_fwd")
     if q.device.type == "cpu":
         return gather_attention_resid_reference(q, k_all, v_all, idx, rel, weights)
     out, saves = _run_forward(q, k_all, v_all, idx, rel, weights, save=True)

@@ -56,6 +56,16 @@ one persistent launch are later work.
 On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
 ``<wrapper>.launches`` (one per call, for the whole chain).
+
+The forward is also a registered torch op, ``torch.ops.s3f.vit_block_fwd``
+(registered when this module is imported; nothing is built until its first
+launch): its CUDA implementation launches the kernel and counts the launch in
+``fused_vit_block.launches``, its CPU implementation is ``vit_block_reference``,
+and its fake implementation gives the output's shape and dtype after the
+checks that need no data. ``fused_vit_block`` calls the op where autograd
+records nothing (serving), so ``torch.export`` keeps the kernel as one node
+of an exported program, and a run of that program counts its launches as
+eager calls do. The autograd Functions call the implementations directly.
 """
 
 from __future__ import annotations
@@ -226,28 +236,36 @@ def vit_block_backward_reference(x: torch.Tensor, g: torch.Tensor, weights: dict
     return g_x.to(x.dtype), {k: gw[k] for k in WNAMES}
 
 
-def _check_cuda_args(x: torch.Tensor, weights: dict, heads: int, cdt: torch.dtype,
-                     name: str = "fused_vit_block") -> None:
+def _check_args(x: torch.Tensor, weights: dict, heads: int, cdt: torch.dtype,
+                name: str = "fused_vit_block") -> None:
+    """The checks that need no data: shapes, dtypes, devices and the kernel's gate."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute dtype must be float32 or bfloat16, got {cdt}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
     _, n, d = x.shape
     why = unsupported(n, d, heads)
     if why:
         raise ValueError(f"{name} kernel: {why}")
     for wname, shape in weight_shapes(d).items():
         t = weights[wname]
-        if (t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"weight {wname} must be contiguous 16-byte aligned float32 on "
-                             f"{x.device}")
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"weight {wname} must be float32 on {x.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"weight {wname} has shape {tuple(t.shape)}, want {shape}")
+
+
+def _check_cuda_args(x: torch.Tensor, weights: dict, heads: int, cdt: torch.dtype,
+                     name: str = "fused_vit_block") -> None:
+    _check_args(x, weights, heads, cdt, name)
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    for wname in WNAMES:
+        t = weights[wname]
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"weight {wname} must be contiguous and 16-byte aligned")
 
 
 def _check_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -367,6 +385,21 @@ def _forward(x: torch.Tensor, weights: dict, heads: int, cdt: torch.dtype) -> to
             scratch.data_ptr())
     fused_vit_block.launches += 1
     return y
+
+
+@torch.library.custom_op("s3f::vit_block_fwd", mutates_args=())
+def vit_block_fwd(x: torch.Tensor, weights: list[torch.Tensor], heads: int,
+                  cdt: torch.dtype) -> torch.Tensor:
+    """The forward as a torch op: ``weights`` in WNAMES order. On a CUDA tensor
+    it launches the kernel (counted in ``fused_vit_block.launches``), on a
+    CPU tensor it runs ``vit_block_reference``."""
+    return _forward(x, dict(zip(WNAMES, weights)), heads, cdt)
+
+
+@vit_block_fwd.register_fake
+def _(x, weights, heads, cdt):
+    _check_args(x, dict(zip(WNAMES, weights)), heads, cdt)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def _grad_buffers(x: torch.Tensor) -> dict:
@@ -499,12 +532,13 @@ def fused_vit_block(x: torch.Tensor, weights: dict, heads: int,
     cdt: matmul compute dtype (None: x.dtype). Returns [B, N, D] in x.dtype.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     and raises on anything the kernel does not take. When autograd records,
-    the backward is the recompute backward ``fused_vit_block_bwd``.
+    the backward is the recompute backward ``fused_vit_block_bwd``; when it
+    records nothing, the call is the op ``torch.ops.s3f.vit_block_fwd``.
     """
     cdt = cdt or x.dtype
     if records_grad(x, weights):
         return _RecomputeBlock.apply(x, heads, cdt, *(weights[k] for k in WNAMES))
-    return _forward(x, weights, heads, cdt)
+    return vit_block_fwd(x, [weights[k] for k in WNAMES], heads, cdt)
 
 
 def fused_vit_block_train(x: torch.Tensor, weights: dict, heads: int,

@@ -7,17 +7,29 @@ is the shape the kernels were checked at. The device is an explicit
 argument: a predictor asked for "cuda" on a machine without a card fails
 instead of running on the CPU. Forwards are serialised by a lock, since one
 device runs one forward at a time anyway and the launch counts stay exact.
+
+``Predictor.export`` writes the forward at the predictor's batch and input
+shape, on its device and with the weights inside, as a ``torch.export``
+program (a ``.pt2`` file: the counterpart of the JAX package's serialized
+StableHLO). ``load_exported`` runs it without the model's code: it imports
+only the kernel module that registers the ViT block forward as the op
+``s3f::vit_block_fwd``, the one kernel an exported program may call. A
+forward that reaches any other kernel (the point models' FPS, kNN, gathers,
+``mhsa`` or vector attention) raises at export, naming it.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import zipfile
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+EXPORT_DEVICE = "device"  # the extra file of an exported program naming its device
 
 
 class Predictor:
@@ -76,6 +88,17 @@ class Predictor:
         result = np.concatenate(outs)
         return self.postprocess(result) if self.postprocess else result
 
+    def export(self, path: str) -> str:
+        """Write the model's forward at [batch_size, *input_shape] f32 on the
+        predictor's device, weights inside, to ``path`` (a ``.pt2`` file);
+        ``load_exported`` runs it. Raises if the forward reaches a kernel that
+        is not a registered op."""
+        x = torch.zeros((self.batch_size, *self.input_shape), device=self.device)
+        with torch.no_grad():
+            program = torch.export.export(self.model, (x,), strict=False)
+        torch.export.save(program, path, extra_files={EXPORT_DEVICE: self.device.type})
+        return path
+
     @property
     def stats(self) -> dict:
         lat = np.asarray(self._latencies)
@@ -87,6 +110,35 @@ class Predictor:
             "p50_latency_ms": float(np.percentile(lat, 50) * 1e3),
             "p95_latency_ms": float(np.percentile(lat, 95) * 1e3),
         }
+
+
+def exported_device(path: str) -> str:
+    """The device type a ``Predictor.export`` artifact was written for."""
+    with zipfile.ZipFile(path) as archive:
+        for name in archive.namelist():
+            if name.endswith(f"/extra/{EXPORT_DEVICE}"):
+                return archive.read(name).decode()
+    raise ValueError(f"{path} is not an artifact of Predictor.export")
+
+
+def load_exported(path: str) -> Callable[[np.ndarray], np.ndarray]:
+    """Load a ``Predictor.export`` artifact: a callable from inputs [B, ...] (the
+    exported batch and shape, any array) to host numpy logits, run on the
+    device the artifact was written for. It needs no model code. An artifact
+    for the card raises where no card is visible; it never moves to the CPU."""
+    from ..kernels import vit_block  # noqa: F401  registers s3f::vit_block_fwd
+
+    device = exported_device(path)
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{path} was exported for a CUDA card and none is visible")
+    module = torch.export.load(path).module()
+
+    @torch.inference_mode()
+    def call(x) -> np.ndarray:
+        x = torch.as_tensor(np.asarray(x, dtype=np.float32)).to(device)
+        return module(x).float().cpu().numpy()
+
+    return call
 
 
 def topk_labels(logits: np.ndarray, k: int = 5,

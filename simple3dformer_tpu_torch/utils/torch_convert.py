@@ -1,4 +1,4 @@
-"""DeiT checkpoints -> the port's models (port of the loading half of
+"""DeiT and reference checkpoints -> the port's models (port of
 simple3dformer_tpu/utils/torch_convert.py).
 
 The reference downloads Facebook's DeiT ``.pth`` files by URL and loads them
@@ -18,7 +18,19 @@ is not applied there, as the JAX package does not apply it. A ViT-21k layout is
 fitted first, and a position embedding of another grid is resampled (bicubic,
 timm's recipe) before the shapes are compared.
 
-The reference-checkpoint importers of the JAX module are not ported.
+The reference's own trained checkpoints come in two schemes: a bare state
+dict, perhaps with DDP's ``module.`` prefix (its train_cls_voxel.py), and the
+Hydra scripts' ``{"epoch", <metrics>, "model_state_dict",
+"optimizer_state_dict"}``. ``load_reference_checkpoint`` unwraps either. The
+four family maps (``reference_{voxelvit,hengshuang,pointvit,vip3d}_to_state_dict``)
+take a reference state dict to the port's: the port's parameters and buffers
+carry the reference's names and layouts (utils/convert.py), so each entry is a
+copy, checked for its shape; each family drops the entries its reference
+model builds and never reads (``REFERENCE_DEAD``) and warns of any other it
+has no place for. ``import_reference_state`` loads the result and, as the
+JAX ``import_reference_state(require_full=True)``, raises unless every
+parameter and buffer of the port model was filled, naming the first that
+were not.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import os
 import re
 import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -130,3 +143,103 @@ def maybe_load_deit(model: nn.Module, backbone: str) -> list[str]:
             params[k].copy_(sd[k].float())
     print(f"loaded {len(applied)} tensors from {path}")
     return applied
+
+
+# Entries of the reference's models that their forwards never read, by family
+# (the JAX importers ignore them too; scripts/refbridge.py writes them as
+# zeros): each set abstraction's ``last_pos_embed`` MLP
+# (pointnet_util.py:212-216), the plain 3DViT's 2D ``pos_embed`` and its
+# PointEmbed ``patch_embed`` (3DViT/model.py:227), ViP-3D's ``mlp_z``
+# (vip_3d.py:52; the z mix reuses mlp_w).
+REFERENCE_DEAD = {
+    "voxelvit": (),
+    "hengshuang": (r"\.sa\.last_pos_embed\.",),
+    "pointvit": (r"\.sa\.last_pos_embed\.", r"^pos_embed$",
+                 r"^patch_embed\.(conv\d|bn\d|gather_local_\d)\."),
+    "vip3d": (r"\.attn\.mlp_z\.",),
+}
+
+
+def _numpy_scalar_globals() -> list:
+    """What a pickled numpy scalar needs: the Hydra scripts store their metrics
+    as numpy floats beside the tensors."""
+    try:
+        from numpy._core.multiarray import scalar
+    except ImportError:  # numpy 1
+        from numpy.core.multiarray import scalar
+    kinds = {type(np.dtype(t)) for t in (np.float64, np.float32, np.int64, np.int32, np.bool_)}
+    return [scalar, np.dtype, *kinds]
+
+
+def load_reference_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict]:
+    """A reference checkpoint file -> (state dict, metadata). Either scheme;
+    DDP's ``module.`` prefixes are stripped; the metadata are the Hydra
+    scheme's other entries but the optimizer's (empty for a bare state dict).
+    Only tensors, containers, plain numbers and numpy scalars are unpickled."""
+    with torch.serialization.safe_globals(_numpy_scalar_globals()):
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    meta = {}
+    if isinstance(obj, dict) and "model_state_dict" in obj:
+        meta = {k: v for k, v in obj.items()
+                if k not in ("model_state_dict", "optimizer_state_dict")}
+        obj = obj["model_state_dict"]
+    return {k.removeprefix("module."): torch.as_tensor(v) for k, v in obj.items()}, meta
+
+
+def _reference_to_state_dict(sd: dict, like: dict, family: str) -> dict[str, torch.Tensor]:
+    """The entries of ``like`` (a port state dict) found in ``sd``, each of
+    ``like``'s shape and dtype; warns of reference entries neither taken nor
+    dead in ``family``."""
+    out = {}
+    for k, t in like.items():
+        if k in sd:
+            v = torch.as_tensor(sd[k])
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"reference entry {k} has shape {tuple(v.shape)}, "
+                                 f"the port's {tuple(t.shape)}")
+            out[k] = v.to(t.dtype)
+    dead = re.compile("|".join(REFERENCE_DEAD[family])) if REFERENCE_DEAD[family] else None
+    unused = [k for k in sd if k not in out and not (dead and dead.search(k))]
+    if unused:
+        warnings.warn(f"{len(unused)} entries of the {family} reference checkpoint have no "
+                      f"place in the port model, first {unused[:6]}")
+    return out
+
+
+def reference_voxelvit_to_state_dict(sd: dict, like: dict) -> dict[str, torch.Tensor]:
+    """The reference's Feature3D_ViT2D_V2 -> the port's VoxelViT: the backbone
+    in timm's names, the tokenizer's ``voxel_embed.proj.conv3d_1``,
+    ``voxel_pos_embed``, ``voxel_head`` and the group_embed route's encoder."""
+    return _reference_to_state_dict(sd, like, "voxelvit")
+
+
+def reference_hengshuang_to_state_dict(sd: dict, like: dict) -> dict[str, torch.Tensor]:
+    """The reference's Hengshuang PointTransformerCls / Seg -> the port's, the
+    BatchNorm running statistics with them."""
+    return _reference_to_state_dict(sd, like, "hengshuang")
+
+
+def reference_pointvit_to_state_dict(sd: dict, like: dict) -> dict[str, torch.Tensor]:
+    """The reference's 3DViT family -> the port's PointViT, the BatchNorm
+    running statistics with it; the image variants' 2D pathway is live."""
+    return _reference_to_state_dict(sd, like, "pointvit")
+
+
+def reference_vip3d_to_state_dict(sd: dict, like: dict) -> dict[str, torch.Tensor]:
+    """The reference's VisionPermutator3D -> the port's: stage s, block b at
+    ``network.{ni}.{bj}`` in both (utils/convert.py)."""
+    return _reference_to_state_dict(sd, like, "vip3d")
+
+
+def import_reference_state(model: nn.Module, state: dict,
+                           require_full: bool = True) -> list[str]:
+    """Load ``state`` (a family map's output) into ``model``; -> the names of the
+    model's entries it did not fill. With ``require_full`` every parameter and
+    buffer must be filled, or this raises and names the first that were not."""
+    like = model.state_dict()
+    missing = [k for k in like if k not in state]
+    if require_full and missing:
+        raise ValueError(f"incomplete reference import: {len(like) - len(missing)}/{len(like)} "
+                         f"entries matched, first unmatched {missing[:6]}")
+    model.load_state_dict(state, strict=False)
+    return missing

@@ -24,9 +24,10 @@ bad = sorted(m for m in sys.modules
 print(json.dumps([names, bad, maps]))
 """
 WIDTHS = (10, 13, 15, 40, 1000)
-# ViP-3D and the two visualizers, imported like every other module
+# ViP-3D, the two visualizers, profiling and run logging, imported like every other module
 NEW_ENTRY_POINTS = ("models.vip3d", "cli.train_pure_mlp", "utils.attention_rollout",
-                    "cli.visualize_attention_map_voxel", "cli.visualize_point_cloud")
+                    "cli.visualize_attention_map_voxel", "cli.visualize_point_cloud",
+                    "utils.profiling", "core.logging_utils")
 
 
 def test_port_imports_no_jax():
