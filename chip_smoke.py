@@ -166,6 +166,20 @@ Phases, one line each (and a line per kernel shape):
               Predictor's, the block launches a call counted inside the op, the
               flagship's exported p50/p95 beside the Predictor's; a point
               model's export refused, naming the row-gather kernel
+ 24. data parallel  (a) train_cls_voxel plain, --zero1 and --zero1 --lwf, and
+              train_partseg (3DViT), each at world size 1 through the env://
+              rendezvous over NCCL: the devices line, epoch lines, a
+              checkpoint, launch counts; (b) two ranks on the one card over
+              gloo (this script with --dp-worker, twice) running the port's
+              data-parallel steps at B=16 each, against world 1 at B=32 in
+              this process: the flagship at full width 3 steps of SGD, Adam
+              and ZeRO-1 Adam (the kernel on the rank's part: its launches
+              printed, its parameters bit-equal to replicated Adam's), the
+              partseg 3DViT 3 SGD steps with BatchNorm over the global batch
+              and FPS start points drawn for it; the ranks bit-equal, each run
+              within its tolerances of world 1 (times are gloo over host
+              copies); (c) where the machine shows several cards,
+              train_cls_voxel --zero1 with one NCCL rank a card
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
@@ -3851,6 +3865,386 @@ def phase_export(torch):
     return report["launches"]["flagship"] + report["launches_timed"]
 
 
+# data parallel (phase 24): (a) the CLIs at world 1 through the env:// rendezvous
+# over NCCL; (b) two ranks on the one card over gloo against world 1 at
+# B=32 global; (c) one NCCL rank a card where the machine shows more than one
+DP_B, DP_STEPS = 32, 3
+DP_SGD_LR, DP_ADAM_LR = 0.01, 1e-4
+DP_SAMPLES = 64  # the CLIs: 2 steps of B=32 (4 of partseg's B=16) and one eval epoch
+# world 2 against world 1: the CPU test's tolerances for SGD (tests/test_torch_parallel.py);
+# Adam's update is about lr a step whatever the gradient's scale, so a component
+# whose gradient is near 0 may flip its sign: 2 lr a step at most
+DP_LOSS_TOL = dict(rtol=1e-4)
+DP_SGD_TOL = dict(rtol=2e-4, atol=2e-5)
+DP_ADAM_TOL = dict(rtol=0, atol=2 * DP_STEPS * DP_ADAM_LR)
+# the partseg model max-pools over neighbours after ReLUs: a rounding-level
+# difference (BatchNorm's sums, cuBLAS at another M) can move a max or a kink
+# and route a gradient elsewhere (the phase prints how far rounding alone
+# moves each leaf at world 1). So up
+# to 0.5% of a leaf's elements may leave DP_SGD_TOL, all within 1e-2 of the
+# leaf's largest value; the ranks' running statistics stay bit-equal (an
+# unsynced BatchNorm breaks that at once)
+DP_KINK_SHARE, DP_KINK_REL = 5e-3, 1e-2
+
+
+def dp_runs(torch, device, flagship: bool = True) -> dict:
+    """The port's data-parallel step functions (make_scanned_train_steps) on
+    ``device`` at the world size of the process group (none: world 1), on the
+    global batches of B=32: the flagship at full width, 3 steps of SGD, of
+    Adam (the kernel on whole leaves) and of ZeRO-1 Adam (the kernel on this
+    rank's part of the flat parameters); the partseg 3DViT at full width, 3
+    SGD steps with its BatchNorm statistics over the global batch, its
+    augmentation and FPS start points drawn for the global batch. Returns
+    each run's losses, state (on the CPU), Adam launches and ms a step
+    (the partseg run alone without ``flagship``)."""
+    from simple3dformer_tpu_torch.cli import train_partseg as tp
+    from simple3dformer_tpu_torch.core.config import Config
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator, step_seed
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
+    from simple3dformer_tpu_torch.kernels.adam import fused_adam
+    from simple3dformer_tpu_torch.models.voxel_vit import frozen_mask
+    from simple3dformer_tpu_torch.train.loop import (TrainState, make_scanned_train_steps,
+                                                     seg_cross_entropy)
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    def timed(run, idx, lr):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        losses = run(idx, lr)["loss"].cpu()
+        return losses, (time.perf_counter() - t0) / DP_STEPS * 1e3
+
+    out = {}
+    grids, labels = synthetic_voxels(DP_STEPS * DP_B, VOXEL, N_CLASSES, seed=DEFAULT_SEED + 4)
+    ds = DeviceResidentDataset({"x": grids, "y": labels}, device)
+    idx = ds.put_indices(np.arange(DP_STEPS * DP_B).reshape(DP_STEPS, DP_B))
+    for name, optimizer, zero1, lr in (("flagship SGD", "SGD", False, DP_SGD_LR),
+                                       ("flagship Adam", "Adam", False, DP_ADAM_LR),
+                                       ("flagship ZeRO-1", "Adam", True, DP_ADAM_LR))[
+                                           :3 if flagship else 0]:
+        model = flagship_model(torch, device)
+        opt = make_optimizer(dict(model.named_parameters()), optimizer,
+                             trainable_mask=frozen_mask(model, False), zero1=zero1)
+        run = make_scanned_train_steps(TrainState(model, opt), ds)
+        fused_adam.launches = 0
+        losses, ms = timed(run, idx, lr)
+        out[name] = {"loss": losses, "ms": ms, "adam": fused_adam.launches,
+                     "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+    class Sampled(torch.nn.Module):
+        """FPS start points drawn each step from a generator seeded with the step."""
+
+        def __init__(self, model):
+            super().__init__()
+            self.m, self.state = model, None
+
+        def forward(self, x):
+            return self.m(x, sample_generator=generator(step_seed(DEFAULT_SEED, self.state.step)))
+
+    (xs, cats, segs), _ = tp.load_arrays(Config(num_point=PN, normal=True,
+                                                synthetic=DP_STEPS * DP_B, seed=DEFAULT_SEED))
+    pds = DeviceResidentDataset({"x": xs, "cls": cats, "y": segs}, device)
+    model = partseg_model(torch, device)
+    wrapped = Sampled(model)
+    wrapped.state = TrainState(wrapped, make_optimizer(dict(wrapped.named_parameters()), "SGD"))
+    aug = torch.Generator(device=device).manual_seed(DEFAULT_SEED)
+    run = make_scanned_train_steps(wrapped.state, pds, seg_cross_entropy,
+                                   augment_fn=lambda x: tp.seg_augment(aug, x),
+                                   prepare_fn=tp.make_prepare_fn())
+    losses, ms = timed(run, idx, DP_SGD_LR)
+    out["partseg 3DViT"] = {"loss": losses, "ms": ms,
+                            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    return out
+
+
+def dp_worker(case_dir: str) -> int:
+    """``chip_smoke.py --dp-worker DIR``: one rank of phase 24 (b), over gloo
+    on the one card; writes DIR/rank<r>.pt."""
+    import os
+
+    import torch
+
+    from simple3dformer_tpu_torch.parallel import mesh
+
+    if not mesh.multihost_init("cpu") or mesh.world_size() != 2:
+        raise RuntimeError("the phase 24 worker needs a rendezvous of two ranks")
+    # gloo was chosen for the CPU; the tensors live on the one card
+    torch.cuda.set_device(0)
+    out = dp_runs(torch, torch.device("cuda", 0))
+    torch.save(out, os.path.join(case_dir, f"rank{mesh.rank()}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launcher_env(world: int, rank: int, port: int) -> dict:
+    import os
+
+    return dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+
+
+def dp_cli_world1(torch):
+    """(a): train_cls_voxel plain, --zero1 and --zero1 --lwf, and train_partseg
+    (3DViT), each through the env:// rendezvous at world size 1 (NCCL on the
+    card, the group made by the first CLI and kept by the others): the
+    devices line, finite epoch lines, a checkpoint, the launch counts."""
+    import os
+    import tempfile
+
+    from simple3dformer_tpu_torch.cli import train_cls_voxel, train_partseg
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED
+
+    keys = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK", "DEIT_CKPT_DIR")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    steps = DP_SAMPLES // DP_B
+    evals = -(-max(DP_SAMPLES // 5, DP_B) // DP_B)
+    voxel = ["--dataset", "ModelNet40", "--synthetic", str(DP_SAMPLES), "--epochs", "1",
+             "--batchSize", str(DP_B), "--lr", str(TRAIN_LR), "--transformer-name", BACKBONE,
+             "--cell-size", str(CELL), "--patch-size", str(PATCH)]
+    runs = [("train_cls_voxel", train_cls_voxel.main, voxel, voxel_counters(),
+             voxel_launches(1, steps, evals, True)),
+            ("train_cls_voxel --zero1", train_cls_voxel.main, [*voxel, "--zero1"],
+             voxel_counters(), voxel_launches(1, steps, evals, True)),
+            ("train_cls_voxel --zero1 --lwf", train_cls_voxel.main, [*voxel, "--zero1", "--lwf"],
+             voxel_counters(), {**voxel_launches(1, steps, evals, True),
+                                "fused_vit_block": 12 * (steps + evals),
+                                "fused_vit_block_train_fwd": 24 * steps,
+                                "fused_vit_block_train_bwd": 24 * steps})]
+    psteps, pevals = DP_SAMPLES // PB, -(-max(DP_SAMPLES // 5, 32) // PB)
+    runs.append(("train_partseg", train_partseg.main,
+                 ["model=3DViT", f"synthetic={DP_SAMPLES}", "epoch=1", f"batch_size={PB}",
+                  f"learning_rate={PARTSEG_LR}", "seed=9"], point_counters(),
+                 {"fps": psteps + pevals, "knn": 4 * (psteps + pevals),
+                  "gather_fwd": 8 * (psteps + pevals), "gather_bwd": 4 * psteps,
+                  "fused_vit_block_train_fwd": 12 * psteps,
+                  "fused_vit_block_train_bwd": 12 * psteps, "fused_vit_block": 12 * pevals}))
+    os.environ.update(launcher_env(1, 0, free_port()))
+    all_launches = {}
+    try:
+        with tempfile.TemporaryDirectory() as weights:
+            os.environ["DEIT_CKPT_DIR"] = weights  # no file: the random teacher, warned
+            for label, main, argv, counters, want in runs:
+                key = "--outf" if main is train_cls_voxel.main else "out_dir="
+
+                def argv_for(d, argv=argv, key=key):
+                    return [*argv, "--outf", d] if key == "--outf" else [*argv, f"out_dir={d}"]
+
+                _, lines, launches, saved = run_cli(main, argv_for, counters)
+                devices = [line for line in lines if line.startswith("devices:")]
+                epochs = [line for line in lines if line.startswith("Epoch ")]
+                zero = [line for line in lines if line.startswith("ZeRO-1:")]
+                finite = all(np.isfinite(float(v)) for line in epochs
+                             for v in re.findall(r"loss ([-0-9.naif]+)", line))
+                print(f"data parallel (a) {label}: {devices[0]}; {len(epochs)} epoch lines "
+                      f"{[e.split(' (')[0] for e in epochs]}; {zero}; checkpoints at "
+                      f"epochs {saved}; launches {launches} (want {want})")
+                if (not devices or "devices: 1 | rank 0 nccl | cuda:0" not in devices[0]
+                        or not epochs or not finite or not saved):
+                    raise AssertionError(f"data parallel (a) {label}: {lines[-8:]}")
+                if "--zero1" in argv and zero != [
+                        "ZeRO-1: 100% of optimizer-state bytes sharded over 'data' (1 ways)"]:
+                    raise AssertionError(f"data parallel (a) {label}: ZeRO-1 line {zero}")
+                if launches != want:
+                    raise AssertionError(f"data parallel (a) {label}: launches {launches}, "
+                                         f"want {want}")
+                all_launches[label] = launches
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return all_launches
+
+
+def dp_compare(torch, ranks: list[dict], world1: dict) -> None:
+    """(b)'s checks: the ranks bit-equal to each other, ZeRO-1 bit-equal to
+    replicated Adam, each run within its tolerances of world 1."""
+    for name, w1 in world1.items():
+        r0, r1 = (r[name] for r in ranks)
+        same = torch.equal(r0["loss"], r1["loss"]) and all(
+            torch.equal(r0["state"][k], r1["state"][k]) for k in r0["state"])
+        tol = DP_ADAM_TOL if "Adam" in name or "ZeRO" in name else DP_SGD_TOL
+        perr = max(float((r0["state"][k] - v).abs().max()) for k, v in w1["state"].items()
+                   if v.is_floating_point())
+        lerr = float(((r0["loss"] - w1["loss"]).abs() / w1["loss"].abs()).max())
+        stats = [k for k in w1["state"] if k.endswith(("running_mean", "running_var"))]
+        serr = max([float((r0["state"][k] - w1["state"][k]).abs().max()) for k in stats] or [0])
+        print(f"data parallel (b) {name}: world 2 losses {r0['loss'].tolist()} vs world 1 "
+              f"{w1['loss'].tolist()} (max rel err {lerr:.3e}, tolerance {DP_LOSS_TOL['rtol']}); "
+              f"parameters max abs err {perr:.3e} (tolerance {tol}); BatchNorm statistics "
+              f"({len(stats)} buffers) max abs err {serr:.3e}; ranks bit-equal: {same}; "
+              f"{r0['ms']:.1f} ms a step at world 2 (gloo over host copies; no speed is "
+              f"claimed), {w1['ms']:.1f} ms at world 1")
+        if not same:
+            raise AssertionError(f"data parallel (b) {name}: the ranks differ")
+        np.testing.assert_allclose(r0["loss"].numpy(), w1["loss"].numpy(), **DP_LOSS_TOL)
+        kinks = name.startswith("partseg")
+        outside = {}
+        for k, v in w1["state"].items():
+            got = r0["state"][k]
+            if not v.is_floating_point():
+                if not torch.equal(got, v):
+                    raise AssertionError(f"data parallel (b) {name}: {k}")
+                continue
+            off = ~torch.isclose(got, v, rtol=tol["rtol"], atol=tol["atol"])
+            if not kinks and off.any():
+                np.testing.assert_allclose(got.numpy(), v.numpy(), **tol,
+                                           err_msg=f"data parallel (b) {name}: {k}")
+            if off.any():
+                outside[k] = int(off.sum())
+                worst = float((got - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                if off.float().mean() > DP_KINK_SHARE or worst > DP_KINK_REL:
+                    raise AssertionError(f"data parallel (b) {name}: {k}: {outside[k]} of "
+                                         f"{v.numel()} outside {tol}, worst {worst:.3e} of "
+                                         f"the leaf's largest")
+        if kinks:
+            print(f"data parallel (b) {name}: elements outside {tol} by leaf {outside} (at "
+                  f"most {DP_KINK_SHARE:.1%} of a leaf, each within {DP_KINK_REL} of its "
+                  f"largest value)")
+    for r, res in enumerate(ranks):
+        rep, zero = res["flagship Adam"], res["flagship ZeRO-1"]
+        equal = torch.equal(rep["loss"], zero["loss"]) and all(
+            torch.equal(rep["state"][k], zero["state"][k]) for k in rep["state"])
+        print(f"data parallel (b) rank {r}: ZeRO-1 parameters bit-equal to replicated Adam's "
+              f"after {DP_STEPS} steps: {equal}; Adam kernel launches {zero['adam']} on the "
+              f"rank's part (replicated: {rep['adam']} on whole leaves)")
+        if not equal or zero["adam"] != DP_STEPS or rep["adam"] != DP_STEPS:
+            raise AssertionError(f"data parallel (b) rank {r}: ZeRO-1 against replicated Adam")
+
+
+EPOCH_LINE = re.compile(r"Epoch (\d+) loss ([0-9.]+) test accuracy ([0-9.]+), mean class "
+                        r"accuracy ([0-9.]+)")
+
+
+def dp_cards(n: int, device: str = "cuda") -> None:
+    """(c): train_cls_voxel --zero1 with one rank a card over NCCL (with
+    ``device`` "cpu", n gloo processes: the rehearsal), against one process
+    on the same global batches (B=32 a rank, 2 epochs of 2 steps): each rank's
+    devices and ZeRO-1 lines, every rank the same epoch lines, within
+    tests/test_multiprocess.py's tolerances of world 1."""
+    import os
+    import tempfile
+
+    argv = [sys.executable, "-m", "simple3dformer_tpu_torch.cli.train_cls_voxel",
+            "--dataset", "ModelNet40", "--synthetic", str(2 * DP_B * n), "--epochs", "2",
+            "--batchSize", str(DP_B * n), "--lr", str(DP_ADAM_LR), "--transformer-name", BACKBONE,
+            "--cell-size", str(CELL), "--patch-size", str(PATCH), "--zero1", "--device", device]
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([*argv, "--outf", os.path.join(out_dir, f"n{r}")],
+                                  env=launcher_env(n, r, port), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(n)]
+        procs.append(subprocess.Popen([*argv, "--outf", os.path.join(out_dir, "one")],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"data parallel (c) process {r} failed:\n{out[-3000:]}")
+    ranks, one = outs[:n], outs[n]
+    want_devices = [f"devices: {n} | rank {r} {'nccl' if device == 'cuda' else 'gloo'} | "
+                    f"{device}{f':{r}' if device == 'cuda' else ''}" for r in range(n)]
+    lines = [[EPOCH_LINE.search(line).group(0) for line in out.splitlines()
+              if EPOCH_LINE.search(line)] for out in ranks]
+    traj = np.asarray([[float(v) for v in EPOCH_LINE.search(line).groups()[1:]]
+                       for line in lines[0]])
+    ref = np.asarray([[float(v) for v in EPOCH_LINE.search(line).groups()[1:]]
+                      for line in one.splitlines() if EPOCH_LINE.search(line)])
+    zero = [line for line in ranks[0].splitlines() if line.startswith("ZeRO-1:")]
+    print(f"data parallel (c): train_cls_voxel --zero1 on {n} {device} ranks (B={DP_B} a rank), "
+          f"{seconds:.1f} s with the world-1 run beside it: {zero}; epoch lines {lines[0]}; "
+          f"world 1 {ref.tolist()}; the ranks' lines equal: {all(l == lines[0] for l in lines)}")
+    if (any(w not in out for w, out in zip(want_devices, ranks)) or len(traj) != 2
+            or zero != [f"ZeRO-1: 100% of optimizer-state bytes sharded over 'data' ({n} ways)"]
+            or any(l != lines[0] for l in lines)):
+        raise AssertionError(f"data parallel (c): {ranks[0][-3000:]}")
+    # tests/test_multiprocess.py's bounds: losses rtol 5e-3, accuracies one test sample
+    np.testing.assert_allclose(traj[:, 0], ref[:, 0], rtol=5e-3, atol=1e-4)
+    np.testing.assert_allclose(traj[:, 1:], ref[:, 1:], atol=1 / (DP_B * n) + 1e-9)
+
+
+def phase_data_parallel(torch):
+    """Phase 24: (a) the CLIs at world 1 over NCCL; (b) two gloo ranks on the
+    card against world 1; (c) one NCCL rank a card where there are several.
+    Returns (a)'s launch counts."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    launches = dp_cli_world1(torch)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as case:
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", case],
+                                  env=launcher_env(2, r, port), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        world1 = dp_runs(torch, torch.device("cuda"))
+        outs = []
+        try:
+            for r, p in enumerate(procs):
+                outs.append(p.communicate(timeout=300)[0])
+                if p.returncode != 0:
+                    raise AssertionError(f"data parallel (b) rank {r} failed:\n{outs[-1][-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = [torch.load(os.path.join(case, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    dp_compare(torch, ranks, world1)
+    # how far rounding alone moves the partseg leaves: world 1 again, BatchNorm's
+    # statistics by sums and a count (the formula of a split batch) not by means
+    from simple3dformer_tpu_torch.nn import layers
+
+    by_means = layers.current_split
+    layers.current_split = lambda: (2, 0)
+    try:
+        sums = dp_runs(torch, torch.device("cuda"), flagship=False)["partseg 3DViT"]
+    finally:
+        layers.current_split = by_means
+    want = world1["partseg 3DViT"]["state"]
+    moved, outside = {}, {}
+    for k, v in want.items():
+        if v.is_floating_point():
+            err = float((sums["state"][k] - v).abs().max())
+            if err > 1e-6:
+                moved[k] = f"{err:.3e} ({err / float(v.abs().max()):.3e} of the largest)"
+            off = int((~torch.isclose(sums["state"][k], v, **DP_SGD_TOL)).sum())
+            if off:
+                outside[k] = off
+    print(f"data parallel (b) partseg 3DViT at world 1, BatchNorm by sums against by means "
+          f"(rounding alone, 3 SGD steps): leaves moved by more than 1e-6, max abs err {moved}; "
+          f"elements outside {DP_SGD_TOL} by leaf {outside}")
+    t2 = time.perf_counter()
+    n = torch.cuda.device_count()
+    if n > 1:
+        dp_cards(n)
+    else:
+        print("data parallel (c): the machine shows one card; the multi-card run needs several")
+    print(f"data parallel: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+          f"(c) {time.perf_counter() - t2:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3896,6 +4290,7 @@ def main() -> int:
         phase_group_embed(torch)
         phase_vip3d(torch)
         export_launches = phase_export(torch)
+        phase_data_parallel(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -3957,4 +4352,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

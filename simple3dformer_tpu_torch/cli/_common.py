@@ -7,7 +7,11 @@ by itself), the compute dtype (``dtype=bf16``, which every point model
 takes), the run-dir layout
 (out_dir/model.name/backbone/pretrained, the reference's templated
 hydra.run.dir), the reference's optimizer block, the cls lr schedule, and
-the epoch timer. There is no device mesh: the port trains on one card.
+the epoch timer. Under a launcher (``torchrun``, the JAX package's env
+names, SLURM) ``setup`` joins the rendezvous and each rank trains its part
+of every global batch on its own card (parallel/mesh.py); rank 0 alone
+prints the config and writes the run directory's files, and every rank
+prints the same epoch lines.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ..core.config import Config, load_task_config
 from ..core.rng import DEFAULT_SEED
+from ..parallel import mesh
 from ..train.optim import make_optimizer, steplr
 
 
@@ -33,17 +38,32 @@ def parse_cli(argv=None):
     return overrides, flags
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
+def resolve_device(name: str, flag: str = "device=cpu") -> torch.device:
+    """The rank's device: ``cuda`` is ``cuda:$LOCAL_RANK`` under a launcher.
+    ``flag`` is how the caller's CLI asks for the CPU, for the error text."""
+    device = mesh.local_device(name)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, not {name}")
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card is visible; pass device=cpu to train on the CPU")
+        raise RuntimeError(f"no CUDA card is visible; pass {flag} to train on the CPU")
+    return device
+
+
+def init_devices(name: str, flag: str = "device=cpu") -> torch.device:
+    """Pick the rank's device, join the rendezvous the environment names
+    (parallel/mesh.multihost_init: NCCL on the card, gloo on the CPU) and
+    print the ``devices:`` line. Returns the device."""
+    device = resolve_device(name, flag)
+    mesh.multihost_init(device)
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    backend = f" {torch.distributed.get_backend()}" if mesh.is_distributed() else ""
+    print(f"devices: {mesh.world_size()} | rank {mesh.rank()}{backend} | {device} ({kind})")
     return device
 
 
 def setup(task: str, argv=None) -> tuple[Config, torch.device]:
-    """Load the config and pick the device. Returns (cfg, device)."""
+    """Load the config, pick the device and join the rendezvous. Returns
+    (cfg, device). Rank 0 prints the config."""
     overrides, flags = parse_cli(argv)
     cfg = load_task_config(task, overrides)
     cfg.setdefault("seed", DEFAULT_SEED)
@@ -52,10 +72,8 @@ def setup(task: str, argv=None) -> tuple[Config, torch.device]:
     for f in flags:
         if f == "--synthetic":
             cfg.synthetic = 512
-    device = resolve_device(str(cfg.device))
-    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"devices: 1 | {device} ({kind})")
-    print(cfg.to_yaml())
+    device = init_devices(str(cfg.device))
+    mesh.print0(cfg.to_yaml())
     return cfg, device
 
 
@@ -71,11 +89,15 @@ def compute_dtype(cfg):
 
 
 def run_dir(cfg, task: str) -> str:
+    """The run's directory, with its provenance files written by rank 0 (the
+    other ranks wait for them)."""
     d = os.path.join(cfg.get("out_dir", task), str(cfg.model.name),
                      str(cfg.model.get("transformer_backbone", "none")),
                      str(cfg.model.get("pretrained", False)))
     os.makedirs(d, exist_ok=True)
-    _write_provenance(d, cfg)
+    if mesh.is_main():
+        _write_provenance(d, cfg)
+    mesh.barrier()
     return d
 
 

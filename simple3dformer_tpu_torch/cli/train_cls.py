@@ -46,6 +46,7 @@ from ..core.rng import generator, step_seed
 from ..data import augment, datasets
 from ..data.pipeline import DeviceResidentDataset
 from ..models.registry import make_point_model
+from ..parallel.mesh import print0
 from ..train import health
 from ..train.eval_metrics import InstanceClassMeter
 from ..train.loop import TrainState, make_scanned_eval, make_scanned_train_steps
@@ -86,7 +87,7 @@ class ClsTrainer:
         test_ds = DeviceResidentDataset({"x": test[0], "y": test[1]}, device)
         model = make_point_model(cfg, task="cls", dtype=C.compute_dtype(cfg),
                                  generator=generator(int(cfg.seed))).to(device)
-        print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+        print0(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
         optimizer, base_lr = C.reference_optimizer(cfg, dict(model.named_parameters()))
         self.state = state = TrainState(model, optimizer)
         aug_gen = torch.Generator(device=device)
@@ -132,7 +133,7 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
 
     train, test = load_arrays(cfg)
-    print(f"The size of train data is {len(train[0])}; test {len(test[0])}")
+    print0(f"The size of train data is {len(train[0])}; test {len(test[0])}")
     run = ClsTrainer(cfg, device, train, test, NUM_CLASS)
 
     ckpt = ckpt_lib.Checkpointer(f"{C.run_dir(cfg, 'cls')}/ckpt")
@@ -141,7 +142,7 @@ def main(argv=None):
     if restored is not None:
         start_epoch = int(ckpt.latest_step()) + 1
         best_instance_acc = (best or {}).get("instance_acc", 0.0)
-        print("Use pretrain model")
+        print0("Use pretrain model")
 
     for epoch in range(start_epoch, int(cfg.epoch)):
         train_acc, rate = run.train_epoch(epoch)
@@ -151,12 +152,12 @@ def main(argv=None):
             best_instance_acc = inst
             ckpt.save(epoch, run.state.state_dict(),
                       {"instance_acc": inst, "class_acc": cls_acc})
-            print("Save model...")
+            print0("Save model...")
         best_class_acc = max(best_class_acc, cls_acc)
         print(f"Test Instance Accuracy: {inst:f}, Class Accuracy: {cls_acc:f}")
         print(f"Best Instance Accuracy: {best_instance_acc:f}, "
               f"Class Accuracy: {best_class_acc:f}")
-    print("End of training...")
+    print0("End of training...")
     return best_instance_acc
 
 

@@ -30,6 +30,7 @@ import torch
 
 from ..core import checkpoint as ckpt_lib
 from ..data import datasets
+from ..parallel.mesh import print0
 from . import _common as C
 from .train_cls import ClsTrainer
 
@@ -60,7 +61,7 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
 
     train, test = load_arrays(cfg)
-    print(f"train {len(train[0])} / test {len(test[0])}")
+    print0(f"train {len(train[0])} / test {len(test[0])}")
     run = ClsTrainer(cfg, device, train, test, NUM_CLASS)
     ckpt = ckpt_lib.Checkpointer(f"{C.run_dir(cfg, 'cls_scanobjectnn')}/ckpt")
 

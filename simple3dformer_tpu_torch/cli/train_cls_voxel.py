@@ -34,7 +34,17 @@ deit_base teacher with 12 heads, also loaded through ``maybe_load_deit``, and a
 batch of images a step, ImageNet val under ./data or with ``--synthetic``
 random images, cropped and flipped on the device; the loss CE + 0.1 CE(the 2D
 head's logits, the teacher's labels), without class weights as in the JAX
-trainer). Not yet: ``--zero1``, which raises.
+trainer) and ``--zero1`` (Adam's moments split over the data-parallel
+ranks, parallel/zero.Zero1Adam, with or without ``--lwf``).
+
+Data parallel over N cards, one process each (parallel/mesh.py): each rank
+trains its columns of every global batch of ``--batchSize`` on
+``cuda:$LOCAL_RANK`` and rank 0 writes the checkpoints; with ``--device
+cpu`` the ranks meet over gloo.
+
+    torchrun --nproc_per_node=4 -m simple3dformer_tpu_torch.cli.train_cls_voxel \
+        --dataset ModelNet40 --synthetic 2048 --transformer-name deit_small_patch16_224 \
+        --cell-size 6 --patch-size 5 --batchSize 128 --zero1
 
 BASELINE.json's second config, ShapeNetV2 at 128^3 on deit_base with the
 group_embed route (3,136 pillars of 15 tokens a batch of 16 in stage 1):
@@ -72,12 +82,15 @@ from ..data.synthetic import synthetic_voxels
 from ..models.voxel_vit import VoxelViT, frozen_mask
 from ..nn.vit import EMBED_DIM, make_teacher
 from ..nn.voxel_embed import make_embed_layer
+from ..parallel.mesh import print0, world_size
+from ..parallel.zero import sharded_fraction
 from ..train import health
 from ..train.eval_metrics import ClassificationMeter
 from ..train.loop import TrainState, make_scanned_eval, make_scanned_train_steps
 from ..train.lwf import TEACHER_SEED, load_images, make_scanned_lwf_train_steps
 from ..train.optim import epoch_lr, make_optimizer
 from ..utils.torch_convert import maybe_load_deit
+from ._common import init_devices
 
 LWF_TEACHER = "deit_base_patch16_224"  # hard-coded, as in the reference (:174, :180)
 
@@ -156,33 +169,16 @@ def load_voxel_arrays(dataset, data_root, synthetic=0, *, reweighted=False, min_
     return tr_x, tr_y, te_x, te_y, n_classes, voxel_size, weights
 
 
-def _refuse_unported(args) -> None:
-    if args.zero1:
-        raise NotImplementedError("--zero1 is not ported yet: it comes with the parallelism slice")
-
-
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card is visible; pass --device cpu to train on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device must be cuda or cpu, not {name}")
-    return device
-
-
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
     if args.model_name != "Voxel3D_2DPretrain":
         raise ValueError("Unknown model name!")
-    device = _device(args.device)
-    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"devices: 1 | {device} ({kind})")
+    device = init_devices(args.device, "--device cpu")
 
     tr_x, tr_y, te_x, te_y, n_classes, voxel_size, weights = load_voxel_arrays(
         args.dataset, args.data_root, args.synthetic, reweighted=args.reweighted,
         min_test=args.batchSize, seed=args.seed)
-    print(f"train {len(tr_x)} / test {len(te_x)} samples, {n_classes} classes")
+    print0(f"train {len(tr_x)} / test {len(te_x)} samples, {n_classes} classes")
     train_ds = DeviceResidentDataset({"x": tr_x, "y": tr_y}, device)
     test_ds = DeviceResidentDataset({"x": te_x, "y": te_y}, device)
 
@@ -198,12 +194,15 @@ def main(argv=None):
     if args.pretrained:
         maybe_load_deit(model, args.transformer_name)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Number of parameters: {n_params / 1e6:.2f}M")
+    print0(f"Number of parameters: {n_params / 1e6:.2f}M")
 
     bf16_nu = dtype is not None if args.bf16_nu == "auto" else args.bf16_nu == "1"
     optimizer = make_optimizer(dict(model.named_parameters()), "Adam",
                                trainable_mask=frozen_mask(model, args.pretrained),
-                               bf16_nu=bf16_nu)
+                               bf16_nu=bf16_nu, zero1=args.zero1)
+    if args.zero1:
+        print0(f"ZeRO-1: {sharded_fraction(optimizer):.0%} of optimizer-state "
+               f"bytes sharded over 'data' ({world_size()} ways)")
     state = TrainState(model, optimizer)
     cw = torch.as_tensor(weights, device=device) if weights is not None else None
     if args.lwf:

@@ -46,6 +46,7 @@ from ..data import augment, datasets
 from ..data.pipeline import DeviceResidentDataset
 from ..models.registry import make_point_model
 from ..nn.layers import set_bn_momentum
+from ..parallel.mesh import print0
 from ..train import health
 from ..train.eval_metrics import SEG_CLASSES, PartSegMeter
 from ..train.loop import TrainState, make_scanned_eval, make_scanned_train_steps, seg_cross_entropy
@@ -110,13 +111,13 @@ def main(argv=None):
     cfg.input_dim = (6 if cfg.normal else 3) + NUM_CATEGORY
 
     (tr_x, tr_c, tr_s), (te_x, te_c, te_s) = load_arrays(cfg)
-    print(f"train {len(tr_x)} / test {len(te_x)}")
+    print0(f"train {len(tr_x)} / test {len(te_x)}")
     train_ds = DeviceResidentDataset({"x": tr_x, "cls": tr_c, "y": tr_s}, device)
     test_ds = DeviceResidentDataset({"x": te_x, "cls": te_c, "y": te_s}, device)
 
     model = make_point_model(cfg, task="seg", dtype=C.compute_dtype(cfg),
                              generator=generator(int(cfg.seed))).to(device)
-    print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+    print0(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     optimizer, _ = C.reference_optimizer(cfg, dict(model.named_parameters()))
     state = TrainState(model, optimizer)
     aug_gen = torch.Generator(device=device).manual_seed(int(cfg.seed))
@@ -140,7 +141,7 @@ def main(argv=None):
         if torch_mom != cur_momentum:
             cur_momentum = torch_mom
             set_bn_momentum(model, 1.0 - torch_mom)
-            print(f"BN momentum updated to: {torch_mom:f}")
+            print0(f"BN momentum updated to: {torch_mom:f}")
 
         idx = train_ds.put_indices(train_ds.epoch_indices(batch, host_rng))
         timer = C.EpochTimer()

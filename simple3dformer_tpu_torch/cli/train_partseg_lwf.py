@@ -42,6 +42,7 @@ from ..data.pipeline import DeviceResidentDataset
 from ..models.point_vit import frozen_mask_point
 from ..models.registry import has_lwf_pathway, make_point_model
 from ..nn.vit import make_teacher
+from ..parallel.mesh import print0
 from ..train import lwf
 from ..train.eval_metrics import PartSegMeter
 from ..train.loop import TrainState, make_scanned_eval, seg_cross_entropy
@@ -80,17 +81,17 @@ def main(argv=None):
     if portion < 1.0:
         keep = balanced_portion(tr_c, portion, int(cfg.seed))
         tr_x, tr_c, tr_s = tr_x[keep], tr_c[keep], tr_s[keep]
-    print(f"train {len(tr_x)} / test {len(te_x)}")
+    print0(f"train {len(tr_x)} / test {len(te_x)}")
     train_ds = DeviceResidentDataset({"x": tr_x, "cls": tr_c, "y": tr_s}, device)
     test_ds = DeviceResidentDataset({"x": te_x, "cls": te_c, "y": te_s}, device)
     image_ds = DeviceResidentDataset({"images": load_images(cfg)}, device)
-    print(f"imagenet subset: {len(image_ds)} images")
+    print0(f"imagenet subset: {len(image_ds)} images")
 
     backbone = str(cfg.model.transformer_backbone)
     pretrained = bool(cfg.model.get("pretrained"))
     model = make_point_model(cfg, task="seg", dtype=C.compute_dtype(cfg),
                              generator=generator(int(cfg.seed))).to(device)
-    print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+    print0(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     if pretrained:
         maybe_load_deit(model, backbone)
     teacher = make_teacher(backbone, generator=generator(lwf.TEACHER_SEED)).to(device)

@@ -20,6 +20,12 @@ asked (``--device cpu``). ModelNet40's 30^3 grids are zero-padded to the m40
 embed configs' 32^3 (the reference's configs declare 32 while its grids are
 30^3). ``--pretrained`` and ``--checkpoint-path-2d`` are parsed and unused, as
 in the JAX CLI.
+
+Data parallel over N cards, one process each, as cli/train_cls_voxel.py
+(parallel/mesh.py): ``torchrun --nproc_per_node=N -m
+simple3dformer_tpu_torch.cli.train_pure_mlp ...``, each rank on its part of
+every global batch; ``--device cpu`` under the launcher meets over gloo.
+Every rank prints the same epoch lines; rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from ..train import health
 from ..train.eval_metrics import ClassificationMeter
 from ..train.loop import TrainState, make_scanned_eval, make_scanned_train_steps
 from ..train.optim import epoch_lr, make_optimizer
-from ._common import resolve_device
+from ..parallel.mesh import print0
+from ._common import init_devices
 from .train_cls_voxel import load_voxel_arrays
 
 # VALID_EMBED_LAYER (the reference's train_pure_mlp.py:34-44)
@@ -119,19 +126,17 @@ def build_model(args, n_classes: int, dtype: torch.dtype | None) -> VisionPermut
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    device = resolve_device(args.device)
-    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"devices: 1 | {device} ({kind})")
+    device = init_devices(args.device, "--device cpu")
 
     tr_x, tr_y, te_x, te_y, n_classes = load_arrays(
         args, EMBED_CONFIGS[args.embed_layer]["voxel_size"])
     train_ds = DeviceResidentDataset({"x": tr_x, "y": tr_y}, device)
     test_ds = DeviceResidentDataset({"x": te_x, "y": te_y}, device)
-    print(f"train {len(tr_x)} / test {len(te_x)}")
+    print0(f"train {len(tr_x)} / test {len(te_x)}")
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
     model = build_model(args, n_classes, dtype).to(device)
-    print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+    print0(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
 
     state = TrainState(model, make_optimizer(dict(model.named_parameters()), "Adam"))
     train_run = make_scanned_train_steps(state, train_ds)

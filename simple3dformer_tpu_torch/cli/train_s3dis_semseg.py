@@ -52,6 +52,7 @@ from ..data import datasets
 from ..data.pipeline import DeviceResidentDataset
 from ..models.registry import make_point_model
 from ..nn.layers import set_bn_momentum
+from ..parallel.mesh import print0
 from ..train import health
 from ..train.eval_metrics import SemSegMeter
 from ..train.loop import TrainState, make_scanned_eval, make_scanned_train_steps, seg_cross_entropy
@@ -91,13 +92,13 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
 
     (tr_x, tr_y), (te_x, te_y) = load_arrays(cfg)
-    print(f"train {len(tr_x)} / test {len(te_x)} blocks")
+    print0(f"train {len(tr_x)} / test {len(te_x)} blocks")
     train_ds = DeviceResidentDataset({"x": tr_x, "y": tr_y}, device)
     test_ds = DeviceResidentDataset({"x": te_x, "y": te_y}, device)
 
     model = make_point_model(cfg, task="seg", dtype=C.compute_dtype(cfg),
                              generator=generator(int(cfg.seed))).to(device)
-    print(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+    print0(f"Number of parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
     optimizer, _ = C.reference_optimizer(cfg, dict(model.named_parameters()))
     state = TrainState(model, optimizer)
     train_run = make_scanned_train_steps(state, train_ds, loss_fn=seg_cross_entropy)
@@ -117,7 +118,7 @@ def main(argv=None):
         if torch_mom != cur_momentum:
             cur_momentum = torch_mom
             set_bn_momentum(model, 1.0 - torch_mom)
-            print(f"BN momentum updated to: {torch_mom:f}")
+            print0(f"BN momentum updated to: {torch_mom:f}")
 
         idx = train_ds.put_indices(train_ds.epoch_indices(batch, host_rng))
         timer = C.EpochTimer()

@@ -10,6 +10,11 @@ back: nested dicts and lists of tensors and plain numbers, such as
 ``<directory>/<step>/`` holding ``state.pt`` and ``metrics.json``, written
 under a temporary name and renamed into place, so a reader never sees half
 a checkpoint.
+
+Under data parallelism (parallel/mesh.py) every rank calls ``save`` with
+the same state (a ZeRO-1 optimizer gathers its full moments there); rank 0
+writes it and the other ranks wait at a barrier, so a restore that follows
+reads the finished step on every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import shutil
 from typing import Any
 
 import torch
+
+from ..parallel.mesh import barrier, is_main
 
 
 class Checkpointer:
@@ -36,6 +43,11 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: Any, metrics: dict | None = None) -> None:
+        if is_main():
+            self._write(step, state, metrics)
+        barrier()
+
+    def _write(self, step: int, state: Any, metrics: dict | None) -> None:
         final = os.path.join(self.directory, str(int(step)))
         tmp = os.path.join(self.directory, f".{int(step)}.tmp-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)

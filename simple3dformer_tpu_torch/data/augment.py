@@ -4,16 +4,19 @@ simple3dformer_tpu/data/augment.py:149-199; the reference's provider.py).
 
 Each draws from an explicit ``torch.Generator`` on the data's device, so the
 numbers differ from the JAX package's keys; the distributions are the same.
+The draws are the global batch's, cut to this rank's rows (core/rng.rand).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import rng
+
 
 def _uniform(generator: torch.Generator, shape, low: float, high: float,
              like: torch.Tensor) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = rng.rand(shape, generator)
     return (low + (high - low) * u).to(like.device, like.dtype)
 
 

@@ -16,7 +16,8 @@ Two implementations, as in the JAX package:
   (the triangle kernel, widened by 1/scale when the crop is larger than the
   output; weights normalised, samples outside the image dropped) applied as
   two batched products. Output border pixels can blend up to one source
-  pixel outside the crop box, as in the JAX package.
+  pixel outside the crop box, as in the JAX package. Its draws are the
+  global batch's, cut to this rank's images (core/rng.rand).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..core.rng import rand as batch_rand
 
 SCALE = (0.08, 1.0)
 RATIO = (3.0 / 4.0, 4.0 / 3.0)
@@ -122,10 +125,8 @@ def crop_boxes(u_area: torch.Tensor, u_aspect: torch.Tensor, u_i: torch.Tensor,
 def sample_crop_boxes(generator: torch.Generator, n: int, height: int, width: int,
                       scale=SCALE, ratio=RATIO):
     """``n`` boxes (i, j, h, w) drawn from ``generator`` on its device."""
-    dev = generator.device
-    u_area, u_aspect = (torch.rand(n, N_CANDIDATES, generator=generator, device=dev)
-                        for _ in range(2))
-    u_i, u_j = torch.rand(2, n, generator=generator, device=dev)
+    u_area, u_aspect = (batch_rand((n, N_CANDIDATES), generator) for _ in range(2))
+    u_i, u_j = batch_rand((2, n), generator, axis=1)
     return crop_boxes(u_area, u_aspect, u_i, u_j, height, width, scale, ratio)
 
 
@@ -175,5 +176,5 @@ def device_random_resized_crop_flip(generator: torch.Generator, images: torch.Te
     flip with p = 0.5 for each image, drawn from ``generator``."""
     b, height, width, _ = images.shape
     i, j, h, w = sample_crop_boxes(generator, b, height, width, scale, ratio)
-    flip = torch.rand(b, generator=generator, device=generator.device) < 0.5
+    flip = batch_rand((b,), generator) < 0.5
     return resized_crop_flip(images, i, j, h, w, flip, size)

@@ -5,6 +5,11 @@ The voxel corpora are small next to the card's memory (ModelNet40: 12k x 30^3
 uint8, about 332 MB), so a whole split goes to the device once and each
 batch is an on-device gather by an index tensor. Per step the host sends
 nothing; an epoch's index matrix goes over once.
+
+Under data parallelism every rank holds the whole split on its own card, as
+the JAX package replicates the corpus over the mesh, and ``gather`` takes the
+rank's columns of each row of the index matrix (parallel/mesh.rank_columns,
+applied by the train and eval runners).
 """
 
 from __future__ import annotations

@@ -39,7 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import rng
 from ..core.rng import DeviceGenerators
+from ..parallel.mesh import current_split
 from ..nn.layers import AMSoftmaxLayer, LayerNorm, dense, linear, softmax_last, trunc_normal
 from ..nn.vit import BACKBONES, PatchEmbed2D, ViTCore
 
@@ -89,7 +91,8 @@ class PostNormEncoderLayer(nn.Module):
         if not self.training or self.dropout == 0.0:
             return x
         keep = 1.0 - self.dropout
-        mask = torch.rand(x.shape, generator=self.generators(x.device), device=x.device) < keep
+        # rows [B * groups] batch-major: this rank's samples' rows of the global draw
+        mask = rng.rand(x.shape, self.generators(x.device)) < keep
         return torch.where(mask, x / keep, 0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -204,6 +207,9 @@ class VoxelViT(ViTCore):
         pillars = self._with_cls(tok.reshape(b * px * py, pz, d), self.group_cls_token)
         pillars = self._add_pos(pillars, self.group_pos_embed, "group_pos_embed")
         if self.group_axes == "reference_bug":
+            if current_split()[0] > 1:
+                raise NotImplementedError("group_axes='reference_bug' attends across the batch: "
+                                          "it cannot be split over ranks")
             # the reference's batch-first tensor in a seq-first encoder: attention
             # over the pillars at each z slot (LN and the feed-forward are per token)
             pillars = self.group_embed(pillars.transpose(0, 1)).transpose(0, 1)

@@ -31,7 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import rng
 from ..core.rng import DeviceGenerators
+from ..parallel.mesh import all_reduce_sum, current_split
 from ..kernels import mhsa as mhsa_kernel
 from ..kernels.vit_block import (fused_vit_block, fused_vit_block_train, records_grad,
                                  unsupported)
@@ -244,7 +246,7 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=self.generators(x.device), device=x.device) < keep
+        mask = rng.rand(shape, self.generators(x.device)) < keep
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -372,6 +374,15 @@ class AMSoftmaxLayer(nn.Module):
         return (x / x_norm) @ (self.W / w_norm).to(x.dtype) * self.s
 
 
+def _global_moments(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and flax's fast variance over every rank's [rows, C] f32."""
+    c = rows.shape[-1]
+    stats = all_reduce_sum(torch.cat([rows.sum(0), (rows * rows).sum(0),
+                                      rows.new_full((1,), rows.shape[0])]))
+    mean = stats[:c] / stats[-1]
+    return mean, torch.clamp_min(stats[c:2 * c] / stats[-1] - mean * mean, 0.0)
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the last axis, channel-last input [..., C].
 
@@ -387,6 +398,13 @@ class BatchNorm(nn.Module):
     names are torch's (``weight``, ``bias``, ``running_mean``,
     ``running_var``, ``num_batches_tracked``), so a reference BatchNorm's
     state dict loads as it is.
+
+    In a data-parallel step whose batch is split over the ranks
+    (parallel/mesh.data_split), the statistics are the global batch's, as
+    flax computes them on a sharded array: the f32 sum, the sum of squares
+    and the count go through one differentiable all-reduce, then the same
+    fast variance. Every rank gets the same numbers, so the running
+    statistics stay bit-equal across ranks.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
@@ -405,9 +423,12 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             xf = x.float()
-            axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            if current_split()[0] > 1:
+                mean, var = _global_moments(xf.reshape(-1, xf.shape[-1]))
+            else:
+                axes = tuple(range(x.ndim - 1))
+                mean = xf.mean(axes)
+                var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import rng
 from ..kernels.fps import fps
 from ..kernels.gather import gather_rows
 from ..kernels.knn import knn, square_distance_matmul
@@ -50,11 +51,12 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           generator: torch.Generator | None = None) -> torch.Tensor:
     """Iterative FPS. xyz [B, N, 3] -> indices [B, npoint] int32. A generator
-    draws the start indices (on the CPU), as the JAX function's key does."""
+    draws the start indices (on the CPU), as the JAX function's key does, for
+    the global batch (core/rng.randint)."""
     b, n, _ = xyz.shape
     start = None
     if generator is not None:
-        start = torch.randint(0, n, (b,), generator=generator).to(xyz.device, torch.int32)
+        start = rng.randint(0, n, (b,), generator).to(xyz.device, torch.int32)
     return fps(xyz.float().contiguous(), npoint, start)
 
 

@@ -21,6 +21,15 @@ batch (partseg concatenates the category one-hot), and ``augment_fn(x)``
 augments it inside the step, as the JAX loop's hooks do (loop.py:189-200);
 an augmentation draws from its own ``torch.Generator``, so its numbers are
 not the JAX package's.
+
+Data parallelism (parallel/mesh.py), as the JAX loop's global-batch step
+under GSPMD: with a process group up, the scanned runners take this rank's
+columns of the index matrix and run each step under ``data_split``, so the
+draws, the BatchNorm statistics and the class-weighted loss are the global
+batch's; the gradients are averaged over the ranks in one flat bucket before
+the update, and the metrics are averaged over the ranks once an epoch. The
+eval runs this rank's rows and all-gathers the logits, so every rank sees the
+whole batch's.
 """
 
 from __future__ import annotations
@@ -32,6 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import (all_reduce_mean, all_reduce_sum, average_gradients,
+                             current_split, data_split, fetch_global, is_distributed,
+                             rank_columns)
 from .optim import SGD, Adam
 
 
@@ -58,11 +70,20 @@ class TrainState:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   class_weights: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean CE in f32; with weights, torch's weighted-mean convention."""
+    """Mean CE in f32; with weights, torch's weighted-mean convention.
+
+    In a split step (parallel/mesh.data_split over n parts) the weighted mean
+    is the global batch's sum(w * ce) / sum(w): the denominator is summed over
+    the ranks and the rank's share scaled by n, so the mean over the ranks of
+    this loss (and of its gradient) is the global one. A mean of per-rank
+    weighted means would weigh each rank alike."""
     ce = F.cross_entropy(logits.float(), labels.long(), reduction="none")
     if class_weights is None:
         return ce.mean()
     w = class_weights[labels.long()]
+    parts = current_split()[0]
+    if parts > 1:
+        return (w * ce).sum() * parts / all_reduce_sum(w.sum().detach())
     return (w * ce).sum() / w.sum()
 
 
@@ -70,6 +91,20 @@ def seg_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
     """Per-point CE over [B, N, C] logits and [B, N] labels, mean in f32."""
     return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            labels.long().reshape(-1))
+
+
+def trainable(opt) -> tuple[list[str], list[torch.Tensor]]:
+    """The optimizer's leaves that take a gradient: (names, parameters)."""
+    names = [k for k in opt.names if opt.params[k].requires_grad]
+    return names, [opt.params[k] for k in names]
+
+
+def apply_update(opt, names: list[str], params: list[torch.Tensor], grads, lr: float) -> None:
+    """One optimizer update from this rank's gradients: averaged over the
+    ranks first (one flat bucket) when a process group is up."""
+    if is_distributed():
+        grads = average_gradients(list(grads), params)
+    opt.step(dict(zip(names, grads)), lr)
 
 
 def make_train_step(state: TrainState, loss_fn: Callable = cross_entropy,
@@ -80,11 +115,12 @@ def make_train_step(state: TrainState, loss_fn: Callable = cross_entropy,
 
     ``batch`` is {'x', 'y'}, or whatever ``prepare_fn`` turns into (x, y).
     The model runs in train mode. Metrics are 0-dim device tensors (loss,
-    accuracy); reading them is the caller's choice.
+    accuracy) of this rank's batch; reading them is the caller's choice.
+    With a process group up the gradients are averaged over the ranks; the
+    caller that split the batch runs the step under ``data_split``.
     """
     model, opt = state.model, state.optimizer
-    names = [k for k in opt.names if opt.params[k].requires_grad]
-    params = [opt.params[k] for k in names]
+    names, params = trainable(opt)
 
     def step(batch: dict, lr: float) -> dict:
         model.train()
@@ -95,11 +131,28 @@ def make_train_step(state: TrainState, loss_fn: Callable = cross_entropy,
         logits = model(x)
         loss = loss_fn(logits, y) if class_weights is None else loss_fn(logits, y, class_weights)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        opt.step(dict(zip(names, grads)), lr)
+        apply_update(opt, names, params, grads, lr)
         acc = (logits.detach().argmax(-1) == y).float().mean()
         return {"loss": loss.detach(), "accuracy": acc}
 
     return step
+
+
+def run_rows(step: Callable, idx_matrix: torch.Tensor, keys, gather) -> dict:
+    """``step(*gather(row))`` for each row of this rank's columns of
+    ``idx_matrix``, under the batch's split; returns {key: [S] device tensor}
+    of the steps' metrics, averaged over the ranks (one all-reduce)."""
+    idx_matrix, parts = rank_columns(idx_matrix)
+    s = idx_matrix.shape[0]
+    metrics = torch.empty(len(keys), s, device=idx_matrix.device)
+    with data_split(parts):
+        for i in range(s):
+            out = step(*gather(idx_matrix[i]))
+            for j, k in enumerate(keys):
+                metrics[j, i] = out[k]
+    if is_distributed():
+        metrics = all_reduce_mean(metrics)
+    return dict(zip(keys, metrics))
 
 
 def make_scanned_train_steps(state: TrainState, dataset, loss_fn: Callable = cross_entropy,
@@ -110,7 +163,8 @@ def make_scanned_train_steps(state: TrainState, dataset, loss_fn: Callable = cro
     """(idx [S, B] on the device, lr) -> metrics {name: [S] device tensor}.
 
     One train step per row of ``idx``, each batch gathered on the device from
-    ``dataset`` (data/pipeline.DeviceResidentDataset).
+    ``dataset`` (data/pipeline.DeviceResidentDataset): with a process group
+    up, this rank's columns of the row (parallel/mesh.rank_columns).
     """
     if prepare_fn is None:
         def prepare_fn(batch):
@@ -118,13 +172,8 @@ def make_scanned_train_steps(state: TrainState, dataset, loss_fn: Callable = cro
     step = make_train_step(state, loss_fn, class_weights, prepare_fn, augment_fn, x_dtype)
 
     def run(idx_matrix: torch.Tensor, lr: float) -> dict:
-        s = idx_matrix.shape[0]
-        metrics = {k: torch.empty(s, device=idx_matrix.device) for k in ("loss", "accuracy")}
-        for i in range(s):
-            out = step(dataset.gather(idx_matrix[i]), lr)
-            for k, v in out.items():
-                metrics[k][i] = v
-        return metrics
+        return run_rows(lambda batch: step(batch, lr), idx_matrix, ("loss", "accuracy"),
+                        lambda idx: (dataset.gather(idx),))
 
     return run
 
@@ -133,7 +182,9 @@ def make_scanned_eval(model: nn.Module, dataset, prepare_fn: Callable | None = N
                       x_key: str = "x", x_dtype: torch.dtype = torch.float32):
     """(idx [S, B] on the device) -> logits [S, B, ...]: the model in eval mode
     over every row, under inference mode (the serving kernels on the card).
-    ``prepare_fn(batch) -> (x, y)`` builds the input, as in training."""
+    ``prepare_fn(batch) -> (x, y)`` builds the input, as in training. With a
+    process group up each rank runs its columns and the logits are
+    all-gathered, so every rank returns the whole batch's."""
 
     def inputs(batch):
         x = prepare_fn(batch)[0] if prepare_fn is not None else batch[x_key]
@@ -141,8 +192,10 @@ def make_scanned_eval(model: nn.Module, dataset, prepare_fn: Callable | None = N
 
     def run(idx_matrix: torch.Tensor) -> torch.Tensor:
         model.eval()
+        idx_matrix, parts = rank_columns(idx_matrix)
         with torch.inference_mode():
-            return torch.stack([model(inputs(dataset.gather(idx))) for idx in idx_matrix])
+            logits = torch.stack([model(inputs(dataset.gather(idx))) for idx in idx_matrix])
+            return fetch_global(logits, parts)
 
     return run
 

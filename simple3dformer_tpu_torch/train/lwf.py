@@ -19,6 +19,12 @@ Augmentations draw from one ``torch.Generator`` on the model's device, seeded
 each step from the run's seed and the optimizer step (``core.rng.step_seed``),
 as the JAX step folds ``state.step`` into its key: the image crop first, then
 the task augmentation. The numbers are not the JAX package's.
+
+Data parallelism as in train/loop.py: each rank takes its columns of the
+task and of the image index matrices (each split on its own, or run whole
+where its batch does not divide), the teacher labels the rank's images, the
+draws are the global batch's, BatchNorm's statistics the global point
+batch's, and the gradients are averaged over the ranks in one flat bucket.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import torch
 from torch import nn
 
 from ..core.rng import DEFAULT_SEED, step_seed
-from .loop import TrainState, cross_entropy
+from ..parallel.mesh import data_split, rank_columns
+from .loop import TrainState, apply_update, cross_entropy, run_rows, trainable
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -86,27 +93,30 @@ def make_lwf_train_step(state: TrainState, teacher: nn.Module,
     Metrics are 0-dim device tensors: ``loss``, ``task_loss``, ``lwf_loss``."""
     model, opt = state.model, state.optimizer
     teacher.eval().requires_grad_(False)
-    names = [k for k in opt.names if opt.params[k].requires_grad]
-    params = [opt.params[k] for k in names]
+    names, params = trainable(opt)
     gen = torch.Generator(device=next(model.parameters()).device)
 
-    def step(batch: dict, raw_images: torch.Tensor, lr: float) -> dict:
+    def step(batch: dict, raw_images: torch.Tensor, lr: float, image_parts: int = 1) -> dict:
+        """The task batch runs under the caller's split; ``image_parts`` is the
+        image batch's (parallel/mesh.rank_columns)."""
         model.train()
         x, y = prepare_fn(batch) if prepare_fn is not None else (batch["x"], batch["y"])
         x = x.float()
         gen.manual_seed(step_seed(seed, state.step))
-        if image_augment_fn is not None:
-            raw_images = image_augment_fn(gen, raw_images)
+        with data_split(image_parts):
+            if image_augment_fn is not None:
+                raw_images = image_augment_fn(gen, raw_images)
         images = normalize_images(raw_images)
         if augment_fn is not None:
             x = augment_fn(gen, x)
         with torch.no_grad():
             labels = teacher(images).argmax(-1)
         task_loss = task_loss_fn(model(x), y)
-        lwf_loss = cross_entropy(model.forward_images(images), labels)
+        with data_split(image_parts):
+            lwf_loss = cross_entropy(model.forward_images(images), labels)
         loss = task_loss + lambda_weight * lwf_loss
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        opt.step(dict(zip(names, grads)), lr)
+        apply_update(opt, names, params, grads, lr)
         return {"loss": loss.detach(), "task_loss": task_loss.detach(),
                 "lwf_loss": lwf_loss.detach()}
 
@@ -122,13 +132,13 @@ def make_scanned_lwf_train_steps(state: TrainState, teacher: nn.Module, task_ds,
     step = make_lwf_train_step(state, teacher, **kw)
 
     def run(task_idx: torch.Tensor, img_idx: torch.Tensor, lr: float) -> dict:
-        s = task_idx.shape[0]
-        metrics = {k: torch.empty(s, device=task_idx.device)
-                   for k in ("loss", "task_loss", "lwf_loss")}
-        for i in range(s):
-            out = step(task_ds.gather(task_idx[i]), image_ds.gather(img_idx[i])["images"], lr)
-            for k, v in out.items():
-                metrics[k][i] = v
-        return metrics
+        img_idx, image_parts = rank_columns(img_idx)
+        rows = iter(img_idx)
+
+        def gather(idx):
+            return task_ds.gather(idx), image_ds.gather(next(rows))["images"]
+
+        return run_rows(lambda batch, images: step(batch, images, lr, image_parts), task_idx,
+                        ("loss", "task_loss", "lwf_loss"), gather)
 
     return run

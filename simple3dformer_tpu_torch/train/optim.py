@@ -176,16 +176,25 @@ class SGD:
 
 def make_optimizer(params: dict[str, torch.Tensor], optimizer: str = "Adam",
                    weight_decay: float = 0.0, trainable_mask: dict[str, bool] | None = None,
-                   bf16_nu: bool = False) -> Adam | SGD:
+                   bf16_nu: bool = False, zero1: bool = False) -> Adam | SGD:
     """The optimizer of the recipes. ``trainable_mask``: name -> bool (True =
     trainable); False leaves receive no update and carry no optimizer state.
     SGD runs without weight decay, as every recipe that uses it does.
 
     ``bf16_nu``: store Adam's second moment in bfloat16 (off by default: the
-    contract is torch.optim.Adam's f32 state).
+    contract is torch.optim.Adam's f32 state). ``zero1``: Adam's moments
+    split over the data-parallel ranks (parallel/zero.Zero1Adam, whose
+    ``state_dict`` gathers the full moments and ``load_state_dict`` takes
+    this rank's part, so its checkpoints are this class's).
     """
     name = optimizer.lower()
+    if zero1 and name != "adam":
+        raise NotImplementedError("ZeRO-1 splits Adam's moments; no recipe shards SGD's")
     if name == "adam":
+        if zero1:
+            from ..parallel.zero import Zero1Adam
+
+            return Zero1Adam(params, trainable_mask, weight_decay, bf16_nu=bf16_nu)
         return Adam(params, trainable_mask, weight_decay, bf16_nu=bf16_nu)
     if name == "sgd":
         if weight_decay:

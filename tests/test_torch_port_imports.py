@@ -27,7 +27,9 @@ WIDTHS = (10, 13, 15, 40, 1000)
 # ViP-3D, the two visualizers, profiling and run logging, imported like every other module
 NEW_ENTRY_POINTS = ("models.vip3d", "cli.train_pure_mlp", "utils.attention_rollout",
                     "cli.visualize_attention_map_voxel", "cli.visualize_point_cloud",
-                    "utils.profiling", "core.logging_utils")
+                    "utils.profiling", "core.logging_utils",
+                    # data parallelism and ZeRO-1 over torch.distributed
+                    "parallel.mesh", "parallel.zero")
 
 
 def test_port_imports_no_jax():

@@ -260,7 +260,9 @@ def test_cli_trains_on_the_cpu_and_restores(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,error,match", [
-    (["--zero1"], NotImplementedError, "parallelism"),
+    # --zero1 trains (tests/test_torch_parallel.py); an unknown model name is
+    # rejected as the JAX package rejects it
+    (["--model-name", "PointNet"], ValueError, "Unknown model name"),
     # every route is ported; an unknown one is rejected as the JAX package rejects it
     (["--pos-embedding", "nonsense"], ValueError, "Unknown positional embedding scheme"),
 ])
