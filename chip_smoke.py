@@ -187,6 +187,7 @@ line. Without a card, or outside a checkout, it exits non-zero at once.
 
 from __future__ import annotations
 
+import collections
 import copy
 import http.client
 import json
@@ -3740,41 +3741,95 @@ def phase_vip3d(torch):
 
 
 # Predictor.export: the flagship predictor (phase 4's, batch 32), a group_embed
-# model (phase 21's at batch GROUP_B) and a ViP-3D model (phase 22's vip3d_s7 at
-# batch VIP_B) exported on the card and loaded in a fresh process that imports
-# no model code; their logits against the eager Predictor's
+# model (phase 21's at batch GROUP_B), a ViP-3D model (phase 22's vip3d_s7 at
+# batch VIP_B), and the point models at their phases' shapes: the partseg 3DViT
+# (phase 8, B=PB), 3DViT_s3dis (phase 10, deit_base, 1025 tokens, the mhsa op)
+# and Hengshuang cls in f32 (phase 12, the pre-gathered vector-attention op) and
+# bf16 (phase 14, the in-kernel-gather op), all exported on the card and loaded
+# in a fresh process that imports no model code; their logits against the
+# eager Predictor's, and each kernel's launches a call inside the ops against
+# the eager forward's
 EXPORT_REL = 1e-6  # of the largest logit: the same ops in the same order
 EXPORT_CALLS = 50  # timed calls of the flagship's exported callable and Predictor
-# the fresh process: load_exported of each artifact, its logits, the block
-# launches a call (counted inside the op), the flagship's latency, and the
-# modules of the port it imported
+POINT_EXPORT_CALLS = 20  # timed calls of each point model's
+# the forward kernels an exported program calls as ops, by counter name
+EXPORT_COUNTERS = {"fused_vit_block": ("vit_block", "fused_vit_block"),
+                   "fps": ("fps", "fps"), "knn": ("knn", "knn"),
+                   "gather_fwd": ("gather", "gather_fwd"), "mhsa_fwd": ("mhsa", "mhsa_fwd"),
+                   "vector_attention_fwd": ("vector_attention", "vector_attention_fwd"),
+                   "vector_attention_gather_fwd": ("vector_attention", "gather_attention_fwd")}
+# the fresh process: load_exported of each artifact, its logits, the launches a
+# call of each kernel (counted inside the ops), each model's latency over the
+# calls names.json gives it, and the modules of the port it imported
 EXPORT_LOADER = """
-import json, sys, time
+import importlib, json, sys, time
 import numpy as np
-from simple3dformer_tpu_torch.kernels.vit_block import fused_vit_block
 from simple3dformer_tpu_torch.serve.predictor import load_exported
-d, calls = sys.argv[1], int(sys.argv[2])
-report = {"launches": {}}
-for name in json.load(open(f"{d}/names.json")):
+d = sys.argv[1]
+spec = json.load(open(f"{d}/names.json"))
+counters = {k: getattr(importlib.import_module("simple3dformer_tpu_torch.kernels." + m), f)
+            for k, (m, f) in spec["counters"].items()}
+def counts():
+    return {k: c.launches for k, c in counters.items()}
+report = {"launches": {}, "timed": {}, "p50": {}, "p95": {}}
+for name, calls in spec["calls"].items():
     fn, x = load_exported(f"{d}/{name}.pt2"), np.load(f"{d}/{name}.x.npy")
-    fused_vit_block.launches = 0
+    before = counts()
     np.save(f"{d}/{name}.got.npy", fn(x))
-    report["launches"][name] = fused_vit_block.launches
-    if name == "flagship":
-        lat = []
-        for _ in range(calls):
-            t0 = time.perf_counter()
-            fn(x)
-            lat.append(time.perf_counter() - t0)
-        report["launches_timed"] = fused_vit_block.launches - report["launches"][name]
-        report["p50"], report["p95"] = (float(np.percentile(lat, q) * 1e3) for q in (50, 95))
+    mid = counts()
+    report["launches"][name] = {k: mid[k] - before[k] for k in mid}
+    lat = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn(x)
+        lat.append(time.perf_counter() - t0)
+    report["timed"][name] = {k: v - mid[k] for k, v in counts().items()}
+    report["p50"][name], report["p95"][name] = (float(np.percentile(lat, q) * 1e3)
+                                                for q in (50, 95))
 report["modules"] = sorted(m for m in sys.modules if m.startswith("simple3dformer"))
 print(json.dumps(report))
 """
 EXPORT_MODULES = ["simple3dformer_tpu_torch", "simple3dformer_tpu_torch.kernels",
-                  "simple3dformer_tpu_torch.kernels.build",
+                  "simple3dformer_tpu_torch.kernels.build", "simple3dformer_tpu_torch.kernels.fps",
+                  "simple3dformer_tpu_torch.kernels.gather", "simple3dformer_tpu_torch.kernels.knn",
+                  "simple3dformer_tpu_torch.kernels.mhsa",
+                  "simple3dformer_tpu_torch.kernels.vector_attention",
                   "simple3dformer_tpu_torch.kernels.vit_block",
                   "simple3dformer_tpu_torch.serve", "simple3dformer_tpu_torch.serve.predictor"]
+
+
+def export_counts() -> dict:
+    """Each exported forward kernel's launch counter, by EXPORT_COUNTERS name."""
+    import importlib
+
+    return {k: getattr(importlib.import_module(f"simple3dformer_tpu_torch.kernels.{m}"),
+                       f).launches for k, (m, f) in EXPORT_COUNTERS.items()}
+
+
+def export_point_models(torch) -> dict:
+    """name -> (model on the card, input, the kernels its forward must launch)."""
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.models.registry import make_point_model
+
+    rs = np.random.RandomState(14)
+
+    def clouds(b, n, c):
+        x = rs.randn(b, n, c).astype(np.float32)
+        x[..., :3] = rs.rand(b, n, 3)
+        return x
+
+    point = ("fps", "knn", "gather_fwd")
+    heng = {dtype: make_point_model(hengshuang_config(), "cls", dtype=dtype,
+                                    generator=generator(DEFAULT_SEED)).to("cuda")
+            for dtype in (None, torch.bfloat16)}
+    return {"partseg": (partseg_model(torch, "cuda"), clouds(PB, PN, 22),
+                        (*point, "fused_vit_block")),
+            "s3dis": (make_point_model(s3dis_config(), "seg",
+                                       generator=generator(DEFAULT_SEED)).to("cuda"),
+                      clouds(SB, SN, 9), (*point, "mhsa_fwd")),
+            "hengshuang": (heng[None], clouds(HB, HN, 6), (*point, "vector_attention_fwd")),
+            "hengshuang_bf16": (heng[torch.bfloat16], clouds(HB, HN, 6),
+                                (*point, "vector_attention_gather_fwd"))}
 
 
 def phase_export(torch):
@@ -3790,79 +3845,82 @@ def phase_export(torch):
     grids, _ = synthetic_voxels(BATCH, VOXEL, N_CLASSES, seed=11)
     group_x = half_empty_grids(GROUP_B, seed=12).astype(np.float32)
     vip_x = vip_grids(VIP_B, seed=13)[0].astype(np.float32)
-    models = {"flagship": (flagship_model(torch, "cuda"), grids.astype(np.float32), 12),
-              "group_embed": (group_model(torch, "cuda"), group_x, 24),
-              "vip3d": (vip_model(torch, "cuda"), vip_x, 0)}
-    want, predictors, depth = {}, {}, {}
+    models = {"flagship": (flagship_model(torch, "cuda"), grids.astype(np.float32),
+                           ("fused_vit_block",)),
+              "group_embed": (group_model(torch, "cuda"), group_x, ("fused_vit_block",)),
+              "vip3d": (vip_model(torch, "cuda"), vip_x, ()),
+              **export_point_models(torch)}
+    calls = {name: EXPORT_CALLS if name == "flagship" else POINT_EXPORT_CALLS
+             for name in models}
+    want, predictors, nodes, eager = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as d:
-        for name, (model, x, blocks) in models.items():
+        for name, (model, x, _) in models.items():
             predictor = Predictor(model, x.shape[1:], device="cuda", batch_size=len(x))
             t1 = time.perf_counter()
             predictor.export(os.path.join(d, f"{name}.pt2"))
             program = torch.export.load(os.path.join(d, f"{name}.pt2"))
-            depth[name] = sum(n.target == torch.ops.s3f.vit_block_fwd.default
-                              for n in program.graph.nodes)
+            nodes[name] = collections.Counter(
+                str(n.target).split(".")[1] for n in program.graph.nodes
+                if n.op == "call_function" and str(n.target).startswith("s3f."))
             mib = os.path.getsize(os.path.join(d, f"{name}.pt2")) / 2**20
             print(f"export {name}: Predictor at batch {len(x)} on the card exported in "
-                  f"{time.perf_counter() - t1:.1f} s ({mib:.1f} MiB), {depth[name]} "
-                  "s3f::vit_block_fwd nodes in the program")
+                  f"{time.perf_counter() - t1:.1f} s ({mib:.1f} MiB); op nodes in the program "
+                  f"{dict(nodes[name])}")
+            before = export_counts()
             want[name], predictors[name] = predictor(x), predictor
+            eager[name] = {k: v - before[k] for k, v in export_counts().items()}
             np.save(os.path.join(d, f"{name}.x.npy"), x)
         with open(os.path.join(d, "names.json"), "w") as f:
-            json.dump(list(models), f)
-        out = subprocess.run([sys.executable, "-c", EXPORT_LOADER, d, str(EXPORT_CALLS)],
+            json.dump({"calls": calls, "counters": EXPORT_COUNTERS}, f)
+        out = subprocess.run([sys.executable, "-c", EXPORT_LOADER, d],
                              capture_output=True, text=True, timeout=600)
         if out.returncode:
             raise AssertionError(f"loading the exported programs failed:\n{out.stderr[-4000:]}")
         report = json.loads(out.stdout.splitlines()[-1])
         got = {name: np.load(os.path.join(d, f"{name}.got.npy")) for name in models}
 
-    for name, (_, x, blocks) in models.items():
+    for name, (_, x, kernels) in models.items():
         err = float(np.abs(got[name] - want[name]).max()) / float(np.abs(want[name]).max())
         same = np.array_equal(got[name], want[name])
-        n = report["launches"][name]
+        n = {k: v for k, v in report["launches"][name].items() if v}
+        timed = {k: v for k, v in report["timed"][name].items() if v}
+        want_n = {k: v for k, v in eager[name].items() if v}
         print(f"export {name}: the exported program in a fresh process against the eager "
               f"Predictor: logits {got[name].shape}, error {err:.3e} of the largest (tolerance "
-              f"{EXPORT_REL}), bit-equal {same}; fused_vit_block launches a call {n} (want "
-              f"{blocks})")
-        if (err > EXPORT_REL or got[name].shape != want[name].shape or n != blocks
-                or depth[name] != blocks):
-            raise AssertionError(f"exported {name}: err {err}, launches {n}, op nodes "
-                                 f"{depth[name]}, want {blocks}")
+              f"{EXPORT_REL}), bit-equal {same}; launches a call inside the ops {n}, the eager "
+              f"forward's {want_n}")
+        # each op node launches its kernel once a call
+        if (err > EXPORT_REL or got[name].shape != want[name].shape or n != want_n
+                or any(k not in n for k in kernels)
+                or timed != {k: v * calls[name] for k, v in n.items()}
+                or {op_name(k): v for k, v in n.items()} != dict(nodes[name])):
+            raise AssertionError(f"exported {name}: err {err}, launches {n} (eager {want_n}, "
+                                 f"{calls[name]} timed calls {timed}), op nodes {nodes[name]}, "
+                                 f"kernels {kernels}")
     if report["modules"] != EXPORT_MODULES:
         raise AssertionError(f"loading needed more of the port: {report['modules']}")
-    if report["launches_timed"] != 12 * EXPORT_CALLS:
-        raise AssertionError(f"exported flagship: {report['launches_timed']} launches in "
-                             f"{EXPORT_CALLS} calls")
-    x = models["flagship"][1]
-    lat = []
-    for _ in range(EXPORT_CALLS):
-        t1 = time.perf_counter()
-        predictors["flagship"](x)
-        lat.append(time.perf_counter() - t1)
-    lat_ms = np.asarray(lat) * 1e3
-    print(f"export flagship latency at batch {BATCH} (host clock, {EXPORT_CALLS} calls each, "
-          f"numpy in and out): exported callable in a fresh process p50 {report['p50']:.3f} ms, "
-          f"p95 {report['p95']:.3f} ms; the Predictor here p50 {np.percentile(lat_ms, 50):.3f} "
-          f"ms, p95 {np.percentile(lat_ms, 95):.3f} ms; the fresh process imported only "
-          f"{report['modules']}")
-
-    # a forward that reaches a kernel that is no registered op raises, naming
-    # it: the partseg 3DViT's first transition keeps all N points (no FPS), so
-    # the first kernel it reaches is the row gather
-    point = Predictor(partseg_model(torch, "cuda"), (PN, 22), device="cuda", batch_size=2,
-                      warmup=False)
-    try:
-        with tempfile.TemporaryDirectory() as d:
-            point.export(os.path.join(d, "point.pt2"))
-    except RuntimeError as e:
-        if "the gather_fwd kernel is not registered as a torch op" not in str(e):
-            raise
-        print(f"export partseg 3DViT: refused, {e}")
-    else:
-        raise AssertionError("the point model's export did not raise")
+    for name, (_, x, _) in models.items():
+        lat = []
+        for _ in range(calls[name]):
+            t1 = time.perf_counter()
+            predictors[name](x)
+            lat.append(time.perf_counter() - t1)
+        lat_ms = np.asarray(lat) * 1e3
+        print(f"export {name} latency at batch {len(x)} (host clock, {calls[name]} calls each, "
+              f"numpy in and out): exported callable in a fresh process p50 "
+              f"{report['p50'][name]:.3f} ms, p95 {report['p95'][name]:.3f} ms; the eager "
+              f"Predictor here p50 {np.percentile(lat_ms, 50):.3f} ms, p95 "
+              f"{np.percentile(lat_ms, 95):.3f} ms")
+    print(f"export: the fresh process imported only {report['modules']}")
     print(f"export phase: {time.perf_counter() - t0:.1f} s")
-    return report["launches"]["flagship"] + report["launches_timed"]
+    return (report["launches"]["flagship"]["fused_vit_block"]
+            + report["timed"]["flagship"]["fused_vit_block"])
+
+
+def op_name(counter: str) -> str:
+    """The s3f op that launches the kernel of an EXPORT_COUNTERS name."""
+    return {"fused_vit_block": "vit_block_fwd",
+            "vector_attention_gather_fwd": "gather_attention_fwd"}.get(counter, counter)
 
 
 # data parallel (phase 24): (a) the CLIs at world 1 through the env:// rendezvous

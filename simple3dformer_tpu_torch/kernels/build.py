@@ -9,9 +9,12 @@ so an edited source or header is rebuilt and an unchanged tree is reused.
 Nothing here runs at import time: the first call that needs a library
 builds it.
 
-``refuse_export`` is the guard of the kernels that are not registered as torch
-ops: only the ViT block forward is (``s3f::vit_block_fwd``, kernels/vit_block.py),
-so ``torch.export`` of a forward that reaches any other kernel raises, naming it.
+``refuse_export`` is the guard of a kernel that is not registered as a torch
+op. Every forward that evaluation runs is one (``s3f::vit_block_fwd``,
+``s3f::fps``, ``s3f::knn``, ``s3f::gather_fwd``, ``s3f::mhsa_fwd``,
+``s3f::vector_attention_fwd``, ``s3f::gather_attention_fwd``); the
+residual-saving bf16 vector-attention forward, a training forward, is not, so
+``torch.export`` of a forward that reaches it raises, naming it.
 """
 
 from __future__ import annotations
@@ -92,5 +95,5 @@ def refuse_export(kernel: str) -> None:
     if torch.compiler.is_exporting():
         raise RuntimeError(
             f"the {kernel} kernel is not registered as a torch op, so a forward that reaches "
-            "it cannot be exported (of the port's kernels only the ViT block forward, "
-            "s3f::vit_block_fwd, is)")
+            "it cannot be exported (the port registers the forwards that evaluation runs; "
+            "export the model in eval mode with no gradient recorded)")

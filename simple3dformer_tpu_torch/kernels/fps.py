@@ -22,6 +22,16 @@ every warp reduces the warps' winners itself.
 
 On a CPU tensor ``fps`` runs ``fps_reference``; on a CUDA tensor it launches
 the kernel or raises. ``fps.launches`` counts kernel launches.
+
+``fps`` is also the registered torch op ``torch.ops.s3f.fps`` (``fps_op``,
+registered when this module is imported; nothing is built until its first
+launch), which ``ops/pointops.farthest_point_sample`` calls: its CUDA
+implementation launches the kernel and counts the launch, its CPU
+implementation is ``fps_reference``, and its fake implementation gives the
+output's shape from the input shapes alone. So ``torch.export`` keeps the
+kernel as one node of an exported program, and a run of that program counts
+its launches as eager calls do. The check of ``start``'s range reads the
+tensor's values, so it runs in the implementation, not in the fake.
 """
 
 from __future__ import annotations
@@ -30,8 +40,6 @@ import ctypes
 import functools
 
 import torch
-
-from .build import refuse_export
 
 
 def fps_reference(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None) -> torch.Tensor:
@@ -63,12 +71,20 @@ def _lib():
     return lib
 
 
-def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None) -> torch.Tensor:
-    """xyz [B, N, 3] -> [B, npoint] int32 indices, starting at ``start`` [B]
-    (index 0 when None)."""
-    refuse_export("fps")
+def _check_shapes(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None) -> None:
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be [B, N, 3], got {tuple(xyz.shape)}")
+    if npoint < 1:
+        raise ValueError(f"npoint must be at least 1, got {npoint}")
+    if start is not None and (start.shape != (xyz.shape[0],) or start.device != xyz.device):
+        raise ValueError(f"start must be [{xyz.shape[0]}] on {xyz.device}")
+
+
+def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None) -> torch.Tensor:
+    """xyz [B, N, 3] -> [B, npoint] int32 indices, starting at ``start`` [B]
+    (index 0 when None): the kernel on a CUDA tensor (counted in
+    ``fps.launches``), ``fps_reference`` on a CPU tensor."""
+    _check_shapes(xyz, npoint, start)
     # the kernel reads xyz[start] from shared memory: an index outside [0, N) reads past it
     if start is not None and start.numel() and not (
             0 <= int(start.min()) and int(start.max()) < xyz.shape[1]):
@@ -79,15 +95,12 @@ def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None) -> to
         raise ValueError(f"fps runs on cpu or cuda, not {xyz.device}")
     b, n, _ = xyz.shape
     lib = _lib()
-    if npoint < 1 or not 1 <= n <= lib.s3f_fps_max_points():
+    if not 1 <= n <= lib.s3f_fps_max_points():
         raise ValueError(f"fps kernel: npoint {npoint}, N {n} outside 1..{lib.s3f_fps_max_points()}")
     if xyz.dtype != torch.float32 or not xyz.is_contiguous():
         raise ValueError(f"fps kernel takes contiguous float32 xyz, got {xyz.dtype}")
     if start is not None:
-        start = start.to(torch.int32)
-        if start.shape != (b,) or start.device != xyz.device:
-            raise ValueError(f"start must be [{b}] on {xyz.device}")
-        start = start.contiguous()
+        start = start.to(torch.int32).contiguous()
     out = torch.empty(b, npoint, dtype=torch.int32, device=xyz.device)
     with torch.cuda.device(xyz.device):
         err = lib.s3f_fps(xyz.data_ptr(), 0 if start is None else start.data_ptr(),
@@ -97,6 +110,18 @@ def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None) -> to
         raise RuntimeError(f"fps kernel launch failed: CUDA error {err}")
     fps.launches += 1
     return out
+
+
+@torch.library.custom_op("s3f::fps", mutates_args=())
+def fps_op(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None) -> torch.Tensor:
+    """``fps`` as a torch op (a meta tensor takes the fake, which ``fps`` refuses)."""
+    return fps(xyz, npoint, start)
+
+
+@fps_op.register_fake
+def _(xyz, npoint, start=None):
+    _check_shapes(xyz, npoint, start)
+    return xyz.new_empty(xyz.shape[0], npoint, dtype=torch.int32)
 
 
 fps.launches = 0

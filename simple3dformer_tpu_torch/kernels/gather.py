@@ -43,7 +43,12 @@ TPU's one-hot matmul is not carried over.
 whose forward is ``gather_fwd`` and whose backward is ``gather_bwd`` (only
 when ``points`` needs a gradient). On CPU tensors both run their plain
 versions; on CUDA tensors they launch their kernels or raise. Launches are
-counted in ``gather_fwd.launches`` and ``gather_bwd.launches``.
+counted in ``gather_fwd.launches`` and ``gather_bwd.launches``. Where
+autograd records nothing, ``gather_rows`` is the registered torch op
+``torch.ops.s3f.gather_fwd`` (CUDA: the forward kernel, counted; CPU:
+``gather_fwd_reference``; fake: the shape), so ``torch.export`` keeps the
+kernel as one node of an exported program. The autograd Function calls
+``gather_fwd`` directly.
 """
 
 from __future__ import annotations
@@ -52,8 +57,6 @@ import ctypes
 import functools
 
 import torch
-
-from .build import refuse_export
 
 _BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -98,11 +101,18 @@ def _check_idx(idx: torch.Tensor, b: int, device: torch.device) -> torch.Tensor:
     return idx.to(torch.int32).contiguous()
 
 
-def gather_fwd(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """points [B, N, C], idx [B, R] -> [B, R, C] (no autograd; see gather_rows)."""
-    refuse_export("gather_fwd")
+def _fwd_shape(points: torch.Tensor, idx: torch.Tensor) -> tuple[int, int, int]:
+    """(B, R, C) of the forward's output, checked from the shapes alone."""
     if points.ndim != 3:
         raise ValueError(f"points must be [B, N, C], got {tuple(points.shape)}")
+    if idx.ndim != 2 or idx.shape[0] != points.shape[0]:
+        raise ValueError(f"idx must be [{points.shape[0]}, R], got {tuple(idx.shape)}")
+    return points.shape[0], idx.shape[1], points.shape[2]
+
+
+def gather_fwd(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points [B, N, C], idx [B, R] -> [B, R, C] (no autograd; see gather_rows)."""
+    _fwd_shape(points, idx)
     if points.device.type == "cpu":
         return gather_fwd_reference(points, idx)
     if points.device.type != "cuda":
@@ -124,6 +134,18 @@ def gather_fwd(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"gather_fwd kernel launch failed: CUDA error {err}")
     gather_fwd.launches += 1
     return out
+
+
+@torch.library.custom_op("s3f::gather_fwd", mutates_args=())
+def gather_fwd_op(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``gather_fwd`` as a torch op (a meta tensor takes the fake, which the
+    eager ``gather_fwd`` refuses)."""
+    return gather_fwd(points, idx)
+
+
+@gather_fwd_op.register_fake
+def _(points, idx):
+    return points.new_empty(_fwd_shape(points, idx))
 
 
 def gather_bwd(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
@@ -172,8 +194,11 @@ class _GatherRows(torch.autograd.Function):
 
 def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points [B, N, C], idx [B, R] int -> [B, R, C] (= take_along_axis), with
-    its backward under autograd."""
-    return _GatherRows.apply(points, idx)
+    its backward under autograd; the op ``torch.ops.s3f.gather_fwd`` when
+    nothing records a gradient."""
+    if torch.is_grad_enabled() and points.requires_grad:
+        return _GatherRows.apply(points, idx)
+    return gather_fwd_op(points, idx)
 
 
 gather_fwd.launches = 0

@@ -30,7 +30,11 @@ in another order, so where two distances differ by a rounding the two may
 rank them differently; ``near_ties`` counts such ranks for the card check.
 
 On a CPU tensor ``knn`` runs ``knn_reference``; on a CUDA tensor it launches
-the kernel or raises. ``knn.launches`` counts kernel launches.
+the kernel or raises. ``knn.launches`` counts kernel launches. ``knn`` is
+also the registered torch op ``torch.ops.s3f.knn`` (``knn_op``, which
+``ops/pointops`` calls; CUDA: the kernel, counted;
+CPU: ``knn_reference``; fake: the shapes), so ``torch.export`` keeps the
+kernel as one node of an exported program.
 """
 
 from __future__ import annotations
@@ -39,8 +43,6 @@ import ctypes
 import functools
 
 import torch
-
-from .build import refuse_export
 
 
 def square_distance_matmul(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -97,24 +99,27 @@ def _lib():
     return lib
 
 
-def knn(query: torch.Tensor, points: torch.Tensor, k: int):
-    """query [B, S, 3], points [B, N, 3] -> (idx [B, S, k] int32, dist [B, S, k] f32).
-
-    k must be at most N (callers clamp it, as ``ops.pointops.knn_indices`` does).
-    """
-    refuse_export("knn")
+def _check_shapes(query: torch.Tensor, points: torch.Tensor, k: int) -> None:
     if query.ndim != 3 or points.ndim != 3 or query.shape[0] != points.shape[0] \
             or query.shape[-1] != 3 or points.shape[-1] != 3:
         raise ValueError(f"knn takes [B, S, 3] and [B, N, 3], got {tuple(query.shape)} and "
                          f"{tuple(points.shape)}")
-    b, s, _ = query.shape
-    n = points.shape[1]
-    if not 1 <= k <= n:
-        raise ValueError(f"k = {k} outside 1..N = {n}")
+    if not 1 <= k <= points.shape[1]:
+        raise ValueError(f"k = {k} outside 1..N = {points.shape[1]}")
+
+
+def knn(query: torch.Tensor, points: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """query [B, S, 3], points [B, N, 3] -> (idx [B, S, k] int32, dist [B, S, k] f32):
+    the kernel on CUDA tensors (counted in ``knn.launches``), ``knn_reference``
+    on CPU tensors. k must be at most N (callers clamp it, as
+    ``ops.pointops.knn_indices`` does)."""
+    _check_shapes(query, points, k)
     if query.device.type == "cpu" and points.device.type == "cpu":
         return knn_reference(query, points, k)
     if query.device.type != "cuda" or points.device != query.device:
         raise ValueError(f"knn runs on cpu or cuda, got {query.device} and {points.device}")
+    b, s, _ = query.shape
+    n = points.shape[1]
     lib = _lib()
     if k > lib.s3f_knn_max_k():
         raise ValueError(f"knn kernel: k = {k} above {lib.s3f_knn_max_k()}")
@@ -130,6 +135,20 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int):
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
     knn.launches += 1
     return idx, dist
+
+
+@torch.library.custom_op("s3f::knn", mutates_args=())
+def knn_op(query: torch.Tensor, points: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``knn`` as a torch op (meta tensors take the fake, which ``knn`` refuses)."""
+    return knn(query, points, k)
+
+
+@knn_op.register_fake
+def _(query, points, k):
+    _check_shapes(query, points, k)
+    b, s, _ = query.shape
+    return (query.new_empty(b, s, k, dtype=torch.int32),
+            query.new_empty(b, s, k, dtype=torch.float32))
 
 
 knn.launches = 0

@@ -43,7 +43,11 @@ bits), bf16 within 3e-2 (an f32 last bit can flip a rounded p or ds).
 On a CPU tensor ``mhsa`` runs the plain versions; on a CUDA tensor it
 launches the kernels or raises. ``mhsa_fwd.launches`` and
 ``mhsa_bwd.launches`` count calls that launched (the backward is three
-kernels a call).
+kernels a call). Where autograd records nothing, ``mhsa`` is the registered
+torch op ``torch.ops.s3f.mhsa_fwd``, which returns o alone (the row
+statistics serve only the backward): CUDA the forward kernel, counted in
+``mhsa_fwd.launches``; CPU ``mhsa_reference``; fake the shape. So
+``torch.export`` keeps the kernel as one node of an exported program.
 """
 
 from __future__ import annotations
@@ -52,8 +56,6 @@ import ctypes
 import functools
 
 import torch
-
-from .build import refuse_export
 
 # Attention's gate for this kernel, as the JAX package's (simple3dformer_tpu/nn/layers.py:169-171)
 MIN_N, MAX_N = 256, 2048
@@ -153,7 +155,6 @@ def _shape(q: torch.Tensor) -> tuple[int, int, int, int]:
 
 def mhsa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """(o [B, N, H, dh] in q.dtype, row statistics [B*H, N, 2] f32 or None on the CPU)."""
-    refuse_export("mhsa_fwd")
     if q.device.type == "cpu":
         return mhsa_reference(q, k, v, scale), None
     if q.device.type != "cuda":
@@ -215,6 +216,23 @@ mhsa_fwd.launches = 0
 mhsa_bwd.launches = 0
 
 
+@torch.library.custom_op("s3f::mhsa_fwd", mutates_args=())
+def mhsa_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """The forward as a torch op: o [B, N, H, dh] in q.dtype, contiguous."""
+    return mhsa_fwd(q, k, v, scale)[0].contiguous()
+
+
+@mhsa_fwd_op.register_fake
+def _(q, k, v, scale):
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"mhsa: {name} is {tuple(t.shape)} {t.dtype}, not "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if q.device.type == "cuda":
+        _shape(q)
+    return q.new_empty(q.shape)
+
+
 class _MHSA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -232,7 +250,8 @@ class _MHSA(torch.autograd.Function):
 def mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v on [B, N, H, dh] tensors -> [B, N, H, dh], with
     its backward under autograd; the forward alone when nothing records a
-    gradient (``torch.inference_mode()``, ``torch.no_grad()``)."""
+    gradient (``torch.inference_mode()``, ``torch.no_grad()``), as the op
+    ``torch.ops.s3f.mhsa_fwd``."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _MHSA.apply(q, k, v, scale)
-    return mhsa_fwd(q, k, v, scale)[0]
+    return mhsa_fwd_op(q, k, v, scale)

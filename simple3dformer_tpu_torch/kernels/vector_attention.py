@@ -59,6 +59,19 @@ Against the plain versions on the card: within 2e-2 of each output's largest
 value (bf16 rounding steps where f32 sums in another order cross a
 boundary). Counters: ``gather_attention_fwd``, ``gather_attention_bwd``,
 ``gather_attention_resid_fwd``, ``gather_attention_resid_bwd``.
+
+The two forwards that a call recording no gradient runs (evaluation, serving)
+are registered torch ops: ``torch.ops.s3f.vector_attention_fwd`` (the f32
+forward keeping nothing) and ``torch.ops.s3f.gather_attention_fwd`` (the bf16
+forward), the eight weights a list in ``WNAMES`` order. Each op's CUDA
+implementation launches the kernel and counts it in the wrapper's counter,
+its CPU implementation is the plain version, and its fake implementation gives
+the output's shape and dtype. ``vector_attention`` and ``gather_attention``
+call them where autograd records nothing, so ``torch.export`` keeps each
+kernel as one node of an exported program; the autograd Functions call the
+implementations directly. The residual-saving bf16 forward is a training
+forward that no evaluation reaches: it stays unregistered, and an export that
+reaches it raises (``build.refuse_export``).
 """
 
 from __future__ import annotations
@@ -242,7 +255,6 @@ def vector_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel:
     With ``save`` the residuals are, on the card, the kernel's x, u, relu(hg)
     and a ([B*N*K, D] f32 each); on the CPU, q, k and v themselves (its plain
     backward recomputes the chain)."""
-    refuse_export("vector_attention_fwd")
     if q.device.type == "cpu":
         return vector_attention_reference(q, k, v, rel, weights), (
             {"q": q, "k": k, "v": v} if save else None)
@@ -324,6 +336,35 @@ vector_attention_fwd.launches = 0
 vector_attention_bwd.launches = 0
 
 
+def _fake_weights(weights: list[torch.Tensor], d: int) -> None:
+    if len(weights) != len(WNAMES):
+        raise ValueError(f"vector attention takes {len(WNAMES)} weights ({WNAMES}), "
+                         f"got {len(weights)}")
+    for name, w in zip(WNAMES, weights):
+        if tuple(w.shape) != weight_shapes(d)[name]:
+            raise ValueError(f"vector attention: {name} is {tuple(w.shape)}, not "
+                             f"{weight_shapes(d)[name]}")
+
+
+@torch.library.custom_op("s3f::vector_attention_fwd", mutates_args=())
+def vector_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel: torch.Tensor,
+                            weights: list[torch.Tensor]) -> torch.Tensor:
+    """The f32 forward keeping nothing as a torch op: out [B, N, D] f32."""
+    return vector_attention_fwd(q, k, v, rel, dict(zip(WNAMES, weights)))[0]
+
+
+@vector_attention_fwd_op.register_fake
+def _(q, k, v, rel, weights):
+    b, n, kk, d = k.shape if k.ndim == 4 else (None,) * 4
+    if q.ndim != 3 or k.ndim != 4 or tuple(q.shape) != (b, n, d) or v.shape != k.shape \
+            or tuple(rel.shape) != (b, n, kk, 3):
+        raise ValueError(f"vector attention takes q [B, N, D], k and v [B, N, K, D], rel "
+                         f"[B, N, K, 3]; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(rel.shape)}")
+    _fake_weights(weights, d)
+    return q.new_empty(b, n, d, dtype=torch.float32)
+
+
 class _VectorAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel, *ws):
@@ -345,11 +386,11 @@ def vector_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel: tor
                      weights: dict) -> torch.Tensor:
     """The chain on [B, N, D] q, [B, N, K, D] k and v, [B, N, K, 3] rel -> [B, N, D],
     with its backward under autograd; the forward alone, keeping nothing, when
-    nothing records a gradient."""
+    nothing records a gradient (the op ``torch.ops.s3f.vector_attention_fwd``)."""
     ws = [weights[name] for name in WNAMES]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rel, *ws)):
         return _VectorAttention.apply(q, k, v, rel, *ws)
-    return vector_attention_fwd(q, k, v, rel, weights)[0]
+    return vector_attention_fwd_op(q, k, v, rel, ws)
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +589,6 @@ def gather_attention_fwd(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tens
                          idx: torch.Tensor, rel: torch.Tensor, weights: dict) -> torch.Tensor:
     """The bf16 forward (``fused_vector_attention``, pallas_call :254): out [B, N,
     D] bf16, keeping nothing."""
-    refuse_export("gather_attention_fwd")
     if q.device.type == "cpu":
         return gather_attention_reference(q, k_all, v_all, idx, rel, weights)
     out, _ = _run_forward(q, k_all, v_all, idx, rel, weights, save=False)
@@ -626,6 +666,27 @@ gather_attention_bwd.launches = 0
 gather_attention_resid_bwd.launches = 0
 
 
+@torch.library.custom_op("s3f::gather_attention_fwd", mutates_args=())
+def gather_attention_fwd_op(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                            idx: torch.Tensor, rel: torch.Tensor,
+                            weights: list[torch.Tensor]) -> torch.Tensor:
+    """The bf16 forward as a torch op: out [B, N, D] bf16."""
+    return gather_attention_fwd(q, k_all, v_all, idx, rel, dict(zip(WNAMES, weights)))
+
+
+@gather_attention_fwd_op.register_fake
+def _(q, k_all, v_all, idx, rel, weights):
+    b, n, kk = idx.shape if idx.ndim == 3 else (None,) * 3
+    d = q.shape[-1]
+    if q.ndim != 3 or idx.ndim != 3 or tuple(q.shape) != (b, n, d) or k_all.shape != q.shape \
+            or v_all.shape != q.shape or tuple(rel.shape) != (b, n, kk, 3):
+        raise ValueError(f"vector attention takes q, k_all, v_all [B, N, D], idx [B, N, K], rel "
+                         f"[B, N, K, 3]; got {tuple(q.shape)}, {tuple(k_all.shape)}, "
+                         f"{tuple(v_all.shape)}, {tuple(idx.shape)}, {tuple(rel.shape)}")
+    _fake_weights(weights, d)
+    return q.new_empty(b, n, d, dtype=BF16)
+
+
 class _GatherAttention(torch.autograd.Function):
     """The recompute pair: the forward keeps its inputs only."""
 
@@ -667,12 +728,13 @@ def gather_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                      resid: bool = True) -> torch.Tensor:
     """The bf16 chain with its backward under autograd: the residual-saving pair
     (``resid``) or the recompute pair; the forward alone, keeping nothing, when
-    nothing records a gradient (as the TPU ``_resid`` primal runs ``_fwd_kernel``)."""
+    nothing records a gradient (the op ``torch.ops.s3f.gather_attention_fwd``, as
+    the TPU ``_resid`` primal runs ``_fwd_kernel``)."""
     ws = [weights[name] for name in WNAMES]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_all, v_all, rel, *ws)):
         fn = _GatherAttentionResid if resid else _GatherAttention
         return fn.apply(q, k_all, v_all, idx, rel, *ws)
-    return gather_attention_fwd(q, k_all, v_all, idx, rel, weights)
+    return gather_attention_fwd_op(q, k_all, v_all, idx, rel, ws)
 
 
 def flops(b: int, n: int, kk: int, d: int) -> int:

@@ -18,7 +18,9 @@ The same functions and semantics as the JAX module:
 
 FPS, kNN and every gather go through the port's kernels (kernels/fps.py,
 knn.py, gather.py): on CUDA tensors they launch the CUDA kernels, whatever the
-dtype and size, and on CPU tensors they run the kernels' plain versions. The
+dtype and size, and on CPU tensors they run the kernels' plain versions. FPS
+and kNN are called as their torch ops, and so is a gather where autograd
+records nothing, so ``torch.export`` keeps each kernel as a node. The
 JAX package gated its Pallas kernels by backend, dtype and size for TPU
 reasons only. Out-of-range gather indices clamp (kernels/gather.py says how
 the JAX package differs).
@@ -29,9 +31,9 @@ from __future__ import annotations
 import torch
 
 from ..core import rng
-from ..kernels.fps import fps
+from ..kernels.fps import fps_op
 from ..kernels.gather import gather_rows
-from ..kernels.knn import knn, square_distance_matmul
+from ..kernels.knn import knn_op, square_distance_matmul
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor, exact: bool = False) -> torch.Tensor:
@@ -57,13 +59,13 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
     start = None
     if generator is not None:
         start = rng.randint(0, n, (b,), generator).to(xyz.device, torch.int32)
-    return fps(xyz.float().contiguous(), npoint, start)
+    return fps_op(xyz.float().contiguous(), npoint, start)
 
 
 def knn_indices(query: torch.Tensor, points: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k nearest points for each query. [B, S, 3], [B, N, 3] -> [B, S, k]."""
     k = min(k, points.shape[1])
-    idx, _ = knn(query.float().contiguous(), points.float().contiguous(), k)
+    idx, _ = knn_op(query.float().contiguous(), points.float().contiguous(), k)
     return idx
 
 
@@ -143,7 +145,7 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     s = xyz2.shape[1]
     if s == 1:
         return points2.expand(b, n, points2.shape[-1])
-    idx, dists = knn(xyz1.float().contiguous(), xyz2.float().contiguous(), min(3, s))
+    idx, dists = knn_op(xyz1.float().contiguous(), xyz2.float().contiguous(), min(3, s))
     recip = 1.0 / (dists + 1e-8)
     weight = recip / recip.sum(-1, keepdim=True)
     gathered = index_points(points2, idx)  # [B, N, 3, D]

@@ -60,8 +60,8 @@ def rendezvous_env(env=None) -> dict | None:
     """The rendezvous the environment names, first match wins, as the JAX
     package's ``multihost_init`` reads it; None when none is set.
 
-      * ``JAX_COORDINATOR_ADDRESS`` (host:port) with ``JAX_NUM_PROCESSES`` and
-        ``JAX_PROCESS_ID``;
+      * ``JAX_COORDINATOR_ADDRESS`` (host:port) with ``JAX_NUM_PROCESSES``, else
+        ``WORLD_SIZE``, and ``JAX_PROCESS_ID``, else ``RANK``;
       * ``MASTER_ADDR``, ``MASTER_PORT`` (default 29500), ``WORLD_SIZE`` and
         ``RANK``, what ``torchrun`` sets;
       * SLURM: ``SLURM_PROCID`` and ``SLURM_NTASKS``, the first host of the
@@ -72,8 +72,9 @@ def rendezvous_env(env=None) -> dict | None:
     env = os.environ if env is None else env
     local = env.get("LOCAL_RANK")
     if env.get("JAX_COORDINATOR_ADDRESS"):
-        addr, world, rank = (env["JAX_COORDINATOR_ADDRESS"], env.get("JAX_NUM_PROCESSES"),
-                             env.get("JAX_PROCESS_ID"))
+        addr = env["JAX_COORDINATOR_ADDRESS"]
+        world = env.get("JAX_NUM_PROCESSES") or env.get("WORLD_SIZE")
+        rank = env.get("JAX_PROCESS_ID") or env.get("RANK")
     elif env.get("MASTER_ADDR") and env.get("WORLD_SIZE"):
         addr = f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
         world, rank = env["WORLD_SIZE"], env.get("RANK")

@@ -11,11 +11,13 @@ device runs one forward at a time anyway and the launch counts stay exact.
 ``Predictor.export`` writes the forward at the predictor's batch and input
 shape, on its device and with the weights inside, as a ``torch.export``
 program (a ``.pt2`` file: the counterpart of the JAX package's serialized
-StableHLO). ``load_exported`` runs it without the model's code: it imports
-only the kernel module that registers the ViT block forward as the op
-``s3f::vit_block_fwd``, the one kernel an exported program may call. A
-forward that reaches any other kernel (the point models' FPS, kNN, gathers,
-``mhsa`` or vector attention) raises at export, naming it.
+StableHLO), for every model of the port. ``load_exported`` runs it without
+the model's code: it imports only the kernel modules that register the
+forward kernels as torch ops (``s3f::vit_block_fwd``; the point models'
+``s3f::fps``, ``s3f::knn``, ``s3f::gather_fwd``, ``s3f::mhsa_fwd``,
+``s3f::vector_attention_fwd`` and ``s3f::gather_attention_fwd``), which an
+exported program calls as nodes. A forward that reaches a kernel that is not
+registered (only a training forward is not) raises at export, naming it.
 """
 
 from __future__ import annotations
@@ -126,7 +128,8 @@ def load_exported(path: str) -> Callable[[np.ndarray], np.ndarray]:
     exported batch and shape, any array) to host numpy logits, run on the
     device the artifact was written for. It needs no model code. An artifact
     for the card raises where no card is visible; it never moves to the CPU."""
-    from ..kernels import vit_block  # noqa: F401  registers s3f::vit_block_fwd
+    # register the ops an exported program calls
+    from ..kernels import fps, gather, knn, mhsa, vector_attention, vit_block  # noqa: F401
 
     device = exported_device(path)
     if device == "cuda" and not torch.cuda.is_available():

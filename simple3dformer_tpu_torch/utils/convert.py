@@ -29,6 +29,15 @@ PEG after block 0), ``stage{i}_peg`` is ``network.{ni}.1.proj.0`` (DHWIO ->
 ``scale`` / ``bias`` become ``weight`` / ``bias``, and the ``batch_stats``
 tree's ``mean`` / ``var`` the ``running_mean`` / ``running_var`` buffers.
 Leaves may be numpy or jax arrays; nothing here imports jax.
+
+``jax_opt_state_to_port`` converts a JAX ``opt_state`` (the optax state of
+``simple3dformer_tpu/train/optim.make_optimizer``, numpy leaves, as a
+Checkpointer step restores it) into the state of the port's
+``train/optim`` optimizer: Adam's ``count``, ``mu`` and ``nu`` (``nu`` in
+bfloat16 under ``scale_by_adam_bf16_nu``) or SGD's momentum ``trace``, each
+moment leaf named and laid out as its parameter. A trainable mask
+(``optax.multi_transform``) leaves masked nodes where frozen leaves are: they
+carry no state, as in the port.
 """
 
 from __future__ import annotations
@@ -183,3 +192,116 @@ def load_jax_params(model: nn.Module, params: Mapping,
     if stray:
         raise KeyError(f"JAX tree lacks parameters of the model: {stray}")
     return missing
+
+
+def _as_dict(node):
+    """A mapping, or a NamedTuple's fields, or None."""
+    if isinstance(node, Mapping):
+        return node
+    return node._asdict() if hasattr(node, "_asdict") else None
+
+
+def _optimizer_states(node) -> list[Mapping]:
+    """Every node of ``node`` that holds Adam's (count, mu, nu) or SGD's trace."""
+    d = _as_dict(node)
+    if d is not None:
+        if {"count", "mu", "nu"} <= set(d) or set(d) == {"trace"}:
+            return [d]
+        return [s for v in d.values() for s in _optimizer_states(v)]
+    if isinstance(node, (list, tuple)):
+        return [s for v in node for s in _optimizer_states(v)]
+    return []
+
+
+def find_optimizer_state(opt_state) -> tuple[str, Mapping]:
+    """("Adam", {count, mu, nu}) or ("SGD", {trace}): the one moment-holding
+    node of a JAX ``opt_state``, whatever chain or ``multi_transform`` wraps it
+    (the JAX package's optimizers hold exactly one)."""
+    states = _optimizer_states(opt_state)
+    if len(states) != 1:
+        raise ValueError(f"expected one Adam or SGD state in the JAX opt_state, found "
+                         f"{len(states)}")
+    return ("Adam" if "mu" in states[0] else "SGD"), states[0]
+
+
+def _is_array(v) -> bool:
+    return hasattr(v, "shape") and hasattr(v, "dtype")
+
+
+def _unmasked(tree: Mapping) -> dict:
+    """The tree without masked nodes (a frozen leaf's None, ``MaskedNode()`` or
+    empty node); subtrees left empty are dropped."""
+    out = {}
+    for k, v in tree.items():
+        sub = _as_dict(v)
+        if sub is not None and not _is_array(v):
+            sub = _unmasked(sub)
+            if sub:
+                out[k] = sub
+        elif _is_array(v):
+            out[k] = v
+    return out
+
+
+def _moments(tree: Mapping, like: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A moment tree (the parameters' structure) -> {parameter name: f32 tensor}."""
+    return jax_to_state_dict(_unmasked(tree), like)
+
+
+def _is_bf16(tree) -> bool:
+    d = _as_dict(tree)
+    if d is None:
+        return _is_array(tree) and str(tree.dtype) == "bfloat16"
+    return any(_is_bf16(v) for v in d.values())
+
+
+def jax_opt_state_to_port(opt_state, like: Mapping[str, torch.Tensor], names: list[str],
+                          step: int) -> dict:
+    """A JAX ``opt_state`` -> the state dict of the port optimizer whose
+    trainable leaves are ``names`` (``opt.names``), for the model whose state
+    dict is ``like``. ``step`` is the JAX TrainState's step: SGD's count (optax's
+    trace keeps none). Adam's moments come out as {"count", "mu", "nu"} (nu in
+    bfloat16 where the JAX state keeps it so), SGD's as {"count", "trace"}.
+
+    A trainable leaf of the port that the JAX state does not hold is refused,
+    unless it is a 2D-pathway leaf that a ``model.init`` tree lacks
+    (``TWO_D_PREFIXES``): its gradient is zero there, so its moments are zeros.
+    A JAX leaf that is not among ``names`` is refused (the masks differ)."""
+    kind, state = find_optimizer_state(opt_state)
+    out = {"count": int(np.asarray(state["count"])) if "count" in state else int(step)}
+    for moment in ("mu", "nu") if kind == "Adam" else ("trace",):
+        leaves = _moments(state[moment], like)
+        extra = sorted(set(leaves) - set(names))
+        lacking = sorted(set(names) - set(leaves))
+        stray = [k for k in lacking if not k.startswith(TWO_D_PREFIXES)]
+        if extra or stray:
+            raise ValueError(
+                f"the JAX optimizer state's trainable leaves differ from the port optimizer's "
+                f"(a different mask): state for leaves frozen here {extra[:6]}, none for "
+                f"trainable leaves {stray[:6]}")
+        dtype = torch.bfloat16 if _is_bf16(state[moment]) else torch.float32
+        out[moment] = {k: (leaves[k] if k in leaves else torch.zeros(like[k].shape)).to(dtype)
+                       for k in names}
+    return out
+
+
+def load_jax_opt_state(optimizer, model: nn.Module, opt_state, step: int) -> dict:
+    """Load a JAX ``opt_state`` into the port's ``optimizer`` (train/optim
+    Adam or SGD, or parallel/zero.Zero1Adam, which keeps this rank's part) of
+    ``model``; returns the converted state. Adam moments going into an SGD
+    optimizer, or the reverse, and a second moment of another dtype than the
+    optimizer keeps are refused."""
+    state = jax_opt_state_to_port(opt_state, model.state_dict(), list(optimizer.names), step)
+    theirs = "Adam" if "mu" in state else "SGD"
+    ours = "Adam" if hasattr(optimizer, "mu") else "SGD"
+    if theirs != ours:
+        raise ValueError(f"the JAX optimizer state is {theirs}'s "
+                         f"({'mu, nu' if theirs == 'Adam' else 'trace'}), the port optimizer "
+                         f"is {ours}")
+    if ours == "Adam":
+        bf16 = any(v.dtype == torch.bfloat16 for v in state["nu"].values())
+        if state["nu"] and bf16 != optimizer.bf16_nu:
+            raise ValueError(f"the JAX state keeps Adam's nu in {'bf16' if bf16 else 'f32'}, "
+                             f"the port optimizer in {'bf16' if optimizer.bf16_nu else 'f32'}")
+    optimizer.load_state_dict(state)
+    return state

@@ -328,5 +328,14 @@ def test_rank_columns_and_rendezvous_routes(monkeypatch):
     slurm = mesh.rendezvous_env({"SLURM_PROCID": "5", "SLURM_NTASKS": "8", "SLURM_LOCALID": "1",
                                  "SLURM_JOB_ID": "77", "SLURM_JOB_NODELIST": "gpu[03-05,9],c1"})
     assert slurm == dict(addr=f"gpu03:{77 % 4096 + 61440}", world=8, rank=5, local_rank=1)
+    # the JAX route falls back to torchrun's names, as multihost_init does
+    assert mesh.rendezvous_env({"JAX_COORDINATOR_ADDRESS": "h:1234", "WORLD_SIZE": "2",
+                                "RANK": "1"}) == dict(addr="h:1234", world=2, rank=1,
+                                                      local_rank=0)
+    # where both are set and disagree, the JAX names win
+    assert mesh.rendezvous_env({"JAX_COORDINATOR_ADDRESS": "h:1234", "JAX_NUM_PROCESSES": "4",
+                                "JAX_PROCESS_ID": "0", "WORLD_SIZE": "2",
+                                "RANK": "1"}) == dict(addr="h:1234", world=4, rank=0,
+                                                      local_rank=0)
     with pytest.raises(ValueError, match="world size and the rank"):
         mesh.rendezvous_env({"JAX_COORDINATOR_ADDRESS": "h:1"})

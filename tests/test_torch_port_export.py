@@ -2,8 +2,10 @@
 op s3f::vit_block_fwd (opcheck, and kept as one node of an exported program),
 the flagship, a group_embed VoxelViT and a ViP-3D model exported, saved and
 loaded in a fresh process that imports no model code, their logits against the
-eager Predictor's; a point model's export raises, naming the first kernel it
-reaches; a card artifact is refused where no card is visible.
+eager Predictor's; a forward that reaches the training-only kernel (the
+residual-saving bf16 vector attention) raises at export, naming it; a card
+artifact is refused where no card is visible. The point models' exports are
+tests/test_torch_port_export_points.py.
 
 On the CPU a block runs its plain modules, so the voxel programs hold no op
 node here (on the card each block is the op: chip_smoke.py phase 23 checks
@@ -21,7 +23,7 @@ import pytest
 import torch
 
 from simple3dformer_tpu_torch.kernels import vit_block as vb
-from simple3dformer_tpu_torch.models import point_vit as ppv
+from simple3dformer_tpu_torch.models.hengshuang import PointTransformerCls
 from simple3dformer_tpu_torch.models import vip3d as pv
 from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT
 from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbed, VoxelEmbedNoAverage
@@ -90,6 +92,11 @@ class OneBlock(torch.nn.Module):
 
 
 MODELS = {"flagship": flagship, "group_embed": group_embed, "vip3d": vip3d}
+# what load_exported imports: the kernel modules that register the ops, no model code
+EXPORT_MODULES = ["simple3dformer_tpu_torch", "simple3dformer_tpu_torch.kernels",
+                  *(f"simple3dformer_tpu_torch.kernels.{m}" for m in (
+                      "build", "fps", "gather", "knn", "mhsa", "vector_attention", "vit_block")),
+                  "simple3dformer_tpu_torch.serve", "simple3dformer_tpu_torch.serve.predictor"]
 
 # the fresh process: load_exported on each artifact, its outputs, and the
 # modules of the port that it imported
@@ -147,9 +154,7 @@ def test_exported_program_matches_eager_in_a_fresh_process(exported, name):
 
 def test_loading_needs_no_model_code(exported):
     _, _, modules = exported
-    assert modules == ["simple3dformer_tpu_torch", "simple3dformer_tpu_torch.kernels",
-                       "simple3dformer_tpu_torch.kernels.vit_block",
-                       "simple3dformer_tpu_torch.serve", "simple3dformer_tpu_torch.serve.predictor"]
+    assert modules == EXPORT_MODULES
 
 
 def test_block_program_keeps_the_op():
@@ -183,11 +188,16 @@ def test_op_fake_checks_the_gate():
     assert torch.ops.s3f.vit_block_fwd(x[:, :5], ws, 2, torch.float32).shape == (B, 5, 128)
 
 
-def test_point_model_export_names_the_kernel(tmp_path):
-    pm = ppv.PointViT("3DViT_1_layer", "seg", 64, 50, input_dim=22, nneighbor=8, img_size=32)
-    predictor = Predictor(pm, (64, 22), device="cpu", batch_size=B, warmup=False)
-    with pytest.raises(RuntimeError, match="the fps kernel is not registered as a torch op"):
-        predictor.export(str(tmp_path / "point.pt2"))
+def test_point_model_export_names_the_kernel():
+    """Every forward that evaluation runs is an op; the training forward of the
+    bf16 vector attention (its residual-saving kernel) is not: exporting a
+    train-mode forward that records gradients raises, naming that kernel."""
+    pm = PointTransformerCls(64, 40, 6, nblocks=2, nneighbor=8, transformer_dim=64,
+                             dtype=torch.bfloat16).train()
+    x = torch.from_numpy(np.random.RandomState(5).rand(B, 64, 6).astype(np.float32))
+    with pytest.raises(RuntimeError, match="the gather_attention_resid_fwd kernel is not "
+                                           "registered as a torch op"):
+        torch.export.export(pm, (x,), strict=False)
 
 
 def test_card_artifact_is_refused_without_a_card(tmp_path):

@@ -2,7 +2,11 @@
 package's Checkpointer wrote after a JAX train step, converted into a port
 checkpoint, served by the port's Predictor.from_checkpoint with the JAX
 Predictor's logits, for the flagship VoxelViT (and read by the attention
-visualizer) and for a 3DViT partseg model with BatchNorm statistics."""
+visualizer, resumed by the trainer) and for a 3DViT partseg model with
+BatchNorm statistics and its SGD momentum, which loads into the port CLI's
+train state; flags that build another model or another optimizer are refused.
+tests/test_torch_port_jax_resume.py resumes a JAX run in the port under every
+optimizer form."""
 
 import importlib.util
 import pathlib
@@ -14,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from simple3dformer_tpu.cli import _common as jax_common
 from simple3dformer_tpu.cli import train_partseg as jax_partseg
 from simple3dformer_tpu.core.checkpoint import Checkpointer as JaxCheckpointer
 from simple3dformer_tpu.core.config import load_task_config as jax_task_config
@@ -24,13 +29,15 @@ from simple3dformer_tpu.serve.predictor import Predictor as JaxPredictor
 from simple3dformer_tpu.train import optim as jax_optim
 from simple3dformer_tpu.train.loop import (create_train_state, cross_entropy, make_train_step,
                                             seg_cross_entropy)
-from simple3dformer_tpu_torch.cli import visualize_attention_map_voxel
+from simple3dformer_tpu_torch.cli import _common as port_common
+from simple3dformer_tpu_torch.cli import train_cls_voxel, visualize_attention_map_voxel
 from simple3dformer_tpu_torch.core.checkpoint import Checkpointer
 from simple3dformer_tpu_torch.core.config import load_task_config
 from simple3dformer_tpu_torch.models.registry import make_point_model
 from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT
 from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbed
 from simple3dformer_tpu_torch.serve.predictor import Predictor
+from simple3dformer_tpu_torch.train.loop import TrainState
 
 SCRIPT = pathlib.Path(__file__).resolve().parent.parent / "scripts" / "jax_checkpoint_to_torch.py"
 LOGIT_ATOL = 1e-4  # as tests/test_torch_port_serve.py: 12 f32 blocks in another order
@@ -57,10 +64,10 @@ def script():
     return mod
 
 
-def jax_train_and_save(model, variables, batch, loss_fn, has_bn, ckpt_dir, metrics):
-    """One jitted JAX train step (Adam) from the init, saved at step 1 by the
-    JAX Checkpointer; -> the JAX state."""
-    tx = jax_optim.make_optimizer("Adam")
+def jax_train_and_save(model, variables, batch, loss_fn, has_bn, ckpt_dir, metrics, tx=None):
+    """One jitted JAX train step (``tx``, by default Adam) from the init, saved
+    at step 1 by the JAX Checkpointer; -> the JAX state."""
+    tx = tx or jax_optim.make_optimizer("Adam")
     state = create_train_state(variables["params"], tx, variables.get("batch_stats"))
     step = make_train_step(model, tx, loss_fn=loss_fn, has_batch_stats=has_bn, donate=False)
     state, _ = step(state, {k: jnp.asarray(v) for k, v in batch.items()}, 1e-3,
@@ -102,6 +109,15 @@ def test_flagship_checkpoint_serves_the_jax_logits(tmp_path):
         "--outf", str(tmp_path / "vis"), "--device", "cpu"])
     assert len(results) == 1 and np.isfinite(results[0][1]).all()
 
+    # the port's trainer resumes the run from it (parameters and Adam's moments)
+    best = train_cls_voxel.main([*VOXEL_FLAGS, "--model", str(tmp_path / "port"), "--synthetic",
+                                 "8", "--batchSize", "4", "--epochs", "1", "--lr", "1e-3",
+                                 "--device", "cpu", "--outf", str(tmp_path / "resumed")])
+    assert 0.0 <= best <= 1.0
+    resumed, _ = Checkpointer(str(tmp_path / "resumed" / "Voxel3D_2DPretrain" /
+                                  "VoxelEmbed_default" / BACKBONE / "ckpt")).restore()
+    assert resumed["step"] == 1 + 2  # the JAX step and two of B=4 on 8 samples
+
 
 @pytest.fixture(scope="module")
 def partseg_ckpt(tmp_path_factory):
@@ -117,8 +133,10 @@ def partseg_ckpt(tmp_path_factory):
            "y": rs.randint(0, 50, (4, 64)).astype(np.int32)}
     raw["x"][..., :3] = rs.rand(4, 64, 3)
     x, y = jax_partseg.make_prepare_fn()({k: jnp.asarray(v) for k, v in raw.items()})
+    # the optimizer the partseg flags build (the config's SGD): the script refuses another
     state = jax_train_and_save(jm, variables, {"x": np.asarray(x), "y": np.asarray(y)},
-                               seg_cross_entropy, True, str(d / "jax"), {"instance_avg_iou": 0.5})
+                               seg_cross_entropy, True, str(d / "jax"), {"instance_avg_iou": 0.5},
+                               jax_common.reference_optimizer(cfg)[0])
     return jm, state, np.asarray(x), d
 
 
@@ -146,3 +164,23 @@ def test_flags_that_build_another_model_are_refused(partseg_ckpt, tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         script().main([str(tmp_path / "empty"), str(tmp_path / "port"), "train_partseg",
                        *POINT_OVERRIDES])
+
+
+def test_flags_that_build_another_optimizer_are_refused(partseg_ckpt, tmp_path):
+    """The partseg run's SGD momentum is converted and loads into the train
+    state the port's partseg CLI builds; flags that build Adam are refused."""
+    _, state, _, d = partseg_ckpt
+    script().main([str(d / "jax"), str(tmp_path / "port"), "train_partseg", *POINT_OVERRIDES])
+    saved, _ = Checkpointer(str(tmp_path / "port")).restore()
+    assert set(saved["opt_state"]) == {"count", "trace"} and saved["opt_state"]["count"] == 1
+    pcfg = load_task_config("partseg", POINT_OVERRIDES)
+    pcfg.num_class, pcfg.input_dim = 50, 22
+    model = make_point_model(pcfg, task="seg")
+    optimizer, _ = port_common.reference_optimizer(pcfg, dict(model.named_parameters()))
+    run = TrainState(model, optimizer)
+    Checkpointer(str(tmp_path / "port")).restore_into(run)
+    assert run.step == int(state.step) == 1
+    with pytest.raises(ValueError, match=r"holds SGD's momentum \(trace\), but the flags build "
+                                         "Adam"):
+        script().main([str(d / "jax"), str(tmp_path / "adam"), "train_partseg",
+                       *POINT_OVERRIDES, "optimizer=Adam"])
