@@ -831,16 +831,16 @@ def attention_report(torch, label, b, n, d, heads, fwd, bwd, qkv, g_o) -> None:
           f"scaled_dot_product_attention f32 forward / backward ms: {lib}")
 
 
-def flagship_model(torch, device="cpu"):
+def flagship_model(torch, device="cpu", dtype=None):
     from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
     from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT
     from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbed
 
     g = generator(DEFAULT_SEED)
     emb = VoxelEmbed(voxel_size=VOXEL, cell_size=CELL, patch_size=PATCH, embed_dim=384,
-                     generator=g)
+                     generator=g, dtype=dtype)
     return VoxelViT(emb, n_classes=N_CLASSES, transformer_backbone=BACKBONE,
-                    generator=g).to(device)
+                    generator=g, dtype=dtype).to(device)
 
 
 def adam_check(torch):
@@ -3740,9 +3740,9 @@ def phase_vip3d(torch):
     print(f"ViP-3D and visualizers phase: {time.perf_counter() - t0:.1f} s")
 
 
-# Predictor.export: the flagship predictor (phase 4's, batch 32), a group_embed
-# model (phase 21's at batch GROUP_B), a ViP-3D model (phase 22's vip3d_s7 at
-# batch VIP_B), and the point models at their phases' shapes: the partseg 3DViT
+# Predictor.export: the flagship predictor (phase 4's, batch 32; its block op
+# is the one a group_embed model exports, and ViP-3D exports no op: both are
+# the CPU tests') and the point models at their phases' shapes: the partseg 3DViT
 # (phase 8, B=PB), 3DViT_s3dis (phase 10, deit_base, 1025 tokens, the mhsa op)
 # and Hengshuang cls in f32 (phase 12, the pre-gathered vector-attention op) and
 # bf16 (phase 14, the in-kernel-gather op), all exported on the card and loaded
@@ -3843,12 +3843,8 @@ def phase_export(torch):
 
     t0 = time.perf_counter()
     grids, _ = synthetic_voxels(BATCH, VOXEL, N_CLASSES, seed=11)
-    group_x = half_empty_grids(GROUP_B, seed=12).astype(np.float32)
-    vip_x = vip_grids(VIP_B, seed=13)[0].astype(np.float32)
     models = {"flagship": (flagship_model(torch, "cuda"), grids.astype(np.float32),
                            ("fused_vit_block",)),
-              "group_embed": (group_model(torch, "cuda"), group_x, ("fused_vit_block",)),
-              "vip3d": (vip_model(torch, "cuda"), vip_x, ()),
               **export_point_models(torch)}
     calls = {name: EXPORT_CALLS if name == "flagship" else POINT_EXPORT_CALLS
              for name in models}
@@ -3936,16 +3932,221 @@ DP_LOSS_TOL = dict(rtol=1e-4)
 DP_SGD_TOL = dict(rtol=2e-4, atol=2e-5)
 DP_ADAM_TOL = dict(rtol=0, atol=2 * DP_STEPS * DP_ADAM_LR)
 # the partseg model max-pools over neighbours after ReLUs: a rounding-level
-# difference (BatchNorm's sums, cuBLAS at another M) can move a max or a kink
-# and route a gradient elsewhere (the phase prints how far rounding alone
-# moves each leaf at world 1). So up
-# to 0.5% of a leaf's elements may leave DP_SGD_TOL, all within 1e-2 of the
-# leaf's largest value; the ranks' running statistics stay bit-equal (an
-# unsynced BatchNorm breaks that at once)
-DP_KINK_SHARE, DP_KINK_REL = 5e-3, 1e-2
+# difference (BatchNorm's sums, the gradients' sums) can move a max or a kink
+# and route a gradient elsewhere. Where a partseg element leaves DP_SGD_TOL,
+# the kink trace (DecisionTrace) must account for it: world 1 replaying
+# world 2's decisions holds every element to DP_SGD_TOL
 
 
-def dp_runs(torch, device, flagship: bool = True) -> dict:
+# The kink trace. A split batch sums BatchNorm's statistics, and the
+# gradients, in another order than one process; where a ReLU's input or the
+# gap between a max-pool's best two neighbours lies at rounding level, that
+# order decides where a gradient goes. DecisionTrace records every such
+# decision of a point model's train-mode forward, in call order (each
+# BatchNorm's output sign, which the ReLU after it keeps; after a set
+# abstraction's last BatchNorm the neighbour each channel's max picks; each
+# nn.ReLU's input sign), with the elements within KINK_NEAR of a kink or a
+# tie and their values in f32 and recomputed in f64 from the same f32 input
+# and the batch's statistics in f64. In replay it imposes recorded decisions
+# on a run: each sign flipped by negating the element (a change of its own
+# size, at rounding level), each max moved by raising the recorded
+# neighbour just above the max. A run at world 1 replaying the split run's
+# decisions is the split run's computation with the routing held equal, so
+# what is left between the two is the order of the sums alone.
+KINK_NEAR = 1e-4
+TINY = 1e-30
+
+
+class DecisionTrace:
+    def __init__(self, torch, model, replay: list | None = None):
+        from simple3dformer_tpu_torch.kernels import vector_attention as va
+        from simple3dformer_tpu_torch.nn.layers import BatchNorm
+        from simple3dformer_tpu_torch.nn.set_abstraction import PointNetSetAbstraction
+
+        self.torch, self.records, self.handles, self.replay, self.calls = torch, [], [], replay, 0
+        # the vector attention's ReLU after fc_gamma's hidden layer: recorded
+        # from the kernel's kept relu(hg); replayed through the plain chain
+        self.va, self.va_saved = va, (va.vector_attention_fwd, va.vector_attention)
+        if replay is None:
+            def record(*args, **kwargs):
+                return self.va_record(*args, **kwargs)
+
+            # the kernel wrapper counts its launches on the module's name
+            record.launches = 0
+            va.vector_attention_fwd = record
+        else:
+            va.vector_attention = self.va_replay
+        pooled = {id(m.mlp_bns[-1]) for m in model.modules()
+                  if isinstance(m, PointNetSetAbstraction)}
+        for name, m in model.named_modules():
+            if isinstance(m, BatchNorm):
+                self.handles.append(m.register_forward_hook(
+                    lambda mod, inp, out, name=name, pool=id(m) in pooled:
+                    self.bn(name, pool, mod, inp[0], out)))
+            elif isinstance(m, torch.nn.ReLU):
+                self.handles.append(m.register_forward_pre_hook(
+                    lambda mod, inp, name=name: self.relu(name, mod, inp[0])))
+
+    def flip(self, y, pos):
+        """y with the recorded signs ``pos``: a flipped element negated in value;
+        the gradient passes as through y itself (the ReLU after it decides)."""
+        torch = self.torch
+        want = torch.where(pos & (y <= 0), y.abs() + TINY, torch.where(~pos & (y > 0), -y, y))
+        return y + (want - y).detach()
+
+    def relu(self, name, mod, x):
+        if not mod.training:
+            return None
+        i, self.calls = self.calls, self.calls + 1
+        if self.replay is not None:
+            return (self.flip(x, self.replay[i]["sign"].to(x.device)),)
+        self.records.append({"name": name, "shape": tuple(x.shape),
+                             "sign": np.packbits(x.detach().gt(0).reshape(-1).cpu().numpy())})
+        return None
+
+    def bn(self, name, pool, mod, x, y):
+        torch = self.torch
+        from simple3dformer_tpu_torch.parallel import mesh
+
+        if not mod.training:
+            return None
+        i, self.calls = self.calls, self.calls + 1
+        if self.replay is not None:
+            rec = self.replay[i]
+            y = self.flip(y, rec["sign"].to(y.device))
+            if pool:
+                r = y.clamp_min(0)
+                mx = r.amax(2, keepdim=True)
+                chosen = torch.zeros_like(y, dtype=torch.bool).scatter_(
+                    2, rec["arg"].to(y.device).long()[:, :, None, :], True)
+                ties = (r == mx).sum(2, keepdim=True) > 1
+                need = (chosen & (rec["live"] & ~rec["tied"]).to(y.device)[:, :, None, :]
+                        & ((r < mx) | ties))
+                y = y + (torch.where(need, mx + mx.abs() * 1e-6 + TINY, y) - y).detach()
+            return y
+        x64 = x.detach().double().reshape(-1, x.shape[-1])
+        stats = torch.cat([x64.sum(0), (x64 * x64).sum(0), x64.new_full((1,), x64.shape[0])])
+        group, ranks = mesh.batch_stats_reduction()
+        if ranks > 1:
+            torch.distributed.all_reduce(stats, group=group)
+        c = x.shape[-1]
+        mean = stats[:c] / stats[-1]
+        var = torch.clamp_min(stats[c:2 * c] / stats[-1] - mean * mean, 0.0)
+        y64 = ((x.detach().double() - mean) * (torch.rsqrt(var + mod.eps) * mod.weight.double())
+               + mod.bias.double())
+        y = y.detach()
+        near = (y.abs() < KINK_NEAR).reshape(-1).nonzero().squeeze(1)
+        rec = {"name": name, "shape": tuple(y.shape),
+               "sign": np.packbits(y.gt(0).reshape(-1).cpu().numpy()),
+               "near": near.cpu(), "near_y": y.reshape(-1)[near].cpu(),
+               "near_y64": y64.reshape(-1)[near].cpu()}
+        if pool:  # relu, then the max over the neighbour axis (2)
+            r = y.clamp_min(0)
+            top = r.topk(2, dim=2)
+            # an exact tie keeps amax's split of the gradient: not replayed
+            rec.update(arg=top.indices[:, :, 0].to(torch.uint8).cpu(),
+                       live=(top.values[:, :, 0] > 0).cpu(),
+                       tied=(top.values[:, :, 0] == top.values[:, :, 1]).cpu())
+        self.records.append(rec)
+        return None
+
+    def va_record(self, q, k, v, rel, weights, save=False):
+        out, res = self.va_saved[0](q, k, v, rel, weights, save=save)
+        if save:  # a training forward
+            self.calls += 1
+            b, n, kk, d = k.shape
+            if q.is_cuda:  # the kernel's kept x = q - k + pos and relu(hg)
+                x, hg = res["x"].reshape(b, n, kk, d), res["hg"].reshape(b, n, kk, d)
+            else:  # the plain chain's own
+                chain = self.va._chain(q, k, v, rel, weights)
+                x, hg = chain[3], chain[5]
+            pre64 = torch_linear64(self.torch, x.detach(), weights["wg1"], weights["bg1"])
+            near = (pre64.abs() < KINK_NEAR).reshape(-1).nonzero().squeeze(1)
+            self.records.append({"name": "vector attention relu(fc_gamma hidden)",
+                                 "shape": (b, n, kk, d),
+                                 "sign": np.packbits(hg.detach().gt(0).reshape(-1).cpu().numpy()),
+                                 "near": near.cpu(), "near_y": pre64.reshape(-1)[near].float().cpu(),
+                                 "near_y64": pre64.reshape(-1)[near].cpu()})
+        return out, res
+
+    def va_replay(self, q, k, v, rel, w):
+        torch = self.torch
+        F = torch.nn.functional
+        i, self.calls = self.calls, self.calls + 1
+        pos = F.linear(torch.relu(F.linear(rel, w["wd1"], w["bd1"])), w["wd2"], w["bd2"])
+        x = q[:, :, None, :] - k + pos
+        hg = torch.relu(self.flip(F.linear(x, w["wg1"], w["bg1"]),
+                                  self.replay[i]["sign"].to(x.device)))
+        z = F.linear(hg, w["wg2"], w["bg2"]) / q.shape[-1] ** 0.5
+        return ((z - z.amax(2, keepdim=True)).softmax(2) * (v + pos)).sum(2)
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+        if self.replay is None:
+            self.va_saved[0].launches += self.va.vector_attention_fwd.launches
+        self.va.vector_attention_fwd, self.va.vector_attention = self.va_saved
+
+
+def torch_linear64(torch, x, w, b):
+    """x w^T + b in f64 from f32 operands."""
+    return torch.nn.functional.linear(x.double(), w.detach().double(), b.detach().double())
+
+
+def decisions(torch, rec: dict):
+    """A record's decisions as tensors: {"sign": bool [shape], "arg", "live"}."""
+    n = int(np.prod(rec["shape"]))
+    out = {"sign": torch.from_numpy(np.unpackbits(rec["sign"])[:n].astype(bool))
+           .reshape(rec["shape"])}
+    if "arg" in rec:
+        out.update(arg=rec["arg"], live=rec["live"], tied=rec["tied"])
+    return out
+
+
+def gathered_decisions(torch, ranks: list[list], axis: int) -> list:
+    """Every call's decisions of the split run laid together along the split
+    axis (0: the batch; 1: the points); a record of two dims under a point
+    split is the pooled features', equal on every rank."""
+    out = []
+    for recs in zip(*ranks):
+        parts = [decisions(torch, r) for r in recs]
+        ax = axis if axis == 0 or len(recs[0]["shape"]) > 2 else None
+        if ax is None:
+            out.append(parts[0])
+            continue
+        full = {"sign": torch.cat([p["sign"] for p in parts], ax)}
+        if "arg" in parts[0]:
+            full.update({k: torch.cat([p[k] for p in parts], ax) for k in ("arg", "live", "tied")})
+        out.append(full)
+    return out
+
+
+def kink_report(torch, world1: list, split: list) -> dict:
+    """World 1's decisions against the split run's (``split``: gathered
+    decisions, call for call): the ReLU signs and max-pool choices that
+    differ, the first call where one does, and the f32 and f64 values there."""
+    first, flips, moved, lines = None, 0, 0, []
+    for i, (w1, w2) in enumerate(zip(world1, split)):
+        d1 = decisions(torch, w1)
+        diff = (d1["sign"] != w2["sign"]).reshape(-1).nonzero().squeeze(1)
+        mv = 0
+        if "arg" in w1:
+            mv = int(((d1["arg"] != w2["arg"]) & (d1["live"] | w2["live"])).sum())
+        if len(diff) or mv:
+            flips, moved = flips + len(diff), moved + mv
+            first = first or (i, w1["name"])
+            near = dict(zip(w1.get("near", torch.zeros(0)).tolist(),
+                            zip(w1.get("near_y", torch.zeros(0)).tolist(),
+                                w1.get("near_y64", torch.zeros(0)).tolist())))
+            at = [f"{near[j][0]:.3e} (f64 {near[j][1]:.3e})" for j in diff[:4].tolist()
+                  if j in near]
+            lines.append(f"call {i} ({w1['name']}, {w1['shape']}): {len(diff)} ReLU signs differ "
+                         f"(world 1's values there, f32 and f64: {at}); {mv} maxes pick another "
+                         f"neighbour")
+    return {"first": first, "flips": flips, "moved_maxes": moved, "lines": lines}
+
+
+def dp_runs(torch, device, flagship: bool = True, replay: list | None = None) -> dict:
     """The port's data-parallel step functions (make_scanned_train_steps) on
     ``device`` at the world size of the process group (none: world 1), on the
     global batches of B=32: the flagship at full width, 3 steps of SGD, of
@@ -4009,8 +4210,10 @@ def dp_runs(torch, device, flagship: bool = True) -> dict:
     run = make_scanned_train_steps(wrapped.state, pds, seg_cross_entropy,
                                    augment_fn=lambda x: tp.seg_augment(aug, x),
                                    prepare_fn=tp.make_prepare_fn())
+    tracer = DecisionTrace(torch, model, replay)
     losses, ms = timed(run, idx, DP_SGD_LR)
-    out["partseg 3DViT"] = {"loss": losses, "ms": ms,
+    tracer.remove()
+    out["partseg 3DViT"] = {"loss": losses, "ms": ms, "trace": tracer.records,
                             "state": {k: v.cpu() for k, v in model.state_dict().items()}}
     return out
 
@@ -4125,9 +4328,26 @@ def dp_cli_world1(torch):
     return all_launches
 
 
-def dp_compare(torch, ranks: list[dict], world1: dict) -> None:
+def leaves_outside(torch, got: dict, want: dict, tol: dict) -> dict:
+    """{leaf: elements of ``got`` outside ``tol`` of ``want``}; integer leaves
+    must be equal (a count of -1 where they are not)."""
+    out = {}
+    for k, v in want.items():
+        if not v.is_floating_point():
+            if not torch.equal(got[k], v):
+                out[k] = -1
+            continue
+        off = int((~torch.isclose(got[k], v, rtol=tol["rtol"], atol=tol["atol"])).sum())
+        if off:
+            out[k] = off
+    return out
+
+
+def dp_compare(torch, ranks: list[dict], world1: dict, replayed: dict) -> None:
     """(b)'s checks: the ranks bit-equal to each other, ZeRO-1 bit-equal to
-    replicated Adam, each run within its tolerances of world 1."""
+    replicated Adam, each run within its tolerances of world 1; where a
+    partseg element is not, within them of world 1 replaying world 2's
+    kink decisions (``replayed``), every element."""
     for name, w1 in world1.items():
         r0, r1 = (r[name] for r in ranks)
         same = torch.equal(r0["loss"], r1["loss"]) and all(
@@ -4147,29 +4367,19 @@ def dp_compare(torch, ranks: list[dict], world1: dict) -> None:
         if not same:
             raise AssertionError(f"data parallel (b) {name}: the ranks differ")
         np.testing.assert_allclose(r0["loss"].numpy(), w1["loss"].numpy(), **DP_LOSS_TOL)
-        kinks = name.startswith("partseg")
-        outside = {}
-        for k, v in w1["state"].items():
-            got = r0["state"][k]
-            if not v.is_floating_point():
-                if not torch.equal(got, v):
-                    raise AssertionError(f"data parallel (b) {name}: {k}")
-                continue
-            off = ~torch.isclose(got, v, rtol=tol["rtol"], atol=tol["atol"])
-            if not kinks and off.any():
-                np.testing.assert_allclose(got.numpy(), v.numpy(), **tol,
-                                           err_msg=f"data parallel (b) {name}: {k}")
-            if off.any():
-                outside[k] = int(off.sum())
-                worst = float((got - v).abs().max()) / max(float(v.abs().max()), 1e-30)
-                if off.float().mean() > DP_KINK_SHARE or worst > DP_KINK_REL:
-                    raise AssertionError(f"data parallel (b) {name}: {k}: {outside[k]} of "
-                                         f"{v.numel()} outside {tol}, worst {worst:.3e} of "
-                                         f"the leaf's largest")
-        if kinks:
-            print(f"data parallel (b) {name}: elements outside {tol} by leaf {outside} (at "
-                  f"most {DP_KINK_SHARE:.1%} of a leaf, each within {DP_KINK_REL} of its "
-                  f"largest value)")
+        outside = leaves_outside(torch, r0["state"], w1["state"], tol)
+        if outside and name in replayed:
+            # the elements outside must be the traced decisions' doing: world 1
+            # replaying world 2's decisions holds every element to the bound
+            again = leaves_outside(torch, r0["state"], replayed[name]["state"], tol)
+            print(f"data parallel (b) {name}: elements outside {tol} against world 1 by leaf "
+                  f"{outside}; against world 1 replaying world 2's ReLU signs and max-pool "
+                  f"choices {again or 'none'}")
+            if again:
+                raise AssertionError(f"data parallel (b) {name}: outside {tol} with world 2's "
+                                     f"decisions replayed: {again}")
+        elif outside:
+            raise AssertionError(f"data parallel (b) {name}: outside {tol}: {outside}")
     for r, res in enumerate(ranks):
         rep, zero = res["flagship Adam"], res["flagship ZeRO-1"]
         equal = torch.equal(rep["loss"], zero["loss"]) and all(
@@ -4268,30 +4478,16 @@ def phase_data_parallel(torch):
                     p.wait()
         ranks = [torch.load(os.path.join(case, f"rank{r}.pt"), weights_only=False)
                  for r in range(2)]
-    dp_compare(torch, ranks, world1)
-    # how far rounding alone moves the partseg leaves: world 1 again, BatchNorm's
-    # statistics by sums and a count (the formula of a split batch) not by means
-    from simple3dformer_tpu_torch.nn import layers
-
-    by_means = layers.current_split
-    layers.current_split = lambda: (2, 0)
-    try:
-        sums = dp_runs(torch, torch.device("cuda"), flagship=False)["partseg 3DViT"]
-    finally:
-        layers.current_split = by_means
-    want = world1["partseg 3DViT"]["state"]
-    moved, outside = {}, {}
-    for k, v in want.items():
-        if v.is_floating_point():
-            err = float((sums["state"][k] - v).abs().max())
-            if err > 1e-6:
-                moved[k] = f"{err:.3e} ({err / float(v.abs().max()):.3e} of the largest)"
-            off = int((~torch.isclose(sums["state"][k], v, **DP_SGD_TOL)).sum())
-            if off:
-                outside[k] = off
-    print(f"data parallel (b) partseg 3DViT at world 1, BatchNorm by sums against by means "
-          f"(rounding alone, 3 SGD steps): leaves moved by more than 1e-6, max abs err {moved}; "
-          f"elements outside {DP_SGD_TOL} by leaf {outside}")
+    split = gathered_decisions(torch, [r["partseg 3DViT"]["trace"] for r in ranks], 0)
+    kinks = kink_report(torch, world1["partseg 3DViT"]["trace"], split)
+    print(f"data parallel (b) partseg kink trace, world 2 against world 1 (3 steps, every "
+          f"BatchNorm and ReLU in call order): first difference {kinks['first']}; "
+          f"{kinks['flips']} ReLU signs and {kinks['moved_maxes']} max-pool choices differ")
+    for line in kinks["lines"][:12]:
+        print(f"  {line}")
+    replayed = {"partseg 3DViT": dp_runs(torch, torch.device("cuda"), flagship=False,
+                                         replay=split)["partseg 3DViT"]}
+    dp_compare(torch, ranks, world1, replayed)
     t2 = time.perf_counter()
     n = torch.cuda.device_count()
     if n > 1:
@@ -4301,6 +4497,562 @@ def phase_data_parallel(torch):
     print(f"data parallel: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
           f"(c) {time.perf_counter() - t2:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# model parallelism (phase 25): tensor, pipeline and sequence parallelism as
+# gloo ranks on the one card (NCCL takes one rank a card), each against one
+# process (world 1) on the same batches; over NCCL, one rank a card, where
+# the machine shows several cards (d)
+# ---------------------------------------------------------------------------
+
+MP_B, MP_STEPS, MP_LR = 32, 3, 0.01
+MP_LOSS_TOL = {"float32": dict(rtol=1e-4), "bfloat16": dict(rtol=2e-3)}
+MP_SGD_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_parallel.py:149's, f32
+# bf16: each leaf's SGD update (linear in its gradient) within the bf16 block
+# gradients' bound of the world-1 update's largest value
+MP_BF16_UPDATE_REL = 3e-2
+# (a) the TP layouts (n_data, n_model), the worlds that run them
+TP_LAYOUTS = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
+# (b) the flagship's 12 blocks in 4 stages of 3, 4 microbatches of 8
+PP_STAGES, PP_MICRO, PP_MB = 4, 4, 8
+PP_FWD_TOL, PP_GRAD_TOL = dict(rtol=2e-5, atol=2e-6), dict(rtol=5e-4, atol=5e-5)
+# (c) Hengshuang cls at BASELINE.json's third config, B=16 in f32, seq=2
+SP_B, SP_SEQ = 16, 2
+SP_LOSS_TOL, SP_TOL = dict(rtol=1e-5, atol=1e-6), dict(rtol=5e-4, atol=5e-5)
+TP_HALVES = ("vit_block_tp_attn_fwd", "vit_block_tp_mlp_fwd", "vit_block_tp_mlp_bwd",
+             "vit_block_tp_attn_bwd", "vit_block_tp_ln_bwd")
+# the TPU kernels each half cuts: the training forward and its backward
+TP_REPLACES = {"vit_block_tp_attn_fwd": 366, "vit_block_tp_mlp_fwd": 366,
+               "vit_block_tp_mlp_bwd": 477, "vit_block_tp_attn_bwd": 477,
+               "vit_block_tp_ln_bwd": 477}
+BLOCK_LEAVES = {"ln1_s": "norm1.weight", "ln1_b": "norm1.bias", "wqkv": "attn.qkv.weight",
+                "bqkv": "attn.qkv.bias", "wproj": "attn.proj.weight", "bproj": "attn.proj.bias",
+                "ln2_s": "norm2.weight", "ln2_b": "norm2.bias", "w1": "mlp.fc1.weight",
+                "b1": "mlp.fc1.bias", "w2": "mlp.fc2.weight", "b2": "mlp.fc2.bias"}
+
+
+def tp_rank_weights(torch, w: dict, heads: int, n_model: int, r: int) -> tuple[dict, int]:
+    """Model rank r's block weights (kernels/vit_block.WNAMES) by parallel/tp.py's
+    split, and its head count."""
+    from simple3dformer_tpu_torch.parallel.tp import head_split, shard_state
+
+    local = shard_state({f"b.{v}": w[k] for k, v in BLOCK_LEAVES.items()}, n_model, r, heads)
+    lo, hi = head_split(heads, n_model)[r]
+    return {k: local[f"b.{v}"].contiguous() for k, v in BLOCK_LEAVES.items()}, hi - lo
+
+
+def tp_halves_check(torch, b, n, d, heads, n_model, dtype, seed=0, device="cuda") -> dict:
+    """Every model rank's halves on the card against their plain versions from
+    the same inputs, on an f32 stream with ``dtype`` matmuls: forward outputs
+    within TOL's abs bound, gradients within GRAD_REL of each output's largest
+    value, each half bit-equal over two runs. Returns {half: (max abs error,
+    the error held: abs for the forward halves, of the largest value for the
+    backward)}."""
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    cdt = getattr(torch, dtype)
+    x, w = block_inputs(torch, b, n, d, torch.float32, seed, device)
+    rs = np.random.RandomState(seed + 1)
+    g = torch.from_numpy(rs.randn(b, n, d).astype(np.float32)).to(device)
+    dh, out = d // heads, dict.fromkeys(TP_HALVES, (0.0, 0.0))
+    for r in range(n_model):
+        wr, h = tp_rank_weights(torch, w, heads, n_model, r)
+        before = [getattr(vb, k).launches for k in TP_HALVES]
+        runs = []
+        for _ in range(2):
+            part, res = vb.vit_block_tp_attn_fwd(x, wr, h, dh, cdt)
+            h1 = x + (part + w["bproj"])
+            part2, a1 = vb.vit_block_tp_mlp_fwd(h1, wr, cdt)
+            gz2, gm = vb.vit_block_tp_mlp_bwd(g, h1, a1, wr, cdt)
+            gh1, g2 = vb.vit_block_tp_ln_bwd(gz2, h1, w["ln2_s"], g)
+            gz1, ga = vb.vit_block_tp_attn_bwd(x, gh1, res, wr, h, dh, cdt)
+            gx, g1 = vb.vit_block_tp_ln_bwd(gz1, x, w["ln1_s"], gh1)
+            runs.append({"attn_fwd": {"part": part, **res}, "mlp_fwd": {"part": part2, "a1": a1},
+                         "mlp_bwd": {"gz2": gz2, **gm}, "ln_bwd": {"gh1": gh1, "gx": gx,
+                                                                     **{f"s2{k}": v for k, v in
+                                                                        g2.items()},
+                                                                     **{f"s1{k}": v for k, v in
+                                                                        g1.items()}},
+                         "attn_bwd": {"gz1": gz1, **ga}})
+        torch.cuda.synchronize()
+        launched = [getattr(vb, k).launches - c for k, c in zip(TP_HALVES, before)]
+        if torch.device(device).type == "cuda" and launched != [2, 2, 2, 2, 4]:
+            raise AssertionError(f"TP halves launched {launched}, want 2 calls each (ln 4)")
+        a, bb = runs
+        for half in a:
+            for k in a[half]:
+                if not torch.equal(a[half][k], bb[half][k]):
+                    raise AssertionError(f"TP {half} rank {r}: {k} differs between two runs")
+        k0 = a
+        # each plain version from the kernels' own inputs: one half's error at a time
+        pp_, pres = vb.vit_block_tp_attn_fwd_reference(x, wr, h, dh, cdt)
+        h1 = x + (k0["attn_fwd"]["part"] + w["bproj"])
+        pm_, pa1 = vb.vit_block_tp_mlp_fwd_reference(h1, wr, cdt)
+        pz2, pgm = vb.vit_block_tp_mlp_bwd_reference(g, h1, k0["mlp_fwd"]["a1"], wr, cdt)
+        pgh1, pg2 = vb.vit_block_tp_ln_bwd_reference(k0["mlp_bwd"]["gz2"], h1, w["ln2_s"], g)
+        pz1, pga = vb.vit_block_tp_attn_bwd_reference(
+            x, k0["ln_bwd"]["gh1"], {q: k0["attn_fwd"][q] for q in vb.TP_ATTN_RES}, wr, h, dh,
+            cdt)
+        pgx, pg1 = vb.vit_block_tp_ln_bwd_reference(k0["attn_bwd"]["gz1"], x, w["ln1_s"],
+                                                    k0["ln_bwd"]["gh1"])
+        fwd_tol = TOL[dtype]["atol"]
+        checks = {  # (abs, relative) errors, the one held, its tolerance
+            "vit_block_tp_attn_fwd": (errors(k0["attn_fwd"], {"part": pp_, **pres}), 0, fwd_tol),
+            "vit_block_tp_mlp_fwd": (errors(k0["mlp_fwd"], {"part": pm_, "a1": pa1}), 0,
+                                     fwd_tol),
+            "vit_block_tp_mlp_bwd": (errors(k0["mlp_bwd"], {"gz2": pz2, **pgm}), 1,
+                                     GRAD_REL[dtype]),
+            "vit_block_tp_attn_bwd": (errors(k0["attn_bwd"], {"gz1": pz1, **pga}), 1,
+                                      GRAD_REL[dtype]),
+            "vit_block_tp_ln_bwd": (errors(k0["ln_bwd"], {
+                "gh1": pgh1, "gx": pgx, **{f"s2{k}": v for k, v in pg2.items()},
+                **{f"s1{k}": v for k, v in pg1.items()}}), 1, GRAD_REL["float32"])}
+        for half, (errs, which, tol) in checks.items():
+            err = errs[which]
+            out[half] = (max(out[half][0], errs[0]), max(out[half][1], err))
+            if err > tol:
+                raise AssertionError(f"TP {half} rank {r} of {n_model} ({dtype}): error "
+                                     f"{err:.3e} > {tol}")
+    return out
+
+
+def tp_half_report(torch, b, n, d, heads, n_model, iters=50) -> dict:
+    """Each half's time at model rank 0's shard (f32 matmuls): kernel and plain
+    version on the card in turns, the bound (bytes moved once, or its
+    products at the 3-pass TF32 rate); no single PyTorch call computes a half."""
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    x, w = block_inputs(torch, b, n, d, torch.float32, 0, "cuda")
+    g = torch.randn(b, n, d, generator=torch.Generator().manual_seed(2)).cuda()
+    wr, h = tp_rank_weights(torch, w, heads, n_model, 0)
+    dh, m = d // heads, b * n
+    dl, f = h * dh, wr["w1"].shape[0]
+    part, res = vb.vit_block_tp_attn_fwd(x, wr, h, dh)
+    h1 = x + (part + w["bproj"])
+    _, a1 = vb.vit_block_tp_mlp_fwd(h1, wr)
+    gz2, _ = vb.vit_block_tp_mlp_bwd(g, h1, a1, wr)
+    att = 4 * b * h * n * n * dh
+    calls = {
+        "vit_block_tp_attn_fwd": (lambda: vb.vit_block_tp_attn_fwd(x, wr, h, dh),
+                                  lambda: vb.vit_block_tp_attn_fwd_reference(x, wr, h, dh),
+                                  nbytes(x, *(wr[k] for k in vb.TP_ATTN), part, res),
+                                  2 * m * 3 * dl * d + att + 2 * m * d * dl),
+        "vit_block_tp_mlp_fwd": (lambda: vb.vit_block_tp_mlp_fwd(h1, wr),
+                                 lambda: vb.vit_block_tp_mlp_fwd_reference(h1, wr),
+                                 nbytes(h1, *(wr[k] for k in vb.TP_MLP), part, a1),
+                                 4 * m * f * d),
+        "vit_block_tp_mlp_bwd": (lambda: vb.vit_block_tp_mlp_bwd(g, h1, a1, wr),
+                                 lambda: vb.vit_block_tp_mlp_bwd_reference(g, h1, a1, wr),
+                                 nbytes(g, h1, a1, wr["w1"], wr["w2"], gz2) + 4 * (2 * f * d + f + d),
+                                 8 * m * f * d),
+        "vit_block_tp_attn_bwd": (lambda: vb.vit_block_tp_attn_bwd(x, g, res, wr, h, dh),
+                                  lambda: vb.vit_block_tp_attn_bwd_reference(x, g, res, wr, h,
+                                                                             dh),
+                                  nbytes(x, g, res, wr["wqkv"], wr["wproj"], part)
+                                  + 4 * (2 * 3 * dl * d + 3 * dl + d),
+                                  8 * m * dl * d + 2 * att),
+        "vit_block_tp_ln_bwd": (lambda: vb.vit_block_tp_ln_bwd(gz2, h1, w["ln2_s"], g),
+                                lambda: vb.vit_block_tp_ln_bwd_reference(gz2, h1, w["ln2_s"], g),
+                                nbytes(gz2, h1, g, part) + 4 * 3 * d, 12 * m * d)}
+    out = {}
+    for name, (kernel, plain, moved, flops) in calls.items():
+        ms, plain_ms = in_turns(torch, kernel, plain, iters)
+        bound_ms, bound_by = bound(moved, flops)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+    return out
+
+
+def mp_counters() -> dict:
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+
+    return {k: getattr(vb, k) for k in (*TP_HALVES, "fused_vit_block", "fused_vit_block_bwd",
+                                        "fused_vit_block_train_fwd",
+                                        "fused_vit_block_train_bwd")}
+
+
+def mp_tp_run(torch, device, n_data, n_model, dtype) -> dict:
+    """(a): the flagship's SGD steps on a (data, model) layout (none: world 1,
+    the unsplit model): losses, the full state after them (gathered), the
+    launches of the TP halves and of the whole-block kernels, ms a step."""
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
+    from simple3dformer_tpu_torch.parallel import mesh
+    from simple3dformer_tpu_torch.parallel.tp import TensorParallel, TPTrainState
+    from simple3dformer_tpu_torch.train.loop import TrainState, make_scanned_train_steps
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    grids, labels = synthetic_voxels(MP_STEPS * MP_B, VOXEL, N_CLASSES, seed=DEFAULT_SEED + 5)
+    ds = DeviceResidentDataset({"x": grids, "y": labels}, device)
+    idx = ds.put_indices(np.arange(MP_STEPS * MP_B).reshape(MP_STEPS, MP_B))
+    model = flagship_model(torch, device, None if dtype == "float32" else getattr(torch, dtype))
+    layout = None
+    if n_model:
+        layout = mesh.make_layout(n_data, n_model, "model")
+        tp = TensorParallel(model, layout)
+        ts = TPTrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"), tp)
+    else:
+        ts = TrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"))
+    counters = mp_counters()
+    with mesh.using_layout(layout):
+        run = make_scanned_train_steps(ts, ds)
+        torch.cuda.synchronize(device)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        loss = run(idx, MP_LR)["loss"].cpu()
+        ms = (time.perf_counter() - t0) / MP_STEPS * 1e3
+        launches = {k: c.launches for k, c in counters.items()}
+        state = ts.state_dict()["params"]
+    return {"loss": loss, "ms": ms, "launches": launches,
+            "state": {k: v.detach().cpu().clone() for k, v in state.items()},
+            "heads": [blk.tp.heads for blk in tp.blocks.values()] if n_model else None}
+
+
+def pp_inputs(torch, device):
+    """The 12 blocks' input: 32 token rows of the flagship's shape, from a seed."""
+    rs = np.random.RandomState(25)
+    return torch.from_numpy(rs.randn(PP_MICRO * PP_MB, 26, 384).astype(np.float32)).to(device)
+
+
+def mp_pp_run(torch, device, group=None, stage=0) -> dict:
+    """(b): the flagship's 12 blocks (train mode, the fused training kernels)
+    over 4 microbatches of 8: in 4 stages over ``group``, or (no group) one
+    after another on each microbatch. Outputs, each block's gradients of the
+    mean square, the training kernels' launches."""
+    from simple3dformer_tpu_torch.kernels import vit_block as vb
+    from simple3dformer_tpu_torch.parallel.pp import (pipeline_apply, run_stage, split_stages,
+                                                      to_microbatches)
+
+    blocks = list(flagship_model(torch, device).blocks)
+    for blk in blocks:
+        blk.train()
+    xs = to_microbatches(pp_inputs(torch, device), PP_MICRO)
+    ids = split_stages(list(range(len(blocks))), PP_STAGES)[stage] if group is not None \
+        else list(range(len(blocks)))
+    mine = [blocks[i] for i in ids]
+    params = [p for blk in mine for p in blk.parameters()]
+    vb.fused_vit_block_train_fwd.launches = vb.fused_vit_block_train_bwd.launches = 0
+    if group is not None:
+        out = pipeline_apply(mine, xs, group)
+    else:
+        out = torch.stack([run_stage(mine, x) for x in xs])
+    grads = torch.autograd.grad(out.square().mean(), params)
+    torch.cuda.synchronize(device)
+    launches = {"fused_vit_block_train_fwd": vb.fused_vit_block_train_fwd.launches,
+                "fused_vit_block_train_bwd": vb.fused_vit_block_train_bwd.launches}
+    it = iter(grads)
+    return {"out": out.detach().cpu(), "launches": launches, "ids": ids,
+            "grads": {i: {k: next(it).cpu() for k, _ in blocks[i].named_parameters()}
+                      for i in ids}}
+
+
+def mp_sp_run(torch, device, layout=None, replay: list | None = None) -> dict:
+    """(c): one SGD step of Hengshuang cls (D=512, 16 neighbours, N=1024 with
+    normals, B=16, f32), the points split over ``layout``'s seq ranks (none:
+    world 1). Loss, gradients, BatchNorm statistics, launches on this rank."""
+    from simple3dformer_tpu_torch.parallel import mesh
+    from simple3dformer_tpu_torch.parallel.sp import SequenceParallel
+    from simple3dformer_tpu_torch.train.loop import cross_entropy
+
+    ts = hengshuang_trainer(torch, device)
+    model = ts.model
+    rs = np.random.RandomState(27)
+    x = rs.randn(SP_B, 1024, 6).astype(np.float32)
+    x[..., :3] /= np.linalg.norm(x[..., :3], axis=-1).max(-1)[:, None, None]
+    x = torch.from_numpy(x).to(device)
+    y = torch.from_numpy(rs.randint(0, 40, SP_B)).to(device)
+    names, params = zip(*model.named_parameters())
+    counters = hengshuang_counters()
+    for c in counters.values():
+        c.launches = 0
+    model.train()
+    tracer = DecisionTrace(torch, model, replay)
+    with mesh.using_layout(layout):
+        net = SequenceParallel(model, layout) if layout is not None else model
+        loss = cross_entropy(net(x), y)
+        grads = mesh.average_gradients(list(torch.autograd.grad(loss, params)), list(params))
+    torch.cuda.synchronize(device)
+    tracer.remove()
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    state.update({f"grad {k}": g.cpu() for k, g in zip(names, grads)})
+    return {"loss": float(loss.detach()), "launches": launches, "state": state,
+            "trace": tracer.records}
+
+
+def mp_worker(case_dir: str) -> int:
+    """``chip_smoke.py --mp-worker DIR``: one gloo rank of phase 25 on the one
+    card (world 2: TP model=2 and SP seq=2; world 4: TP model=4 and data=2 x
+    model=2, PP stage=4); writes DIR/rank<r>.pt."""
+    import os
+
+    import torch
+
+    from simple3dformer_tpu_torch.parallel import mesh
+
+    if not mesh.multihost_init("cpu") or mesh.world_size() not in TP_LAYOUTS:
+        raise RuntimeError("the phase 25 worker needs a rendezvous of 2 or 4 ranks")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, world = torch.device("cuda", 0), mesh.world_size()
+    out = {}
+    for n_data, n_model in TP_LAYOUTS[world]:
+        for dtype in ("float32", "bfloat16"):
+            out[f"tp {n_data}x{n_model} {dtype}"] = mp_tp_run(torch, device, n_data, n_model,
+                                                            dtype)
+    if world == 2:
+        out["sp"] = mp_sp_run(torch, device, mesh.make_layout(1, SP_SEQ, "seq"))
+    else:
+        layout = mesh.make_layout(1, PP_STAGES, "stage")
+        with mesh.using_layout(layout):
+            out["pp"] = mp_pp_run(torch, device, layout.inner_group, layout.inner_rank)
+    out["staged"] = dict(mesh.STAGED)
+    torch.save(out, os.path.join(case_dir, f"rank{mesh.rank()}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mp_tp_compare(torch, name, got, want, dtype) -> None:
+    """(a)'s checks of one rank's run against world 1."""
+    np.testing.assert_allclose(got["loss"].numpy(), want["loss"].numpy(), **MP_LOSS_TOL[dtype],
+                               err_msg=f"model parallel (a) {name}: losses")
+    init = {k: v.cpu() for k, v in flagship_model(torch, "cpu").state_dict().items()}
+    worst = 0.0
+    for k, v in want["state"].items():
+        if dtype == "float32":
+            np.testing.assert_allclose(got["state"][k].numpy(), v.numpy(), **MP_SGD_TOL,
+                                       err_msg=f"model parallel (a) {name}: {k}")
+        else:
+            upd, ref = got["state"][k] - init[k], v - init[k]
+            rel = float((upd - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            if rel > MP_BF16_UPDATE_REL:
+                raise AssertionError(f"model parallel (a) {name}: {k} update off by {rel:.3e} "
+                                     f"of its largest")
+    return worst
+
+
+def phase_model_parallel(torch) -> dict:
+    """Phase 25: (a) TP, (b) PP, (c) SP as gloo ranks on the card against
+    world 1, the TP halves against their plain versions and timed; (d) TP and
+    PP over NCCL where the machine shows several cards. Returns the TP halves'
+    kernel-line entries (launches from the model=2 f32 run's rank 0)."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    max_abs = dict.fromkeys(TP_HALVES, 0.0)  # over the f32 checks, the timed dtype
+    for dtype in ("float32", "bfloat16"):
+        for n_model in (2, 4):
+            errs = tp_halves_check(torch, 32, 26, 384, 6, n_model, dtype, seed=n_model)
+            if dtype == "float32":
+                max_abs = {k: max(max_abs[k], errs[k][0]) for k in TP_HALVES}
+            print(f"model parallel (a) TP halves at B=32, N=26, D=384, 6 heads over "
+                  f"{n_model} ranks, {dtype} matmuls, against their plain versions (max error "
+                  f"by half: forward abs, backward of the largest value; each bit-equal over "
+                  f"two runs): " + ", ".join(f"{k} {v[1]:.3e} (abs {v[0]:.3e})"
+                                             for k, v in errs.items()))
+    report = tp_half_report(torch, 32, 26, 384, 6, 2)
+    smi = nvidia_smi()
+    for name, r in report.items():
+        print(f"model parallel (a) {name} at model rank 0 of 2 (3 heads, F=768), f32: "
+              f"{r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}) | {smi}")
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as case:
+        procs = {}
+        for world in TP_LAYOUTS:
+            port = free_port()
+            os.makedirs(os.path.join(case, f"w{world}"))
+            procs[world] = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker",
+                 os.path.join(case, f"w{world}")], env=launcher_env(world, r, port),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(world)]
+        device = torch.device("cuda")
+        world1 = {dtype: mp_tp_run(torch, device, 1, 0, dtype)
+                  for dtype in ("float32", "bfloat16")}
+        pp1 = mp_pp_run(torch, device)
+        sp1 = mp_sp_run(torch, device)
+        ranks = {}
+        try:
+            for world, ps in procs.items():
+                for r, p in enumerate(ps):
+                    out = p.communicate(timeout=600)[0]
+                    if p.returncode != 0:
+                        raise AssertionError(f"model parallel world {world} rank {r} failed:\n"
+                                             f"{out[-3000:]}")
+                ranks[world] = [torch.load(os.path.join(case, f"w{world}", f"rank{r}.pt"),
+                                           weights_only=False) for r in range(world)]
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+    t2 = time.perf_counter()
+    # (a) TP against world 1
+    blocks = 12
+    for world, layouts in TP_LAYOUTS.items():
+        for n_data, n_model in layouts:
+            for dtype in ("float32", "bfloat16"):
+                name = f"tp {n_data}x{n_model} {dtype}"
+                want = {"vit_block_tp_attn_fwd": blocks * MP_STEPS,
+                        "vit_block_tp_mlp_fwd": blocks * MP_STEPS,
+                        "vit_block_tp_mlp_bwd": blocks * MP_STEPS,
+                        "vit_block_tp_attn_bwd": blocks * MP_STEPS,
+                        "vit_block_tp_ln_bwd": 2 * blocks * MP_STEPS, "fused_vit_block": 0,
+                        "fused_vit_block_bwd": 0, "fused_vit_block_train_fwd": 0,
+                        "fused_vit_block_train_bwd": 0}
+                for r, res in enumerate(ranks[world]):
+                    got = res[name]
+                    worst = mp_tp_compare(torch, name, got, world1[dtype], dtype)
+                    if got["launches"] != want:
+                        raise AssertionError(f"model parallel (a) {name} rank {r}: launches "
+                                             f"{got['launches']}, want {want}")
+                    if r == 0:
+                        perr = max(float((got["state"][k] - v).abs().max())
+                                   for k, v in world1[dtype]["state"].items())
+                        print(f"model parallel (a) {name} (heads a block on the model ranks "
+                              f"{[rr[name]['heads'][0] for rr in ranks[world][:n_model]]}): "
+                              f"losses {got['loss'].tolist()} vs world 1 "
+                              f"{world1[dtype]['loss'].tolist()}; parameters max abs err "
+                              f"{perr:.3e}" + (f", bf16 updates {worst:.3e} of their largest"
+                                               if dtype != "float32" else "") +
+                              f"; launches a rank {got['launches']}; {got['ms']:.1f} ms a "
+                              f"step over gloo host copies (no speed is claimed), world 1 "
+                              f"{world1[dtype]['ms']:.1f} ms")
+    # (b) PP against the sequential stack
+    pp_ranks = [r["pp"] for r in ranks[4]]
+    for r, res in enumerate(pp_ranks):
+        np.testing.assert_allclose(res["out"].numpy(), pp1["out"].numpy(), **PP_FWD_TOL,
+                                   err_msg=f"model parallel (b) stage {r}: outputs")
+        for i, grads in res["grads"].items():
+            for k, v in grads.items():
+                np.testing.assert_allclose(v.numpy(), pp1["grads"][i][k].numpy(), **PP_GRAD_TOL,
+                                           err_msg=f"model parallel (b) block {i}: {k}")
+        want = {k: 3 * PP_MICRO for k in res["launches"]}
+        if res["launches"] != want:
+            raise AssertionError(f"model parallel (b) stage {r}: launches {res['launches']}")
+    out_err = max(float((res["out"] - pp1["out"]).abs().max()) for res in pp_ranks)
+    print(f"model parallel (b) PP: 12 blocks in {PP_STAGES} stages of 3, {PP_MICRO} microbatches "
+          f"of {PP_MB}: outputs max abs err {out_err:.3e} against the sequential stack, every "
+          f"block's gradients within {PP_GRAD_TOL}; training-kernel launches a stage "
+          f"{[res['launches'] for res in pp_ranks]} (world 1: {pp1['launches']}); bubble "
+          f"ticks skip their block calls")
+    # (c) SP against world 1; where an element is outside, against world 1
+    # replaying the split run's kink decisions
+    sp_ranks = [r["sp"] for r in ranks[2]]
+    split = gathered_decisions(torch, [r["trace"] for r in sp_ranks], 1)
+    kinks = kink_report(torch, sp1["trace"], split)
+    print(f"model parallel (c) SP kink trace, seq={SP_SEQ} against world 1 (every BatchNorm and "
+          f"ReLU in call order): first difference {kinks['first']}; {kinks['flips']} ReLU "
+          f"signs and {kinks['moved_maxes']} max-pool choices differ")
+    for line in kinks["lines"][:12]:
+        print(f"  {line}")
+    replayed = None
+    for r, res in enumerate(sp_ranks):
+        np.testing.assert_allclose(res["loss"], sp1["loss"], **SP_LOSS_TOL,
+                                   err_msg="model parallel (c): loss")
+        outside = leaves_outside(torch, res["state"], sp1["state"], SP_TOL)
+        again = {}
+        if outside:
+            if replayed is None:
+                replayed = mp_sp_run(torch, torch.device("cuda"), replay=split)
+            again = leaves_outside(torch, res["state"], replayed["state"], SP_TOL)
+            if again:
+                raise AssertionError(f"model parallel (c) rank {r}: outside {SP_TOL} with the "
+                                     f"split run's decisions replayed: {again}")
+        gerr = max(float((res["state"][k] - v).abs().max()) for k, v in sp1["state"].items()
+                   if k.startswith("grad "))
+        print(f"model parallel (c) SP rank {r} of seq={SP_SEQ}: loss {res['loss']:.6f} vs world 1 "
+              f"{sp1['loss']:.6f}; gradients max abs err {gerr:.3e}; gradients and BatchNorm "
+              f"statistics outside {SP_TOL} by leaf {outside or 'none'}"
+              + (f", with the split run's decisions replayed {again or 'none'}" if outside
+                 else "") + f"; launches {res['launches']} (world 1: {sp1['launches']})")
+    staged = {w: [r["staged"] for r in rs] for w, rs in ranks.items()}
+    print(f"model parallel: gloo all-gathers and ring shifts staged through host memory "
+          f"(calls, bytes by rank): {staged}")
+    t3 = time.perf_counter()
+    n = torch.cuda.device_count()
+    if n > 1:
+        mp_cards(torch, min(n, 4))
+    else:
+        print("model parallel (d): the machine shows one card; TP and PP over NCCL need several")
+    print(f"model parallel: halves {t1 - t0:.1f} s, ranks and world 1 {t2 - t1:.1f} s, "
+          f"checks {t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
+    launches = ranks[2][0]["tp 1x2 float32"]["launches"]
+    return {name: dict(launches=launches[name], max_abs_err=max_abs[name], **report[name])
+            for name in TP_HALVES}
+
+
+def mp_cards_worker(case_dir: str) -> int:
+    """``chip_smoke.py --mp-cards-worker DIR``: one NCCL rank a card of (d):
+    TP model=n on the flagship (f32, 3 SGD steps) and PP stage=n over the
+    12 blocks; writes DIR/rank<r>.pt."""
+    import os
+
+    import torch
+
+    from simple3dformer_tpu_torch.parallel import mesh
+
+    mesh.multihost_init("cuda")
+    n = mesh.world_size()
+    device = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"tp": mp_tp_run(torch, device, 1, n, "float32")}
+    layout = mesh.make_layout(1, n, "stage")
+    with mesh.using_layout(layout):
+        out["pp"] = mp_pp_run(torch, device, layout.inner_group, layout.inner_rank)
+    torch.save(out, os.path.join(case_dir, f"rank{mesh.rank()}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mp_cards(torch, n: int) -> None:
+    """(d): TP model=n and PP stage=n, one NCCL rank a card, against world 1
+    on the first card."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as case:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-cards-worker",
+                                   case], env=launcher_env(n, r, port), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(n)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                raise AssertionError(f"model parallel (d) rank {r} failed:\n{out[-3000:]}")
+        ranks = [torch.load(os.path.join(case, f"rank{r}.pt"), weights_only=False)
+                 for r in range(n)]
+        seconds = time.perf_counter() - t0
+    device = torch.device("cuda", 0)
+    w1 = mp_tp_run(torch, device, 1, 0, "float32")
+    pp1 = mp_pp_run(torch, device)
+    for r, res in enumerate(ranks):
+        mp_tp_compare(torch, f"(d) tp 1x{n} rank {r}", res["tp"], w1, "float32")
+        np.testing.assert_allclose(res["pp"]["out"].numpy(), pp1["out"].numpy(), **PP_FWD_TOL)
+        for i, grads in res["pp"]["grads"].items():
+            for k, v in grads.items():
+                np.testing.assert_allclose(v.numpy(), pp1["grads"][i][k].numpy(), **PP_GRAD_TOL,
+                                           err_msg=f"model parallel (d) block {i}: {k}")
+    print(f"model parallel (d): TP model={n} and PP stage={n} over NCCL, one rank a card, "
+          f"{seconds:.1f} s: TP losses {ranks[0]['tp']['loss'].tolist()} vs world 1 "
+          f"{w1['loss'].tolist()}, parameters within {MP_SGD_TOL}; TP launches a rank "
+          f"{ranks[0]['tp']['launches']}; PP outputs and gradients within the sequential "
+          f"stack's bounds; PP launches by stage {[r['pp']['launches'] for r in ranks]}")
 
 
 def main() -> int:
@@ -4349,6 +5101,7 @@ def main() -> int:
         phase_vip3d(torch)
         export_launches = phase_export(torch)
         phase_data_parallel(torch)
+        mp_report = phase_model_parallel(torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -4402,6 +5155,18 @@ def main() -> int:
                             source="simple3dformer_tpu_torch/csrc/vector_attention.cu",
                             replaces=f"simple3dformer_tpu/kernels/vector_attention.py:{line}",
                             launches=path[name], **vag_report[name]))
+    # the tensor-parallel halves of rows 1-4 (phase 25 (a))
+    for name in TP_HALVES:
+        kernels.append(dict(name=name, route="cuda", source=block_src,
+                            replaces=f"simple3dformer_tpu/kernels/vit_block.py:{TP_REPLACES[name]}",
+                            **mp_report[name]))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    missing = [(k.get("name"), key) for k in kernels for key in keys if key not in k]
+    if missing or any(not k["launches"] for k in kernels):
+        print(f"chip_smoke: the kernels line lacks {missing} or a kernel never launched",
+              file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4412,4 +5177,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mp-worker"]:
+        sys.exit(mp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mp-cards-worker"]:
+        sys.exit(mp_cards_worker(sys.argv[2]))
     sys.exit(main())

@@ -1260,6 +1260,211 @@ cudaError_t vit_block_bwd(const T* x, const T* g, T* gx, int B, int N, int D, in
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-parallel halves: the chains above cut where the sums over the model
+// ranks fall (Megatron's column- then row-parallel pair). A rank holds H of
+// the heads (DL = H * DH columns of each of q, k and v, and the same inputs of
+// proj) and F of fc1's outputs (fc2's inputs); D stays the model width. Every
+// activation is f32 [M, *], M = B * N token rows.
+//
+//   tp_attn_fwd  row_stats(x); qkv = LN1(x) Wqkv^T + bqkv [M, 3 DL]; the
+//                attention over the H heads; partial = o Wproj^T [M, D], no
+//                bias and no residual (the caller sums it over the ranks)
+//   tp_mlp_fwd   row_stats(h1); a1 = LN2(h1) W1^T + b1 [M, F], g1 =
+//                gelu(a1); partial = g1 W2^T [M, D], no bias, no residual
+//   tp_mlp_bwd   g_a1 = (g_y W2) gelu'(a1); dW2, db2; partial g_z2 = g_a1 W1;
+//                dW1, db1
+//   tp_attn_bwd  g_o = g_h1 Wproj; dWproj, dbproj; the attention backward;
+//                partial g_z1 = g_qkv Wqkv; dWqkv, dbqkv
+//   tp_ln_bwd    the LayerNorm backward with its residual, once the partial
+//                is summed: out = res + LN'(g_z), and LN's weight gradients
+//
+// The GEMMs, the attention kernels and the row kernels are the whole block's,
+// so a rank with all the heads and all of fc1 computes the whole block's
+// numbers but for where the bias and the residual are added.
+// ---------------------------------------------------------------------------
+
+size_t tp_attn_fwd_floats(int M, int D, int DL) {
+  return std::max(row_partial_floats(M, 3 * DL, D), row_partial_floats(M, D, DL)) +
+         kMaxSplitTiles + 2 * static_cast<size_t>(M);
+}
+
+size_t tp_mlp_fwd_floats(int M, int D, int F) {
+  return static_cast<size_t>(M) * F +
+         std::max(row_partial_floats(M, F, D), row_partial_floats(M, D, F)) + kMaxSplitTiles +
+         2 * static_cast<size_t>(M);
+}
+
+size_t tp_mlp_bwd_floats(int M, int D, int F) {
+  return static_cast<size_t>(M) * F +
+         std::max({row_partial_floats(M, F, D), wgrad_partial_floats(M, D, F),
+                   row_partial_floats(M, D, F), wgrad_partial_floats(M, F, D)}) +
+         kMaxSplitTiles + 2 * static_cast<size_t>(M);
+}
+
+size_t tp_attn_bwd_floats(int B, int N, int D, int H, int DL, int cdt_bf16) {
+  const int M = B * N;
+  return 4 * static_cast<size_t>(M) * DL + aligned4(gs_floats(B, N, H, cdt_bf16)) +
+         std::max({row_partial_floats(M, DL, D), wgrad_partial_floats(M, D, DL),
+                   row_partial_floats(M, D, 3 * DL), wgrad_partial_floats(M, 3 * DL, D)}) +
+         kMaxSplitTiles + 2 * static_cast<size_t>(M);
+}
+
+template <class P>
+cudaError_t attention_of(int DH, const float* qkv, float* o, float* probs, int B, int N, int DL,
+                         int H, cudaStream_t s) {
+  constexpr bool ROUND = std::is_same<P, Bf16Mma>::value;
+  switch (DH) {
+    case 64: return launch_attention<64, ROUND>(qkv, o, probs, B, N, DL, H, s);
+    case 128: return launch_attention<128, ROUND>(qkv, o, probs, B, N, DL, H, s);
+    case 256: return launch_attention<256, ROUND>(qkv, o, probs, B, N, DL, H, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class P>
+cudaError_t attention_bwd_of(int DH, const float* qkv, const float* probs, const float* go,
+                             float* gs, float* gqkv, int B, int N, int DL, int H,
+                             cudaStream_t s) {
+  constexpr bool ROUND = std::is_same<P, Bf16Mma>::value;
+  switch (DH) {
+    case 64: return launch_attention_bwd<64, ROUND>(qkv, probs, go, gs, gqkv, B, N, DL, H, s);
+    case 128: return launch_attention_bwd<128, ROUND>(qkv, probs, go, gs, gqkv, B, N, DL, H, s);
+    case 256: return launch_attention_bwd<256, ROUND>(qkv, probs, go, gs, gqkv, B, N, DL, H, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// w: ln1_s, ln1_b, wqkv [3 DL, D], bqkv [3 DL], wproj [D, DL]
+template <class P>
+cudaError_t tp_attn_fwd(const float* x, float* out, int B, int N, int D, int H, int DH,
+                        const float* const* w, float* qkv, float* o, float* probs, float* work,
+                        cudaStream_t s) {
+  const int M = B * N, DL = H * DH;
+  float* partial = work;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(
+      partial + std::max(row_partial_floats(M, 3 * DL, D), row_partial_floats(M, D, DL)));
+  float* mean1 = reinterpret_cast<float*>(arrivals + kMaxSplitTiles);
+  float* rstd1 = mean1 + M;
+  S3F_TRY(row_stats(x, mean1, rstd1, M, D, s, arrivals, kMaxSplitTiles));
+  S3F_TRY((blk_gemm<P>(  // qkv = LN1(x) Wqkv^T + bqkv, the rank's heads
+      Rows<P, true, LnXf<false>>{x, D, M, {mean1, rstd1, w[0], w[1]}},
+      Rows<P, true>{w[2], D, 3 * DL}, OutBias{w[3], qkv, 3 * DL}, M, 3 * DL, D, partial,
+      arrivals, s)));
+  S3F_TRY(attention_of<P>(DH, qkv, o, probs, B, N, DL, H, s));
+  return blk_gemm<P>(  // partial = o Wproj^T over the rank's DL inputs
+      Rows<P, true>{o, DL, M}, Rows<P, true>{w[4], DL, D}, OutStore{out, D}, M, D, DL, partial,
+      arrivals, s);
+}
+
+// w: ln2_s, ln2_b, w1 [F, D], b1 [F], w2 [D, F]
+template <class P>
+cudaError_t tp_mlp_fwd(const float* h1, float* out, int B, int N, int D, int F,
+                       const float* const* w, float* a1, float* work, cudaStream_t s) {
+  const int M = B * N;
+  float* g1 = work;
+  float* partial = g1 + static_cast<size_t>(M) * F;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(
+      partial + std::max(row_partial_floats(M, F, D), row_partial_floats(M, D, F)));
+  float* mean2 = reinterpret_cast<float*>(arrivals + kMaxSplitTiles);
+  float* rstd2 = mean2 + M;
+  S3F_TRY(row_stats(h1, mean2, rstd2, M, D, s, arrivals, kMaxSplitTiles));
+  S3F_TRY((blk_gemm<P>(  // g1 = gelu(a1), a1 = LN2(h1) W1^T + b1, the rank's F columns
+      Rows<P, true, LnXf<false>>{h1, D, M, {mean2, rstd2, w[0], w[1]}},
+      Rows<P, true>{w[2], D, F}, OutBiasGelu{w[3], a1, g1, F}, M, F, D, partial, arrivals, s)));
+  return blk_gemm<P>(  // partial = g1 W2^T over the rank's F inputs
+      Rows<P, true>{g1, F, M}, Rows<P, true>{w[4], F, D}, OutStore{out, D}, M, D, F, partial,
+      arrivals, s);
+}
+
+// w: ln2_s, ln2_b, w1 [F, D], w2 [D, F]; gw: w1, b1, w2, b2
+template <class P>
+cudaError_t tp_mlp_bwd(const float* gy, const float* h1, const float* a1, float* gz2, int B,
+                       int N, int D, int F, const float* const* w, float* const* gw, float* work,
+                       cudaStream_t s) {
+  const int M = B * N;
+  float* ga1 = work;
+  float* partial = ga1 + static_cast<size_t>(M) * F;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(
+      partial + std::max({row_partial_floats(M, F, D), wgrad_partial_floats(M, D, F),
+                          row_partial_floats(M, D, F), wgrad_partial_floats(M, F, D)}));
+  float* mean2 = reinterpret_cast<float*>(arrivals + kMaxSplitTiles);
+  float* rstd2 = mean2 + M;
+  S3F_TRY(row_stats(h1, mean2, rstd2, M, D, s, arrivals, kMaxSplitTiles));
+  S3F_TRY((blk_gemm<P>(  // g_a1 = (g_y W2) gelu'(a1)
+      Rows<P, true>{gy, D, M}, Rows<P, false>{w[3], F, F}, OutGeluGrad{a1, ga1, F}, M, F, D,
+      partial, arrivals, s)));
+  S3F_TRY((blk_wgrad<P>(  // dW2 = g_y^T gelu(a1), db2
+      gy, Rows<P, false, GeluXf>{a1, F, F}, M, D, F, partial, arrivals, gw[2], gw[3], s)));
+  S3F_TRY((blk_gemm<P>(  // partial g_z2 = g_a1 W1
+      Rows<P, true>{ga1, F, M}, Rows<P, false>{w[2], D, D}, OutStore{gz2, D}, M, D, F, partial,
+      arrivals, s)));
+  return blk_wgrad<P>(  // dW1 = g_a1^T LN2(h1), db1
+      ga1, Rows<P, false, LnXf<true>>{h1, D, D, {mean2, rstd2, w[0], w[1]}}, M, F, D, partial,
+      arrivals, gw[0], gw[1], s);
+}
+
+// w: ln1_s, ln1_b, wqkv [3 DL, D], wproj [D, DL]; gw: wqkv, bqkv, wproj, bproj
+template <class P>
+cudaError_t tp_attn_bwd(const float* x, const float* gh1, const float* qkv, const float* o,
+                        const float* probs, float* gz1, int B, int N, int D, int H, int DH,
+                        const float* const* w, float* const* gw, float* work, cudaStream_t s) {
+  constexpr bool ROUND = std::is_same<P, Bf16Mma>::value;
+  const int M = B * N, DL = H * DH;
+  const size_t mdl = static_cast<size_t>(M) * DL;
+  float* go = work;
+  float* gqkv = go + mdl;
+  float* gs = gqkv + 3 * mdl;
+  float* partial = gs + aligned4(gs_floats(B, N, H, ROUND));
+  unsigned* arrivals = reinterpret_cast<unsigned*>(
+      partial + std::max({row_partial_floats(M, DL, D), wgrad_partial_floats(M, D, DL),
+                          row_partial_floats(M, D, 3 * DL), wgrad_partial_floats(M, 3 * DL, D)}));
+  float* mean1 = reinterpret_cast<float*>(arrivals + kMaxSplitTiles);
+  float* rstd1 = mean1 + M;
+  S3F_TRY(row_stats(x, mean1, rstd1, M, D, s, arrivals, kMaxSplitTiles));
+  S3F_TRY((blk_gemm<P>(  // g_o = g_h1 Wproj, the rank's DL columns
+      Rows<P, true>{gh1, D, M}, Rows<P, false>{w[3], DL, DL}, OutStore{go, DL}, M, DL, D,
+      partial, arrivals, s)));
+  S3F_TRY((blk_wgrad<P>(  // dWproj = g_h1^T o, dbproj
+      gh1, Rows<P, false>{o, DL, DL}, M, D, DL, partial, arrivals, gw[2], gw[3], s)));
+  S3F_TRY(attention_bwd_of<P>(DH, qkv, probs, go, gs, gqkv, B, N, DL, H, s));
+  S3F_TRY((blk_gemm<P>(  // partial g_z1 = g_qkv Wqkv
+      Rows<P, true>{gqkv, 3 * DL, M}, Rows<P, false>{w[2], D, D}, OutStore{gz1, D}, M, D, 3 * DL,
+      partial, arrivals, s)));
+  return blk_wgrad<P>(  // dWqkv = g_qkv^T LN1(x), dbqkv
+      gqkv, Rows<P, false, LnXf<true>>{x, D, D, {mean1, rstd1, w[0], w[1]}}, M, 3 * DL, D,
+      partial, arrivals, gw[0], gw[1], s);
+}
+
+// out = res + LN'(g_z) for the LayerNorm of X (statistics re-derived), and
+// the LayerNorm's weight gradients gs = sum g_z xhat, gb = sum g_z
+cudaError_t tp_ln_bwd(const float* gz, const float* X, const float* ln_s, const float* res,
+                      float* out, float* gs, float* gb, int M, int D, float* work,
+                      cudaStream_t s) {
+  float* mean = work;
+  float* rstd = mean + M;
+  S3F_TRY(row_stats(X, mean, rstd, M, D, s));
+  S3F_TRY(ln_grads(gz, X, mean, rstd, gs, gb, M, D, s));
+  const int row_blocks = (M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32);
+  ln_bwd_kernel<float><<<row_blocks, ROW_THREADS, 0, s>>>(gz, X, mean, rstd, ln_s, res, out, M, D);
+  return cudaGetLastError();
+}
+
+// the products' route P alone: Tf32x3 for an f32 compute dtype, Bf16Mma for bf16
+template <typename Fn>
+cudaError_t dispatch_route(int cdt_bf16, Fn&& fn) {
+  return cdt_bf16 ? fn(Bf16Mma{}) : fn(Tf32x3{});
+}
+
+bool bad_tp_shape(int B, int N, int D, int H, int DH) {
+  return B < 1 || N < 1 || N > kMaxN || H < 1 || D < 4 || D % 4 != 0 ||
+         (DH != 64 && DH != 128 && DH != 256);
+}
+
+bool bad_tp_mlp(int B, int N, int D, int F) {
+  return B < 1 || N < 1 || D < 4 || D % 4 != 0 || F < 4 || F % 4 != 0;
+}
+
 // Calls fn(T{}, P{}) for x's dtype T and the products' route P (Tf32x3 for an
 // f32 compute dtype, Bf16Mma for bf16).
 template <typename Fn>
@@ -1424,6 +1629,106 @@ int s3f_vit_block_bwd(const void* x, const void* g, void* gx, int x_bf16, int cd
     return vit_block_bwd<T, P>(xt, static_cast<const T*>(g), static_cast<T*>(gx), B, N, D, H, w,
                                r, gw, bwd, s);
   });
+}
+
+// Tensor-parallel halves (see "Tensor-parallel halves" above). Every
+// activation and output is f32, contiguous, 16-byte aligned; M = B * N.
+// H heads of DH (64, 128 or 256) a rank, DL = H * DH; F of fc1's outputs a
+// rank (a multiple of 4). weights / grads: f32, in the orders stated.
+
+// x [M, D] -> out [M, D] (the attention branch's partial sum, before bias and
+// residual); keeps qkv [M, 3 DL], o [M, DL] and probs [B, H, N, N].
+// weights: ln1_s, ln1_b, wqkv [3 DL, D], bqkv, wproj [D, DL].
+int s3f_vit_block_tp_attn_fwd(const void* x, void* out, int cdt_bf16, int B, int N, int D,
+                              int H, int DH, const void* const* weights, void* qkv, void* o,
+                              void* probs, void* scratch, void* stream) {
+  if (bad_tp_shape(B, N, D, H, DH)) return cudaErrorInvalidValue;
+  const float* const* w = reinterpret_cast<const float* const*>(weights);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch_route(cdt_bf16, [&](auto route) {
+    return tp_attn_fwd<decltype(route)>(
+        static_cast<const float*>(x), static_cast<float*>(out), B, N, D, H, DH, w,
+        static_cast<float*>(qkv), static_cast<float*>(o), static_cast<float*>(probs),
+        static_cast<float*>(scratch), s);
+  });
+}
+
+// h1 [M, D] -> out [M, D] (the MLP's partial sum, before bias and residual);
+// keeps a1 [M, F] where a1 is not null. weights: ln2_s, ln2_b, w1 [F, D],
+// b1, w2 [D, F].
+int s3f_vit_block_tp_mlp_fwd(const void* h1, void* out, int cdt_bf16, int B, int N, int D, int F,
+                             const void* const* weights, void* a1, void* scratch, void* stream) {
+  if (bad_tp_mlp(B, N, D, F)) return cudaErrorInvalidValue;
+  const float* const* w = reinterpret_cast<const float* const*>(weights);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch_route(cdt_bf16, [&](auto route) {
+    return tp_mlp_fwd<decltype(route)>(static_cast<const float*>(h1), static_cast<float*>(out), B,
+                                       N, D, F, w, static_cast<float*>(a1),
+                                       static_cast<float*>(scratch), s);
+  });
+}
+
+// g [M, D], h1, a1 [M, F] -> gz2 [M, D] (the partial g_z2); grads: w1, b1,
+// w2, b2 (overwritten). weights: ln2_s, ln2_b, w1, w2.
+int s3f_vit_block_tp_mlp_bwd(const void* g, const void* h1, const void* a1, void* gz2,
+                             int cdt_bf16, int B, int N, int D, int F, const void* const* weights,
+                             void* const* grads, void* scratch, void* stream) {
+  if (bad_tp_mlp(B, N, D, F)) return cudaErrorInvalidValue;
+  const float* const* w = reinterpret_cast<const float* const*>(weights);
+  float* const* gw = reinterpret_cast<float* const*>(grads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch_route(cdt_bf16, [&](auto route) {
+    return tp_mlp_bwd<decltype(route)>(static_cast<const float*>(g), static_cast<const float*>(h1),
+                                       static_cast<const float*>(a1), static_cast<float*>(gz2), B,
+                                       N, D, F, w, gw, static_cast<float*>(scratch), s);
+  });
+}
+
+// x, gh1 [M, D], the forward's qkv, o, probs -> gz1 [M, D] (the partial
+// g_z1); grads: wqkv, bqkv, wproj, bproj (overwritten). weights: ln1_s,
+// ln1_b, wqkv, wproj.
+int s3f_vit_block_tp_attn_bwd(const void* x, const void* gh1, const void* qkv, const void* o,
+                              const void* probs, void* gz1, int cdt_bf16, int B, int N, int D,
+                              int H, int DH, const void* const* weights, void* const* grads,
+                              void* scratch, void* stream) {
+  if (bad_tp_shape(B, N, D, H, DH)) return cudaErrorInvalidValue;
+  const float* const* w = reinterpret_cast<const float* const*>(weights);
+  float* const* gw = reinterpret_cast<float* const*>(grads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch_route(cdt_bf16, [&](auto route) {
+    return tp_attn_bwd<decltype(route)>(
+        static_cast<const float*>(x), static_cast<const float*>(gh1),
+        static_cast<const float*>(qkv), static_cast<const float*>(o),
+        static_cast<const float*>(probs), static_cast<float*>(gz1), B, N, D, H, DH, w, gw,
+        static_cast<float*>(scratch), s);
+  });
+}
+
+// out [M, D] = res + LN'(gz) for the LayerNorm of X [M, D] with scale ln_s;
+// gs, gb [D]: the LayerNorm's weight gradients.
+int s3f_vit_block_tp_ln_bwd(const void* gz, const void* X, const void* ln_s, const void* res,
+                            void* out, void* gs, void* gb, int M, int D, void* scratch,
+                            void* stream) {
+  if (M < 1 || D < 1) return cudaErrorInvalidValue;
+  return tp_ln_bwd(static_cast<const float*>(gz), static_cast<const float*>(X),
+                   static_cast<const float*>(ln_s), static_cast<const float*>(res),
+                   static_cast<float*>(out), static_cast<float*>(gs), static_cast<float*>(gb), M,
+                   D, static_cast<float*>(scratch), static_cast<cudaStream_t>(stream));
+}
+
+// f32 scratch of the halves: which 0 attention forward, 1 MLP forward, 2 MLP
+// backward, 3 attention backward, 4 LayerNorm backward; W is DL for the
+// attention halves, F for the MLP halves.
+long long s3f_vit_block_tp_scratch_floats(int which, int B, int N, int D, int H, int W,
+                                          int cdt_bf16) {
+  const int M = B * N;
+  switch (which) {
+    case 0: return static_cast<long long>(tp_attn_fwd_floats(M, D, W));
+    case 1: return static_cast<long long>(tp_mlp_fwd_floats(M, D, W));
+    case 2: return static_cast<long long>(tp_mlp_bwd_floats(M, D, W));
+    case 3: return static_cast<long long>(tp_attn_bwd_floats(B, N, D, H, W, cdt_bf16));
+    default: return 2LL * M;
+  }
 }
 
 }  // extern "C"

@@ -53,6 +53,17 @@ N=26, D=384) the products bound a call (2.98 GFLOP a forward), and M = 832
 rows make the GEMMs small, so launch latency weighs too. ``wgmma``, TMA and
 one persistent launch are later work.
 
+Tensor parallelism (parallel/tp.py) cuts the training chains where the sums
+over the model ranks fall: ``vit_block_tp_attn_fwd`` (LN1, the qkv GEMM over
+the rank's heads, their attention, the proj GEMM over their inputs: a partial
+sum without bias or residual), ``vit_block_tp_mlp_fwd`` (LN2, fc1 over the
+rank's columns with the GELU epilogue, fc2 over them), their backwards
+``vit_block_tp_mlp_bwd`` and ``vit_block_tp_attn_bwd`` (the partial input
+gradient of the LayerNorm's output, the local weight gradients and the whole
+bias's), and ``vit_block_tp_ln_bwd``, the LayerNorm backward with its
+residual once a partial is summed. The same kernels as the whole block's,
+with the model width D apart from a rank's H * dh and F.
+
 On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
 ``<wrapper>.launches`` (one per call, for the whole chain).
@@ -308,6 +319,17 @@ def _lib():
         fn.restype = ctypes.c_longlong
     lib.s3f_vit_block_gemm_grids.argtypes = [i32] * 3 + [ptr]
     lib.s3f_vit_block_gemm_grids.restype = None
+    lib.s3f_vit_block_tp_attn_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr] * 6
+    lib.s3f_vit_block_tp_mlp_fwd.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4
+    lib.s3f_vit_block_tp_mlp_bwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr] * 4
+    lib.s3f_vit_block_tp_attn_bwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] * 4
+    lib.s3f_vit_block_tp_ln_bwd.argtypes = [ptr] * 7 + [i32] * 2 + [ptr] * 2
+    for fn in (lib.s3f_vit_block_tp_attn_fwd, lib.s3f_vit_block_tp_mlp_fwd,
+               lib.s3f_vit_block_tp_mlp_bwd, lib.s3f_vit_block_tp_attn_bwd,
+               lib.s3f_vit_block_tp_ln_bwd):
+        fn.restype = ctypes.c_int
+    lib.s3f_vit_block_tp_scratch_floats.argtypes = [i32] * 7
+    lib.s3f_vit_block_tp_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -548,7 +570,292 @@ def fused_vit_block_train(x: torch.Tensor, weights: dict, heads: int,
     return _TrainBlock.apply(x, heads, cdt or x.dtype, *(weights[k] for k in WNAMES))
 
 
+# ---------------------------------------------------------------------------
+# Tensor-parallel halves (parallel/tp.py): the training chains cut at their
+# two reductions. A model rank holds ``heads`` of the heads (the rows of q, k
+# and v of those heads in wqkv / bqkv, the matching input columns of wproj)
+# and F of fc1's outputs (w1 / b1's rows, w2's columns); the LayerNorms,
+# bproj and b2 are whole. The halves return f32 partial sums without bias or
+# residual; the caller sums them over the model ranks and adds those.
+# ---------------------------------------------------------------------------
+
+TP_ATTN = ("ln1_s", "ln1_b", "wqkv", "bqkv", "wproj")
+TP_MLP = ("ln2_s", "ln2_b", "w1", "b1", "w2")
+TP_ATTN_RES = ("qkv", "o", "probs")
+
+
+def _ln_hat(x: torch.Tensor):
+    """(xhat, rstd) of the LayerNorm of x over its last dim."""
+    mu = x.mean(-1, keepdim=True)
+    xc = x - mu
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + EPS)
+    return xc * rstd, rstd
+
+
+def _dot(a, wt, cdt):
+    return torch.matmul(_operand(a, cdt), _operand(wt, cdt).transpose(-1, -2))
+
+
+def _flat(t):
+    """t as [rows, last] (explicit: a rank with no heads has a last dim of 0)."""
+    return t.reshape(t.numel() // t.shape[-1] if t.shape[-1] else t.shape[:-1].numel(),
+                     t.shape[-1])
+
+
+def _tdot(a, c, cdt):
+    return torch.matmul(_flat(_operand(a, cdt)).T, _flat(_operand(c, cdt)))
+
+
+def _rows(t):
+    return _flat(t).sum(0)
+
+
+def vit_block_tp_attn_fwd_reference(x: torch.Tensor, weights: dict, heads: int, head_dim: int,
+                                    cdt: torch.dtype | None = None):
+    """Plain attention half: (partial [B, N, D] f32 = o Wproj^T over this rank's
+    heads, residuals {qkv, o, probs}). A rank with no heads gives zeros."""
+    cdt = cdt or x.dtype
+    b, n, _ = x.shape
+    w = {k: weights[k].float() for k in TP_ATTN}
+    dl = heads * head_dim
+    qkv = _dot(_ln_parts(x.float(), w["ln1_s"], w["ln1_b"])[0], w["wqkv"], cdt) + w["bqkv"]
+    q, k, v = qkv.reshape(b, n, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(_operand(q, cdt), _operand(k, cdt).transpose(-1, -2)) * head_dim ** -0.5
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    o = torch.matmul(_operand(p, cdt), _operand(v, cdt)).transpose(1, 2).reshape(b, n, dl)
+    return _dot(o, w["wproj"], cdt), dict(qkv=qkv, o=o, probs=p)
+
+
+def vit_block_tp_mlp_fwd_reference(h1: torch.Tensor, weights: dict,
+                                   cdt: torch.dtype | None = None):
+    """Plain MLP half: (partial [B, N, D] f32 = gelu(a1) W2^T over this rank's
+    F columns, a1 [B, N, F] f32)."""
+    cdt = cdt or torch.float32
+    w = {k: weights[k].float() for k in TP_MLP}
+    a1 = _dot(_ln_parts(h1, w["ln2_s"], w["ln2_b"])[0], w["w1"], cdt) + w["b1"]
+    return _dot(_gelu_tanh(a1), w["w2"], cdt), a1
+
+
+def vit_block_tp_mlp_bwd_reference(g_y: torch.Tensor, h1: torch.Tensor, a1: torch.Tensor,
+                                   weights: dict, cdt: torch.dtype | None = None):
+    """Plain backward of the MLP half: (partial g_z2 [B, N, D] f32, gradients of
+    w1, b1, w2 and b2; b2's is the whole one, equal on every rank)."""
+    cdt = cdt or torch.float32
+    w = {k: weights[k].float() for k in TP_MLP}
+    g_y = g_y.float()
+    g_a1 = torch.matmul(_operand(g_y, cdt), _operand(w["w2"], cdt)) * _gelu_tanh_grad(a1)
+    z2 = _ln_parts(h1, w["ln2_s"], w["ln2_b"])[0]
+    gw = dict(w1=_tdot(g_a1, z2, cdt), b1=_rows(g_a1), w2=_tdot(g_y, _gelu_tanh(a1), cdt),
+              b2=_rows(g_y))
+    return torch.matmul(_operand(g_a1, cdt), _operand(w["w1"], cdt)), gw
+
+
+def vit_block_tp_attn_bwd_reference(x: torch.Tensor, g_h1: torch.Tensor, residuals: dict,
+                                    weights: dict, heads: int, head_dim: int,
+                                    cdt: torch.dtype | None = None):
+    """Plain backward of the attention half: (partial g_z1 [B, N, D] f32,
+    gradients of wqkv, bqkv, wproj and bproj; bproj's is the whole one)."""
+    cdt = cdt or x.dtype
+    b, n, _ = x.shape
+    dl = heads * head_dim
+    w = {k: weights[k].float() for k in TP_ATTN}
+    g_h1 = g_h1.float()
+    qkv, o, p = (residuals[k].float() for k in TP_ATTN_RES)
+    z1 = _ln_parts(x.float(), w["ln1_s"], w["ln1_b"])[0]
+    g_o = torch.matmul(_operand(g_h1, cdt), _operand(w["wproj"], cdt))
+    gw = dict(wproj=_tdot(g_h1, o, cdt), bproj=_rows(g_h1))
+    q, k, v = qkv.reshape(b, n, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
+    g_oh = g_o.reshape(b, n, heads, head_dim).transpose(1, 2)
+    op = functools.partial(_operand, cdt=cdt)
+    g_p = torch.matmul(op(g_oh), op(v).transpose(-1, -2))
+    g_v = torch.matmul(op(p).transpose(-1, -2), op(g_oh))
+    g_s = p * (g_p - (g_p * p).sum(-1, keepdim=True)) * head_dim ** -0.5
+    g_q = torch.matmul(op(g_s), op(k))
+    g_k = torch.matmul(op(g_s).transpose(-1, -2), op(q))
+    g_qkv = torch.stack([g_q, g_k, g_v]).permute(1, 3, 0, 2, 4).reshape(b, n, 3 * dl)
+    gw.update(wqkv=_tdot(g_qkv, z1, cdt), bqkv=_rows(g_qkv))
+    return torch.matmul(op(g_qkv), op(w["wqkv"])), gw
+
+
+def vit_block_tp_ln_bwd_reference(g_z: torch.Tensor, x: torch.Tensor, ln_s: torch.Tensor,
+                                  res: torch.Tensor):
+    """Plain LayerNorm backward once a partial is summed: (res + LN'(g_z) f32,
+    {"s", "b"}: the LayerNorm's scale and bias gradients)."""
+    xh, rstd = _ln_hat(x.float())
+    g_z = g_z.float()
+    return (res.float() + _ln_bwd(g_z, xh, rstd, ln_s.float()),
+            {"s": _rows(g_z * xh), "b": _rows(g_z)})
+
+
+def _tp_check(name: str, x: torch.Tensor, shapes: dict, weights: dict) -> None:
+    if x.dim() != 3 or x.dtype != torch.float32:
+        raise ValueError(f"{name}: activations must be float32 [B, N, D], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    for k, shape in shapes.items():
+        t = weights[k]
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name}: weight {k} must be float32 {shape} on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _tp_gate(name: str, n: int, heads: int, head_dim: int) -> None:
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"{name} kernel: sequence length {n} outside 1..{MAX_N}")
+    if heads < 1:
+        raise ValueError(f"{name} kernel: a model rank needs at least one head on the card "
+                         "(take a model degree no larger than the heads)")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel: head_dim {head_dim} not in {HEAD_DIMS}")
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return _aligned(t.float().contiguous())
+
+
+def _tp_scratch(which: int, b: int, n: int, d: int, heads: int, width: int, cdt, device):
+    floats = _lib().s3f_vit_block_tp_scratch_floats(which, b, n, d, heads, width,
+                                                    int(cdt == torch.bfloat16))
+    return torch.empty(floats, device=device, dtype=torch.float32)
+
+
+def vit_block_tp_attn_fwd(x: torch.Tensor, weights: dict, heads: int, head_dim: int,
+                          cdt: torch.dtype | None = None):
+    """Attention half of a tensor-parallel block: (partial f32 [B, N, D],
+    residuals {qkv, o, probs}); ``heads`` of ``head_dim`` on this rank."""
+    cdt = cdt or x.dtype
+    if _device_of(x, "vit_block_tp_attn_fwd") == "cpu":
+        return vit_block_tp_attn_fwd_reference(x, weights, heads, head_dim, cdt)
+    b, n, d = x.shape
+    dl = heads * head_dim
+    _tp_gate("vit_block_tp_attn_fwd", n, heads, head_dim)
+    x = _f32(x)
+    _tp_check("vit_block_tp_attn_fwd", x, dict(ln1_s=(d,), ln1_b=(d,), wqkv=(3 * dl, d),
+                                              bqkv=(3 * dl,), wproj=(d, dl)), weights)
+    ws = [_f32(weights[k]) for k in TP_ATTN]
+    out = torch.empty(b, n, d, device=x.device, dtype=torch.float32)
+    res = dict(qkv=x.new_empty(b, n, 3 * dl), o=x.new_empty(b, n, dl),
+               probs=x.new_empty(b, heads, n, n))
+    scratch = _tp_scratch(0, b, n, d, heads, dl, cdt, x.device)
+    _launch("vit_block_tp_attn_fwd", x, _lib().s3f_vit_block_tp_attn_fwd, x.data_ptr(),
+            out.data_ptr(), _flags(x, cdt)[1], b, n, d, heads, head_dim, _pointers(ws),
+            res["qkv"].data_ptr(), res["o"].data_ptr(), res["probs"].data_ptr(),
+            scratch.data_ptr())
+    vit_block_tp_attn_fwd.launches += 1
+    return out, res
+
+
+def vit_block_tp_mlp_fwd(h1: torch.Tensor, weights: dict, cdt: torch.dtype | None = None):
+    """MLP half of a tensor-parallel block: (partial f32 [B, N, D], a1 f32
+    [B, N, F]); h1 f32, F = this rank's fc1 outputs."""
+    cdt = cdt or torch.float32
+    if _device_of(h1, "vit_block_tp_mlp_fwd") == "cpu":
+        return vit_block_tp_mlp_fwd_reference(h1, weights, cdt)
+    b, n, d = h1.shape
+    f = weights["w1"].shape[0]
+    h1 = _f32(h1)
+    _tp_check("vit_block_tp_mlp_fwd", h1, dict(ln2_s=(d,), ln2_b=(d,), w1=(f, d), b1=(f,),
+                                               w2=(d, f)), weights)
+    ws = [_f32(weights[k]) for k in TP_MLP]
+    out = torch.empty(b, n, d, device=h1.device, dtype=torch.float32)
+    a1 = h1.new_empty(b, n, f)
+    scratch = _tp_scratch(1, b, n, d, 0, f, cdt, h1.device)
+    _launch("vit_block_tp_mlp_fwd", h1, _lib().s3f_vit_block_tp_mlp_fwd, h1.data_ptr(),
+            out.data_ptr(), _flags(h1, cdt)[1], b, n, d, f, _pointers(ws), a1.data_ptr(),
+            scratch.data_ptr())
+    vit_block_tp_mlp_fwd.launches += 1
+    return out, a1
+
+
+def vit_block_tp_mlp_bwd(g_y: torch.Tensor, h1: torch.Tensor, a1: torch.Tensor, weights: dict,
+                         cdt: torch.dtype | None = None):
+    """Backward of the MLP half: (partial g_z2 f32 [B, N, D], f32 gradients of
+    w1, b1, w2, b2)."""
+    cdt = cdt or torch.float32
+    if _device_of(h1, "vit_block_tp_mlp_bwd") == "cpu":
+        return vit_block_tp_mlp_bwd_reference(g_y, h1, a1, weights, cdt)
+    b, n, d = h1.shape
+    f = weights["w1"].shape[0]
+    g_y, h1, a1 = _f32(g_y), _f32(h1), _f32(a1)
+    _tp_check("vit_block_tp_mlp_bwd", h1, dict(ln2_s=(d,), ln2_b=(d,), w1=(f, d), w2=(d, f)),
+              weights)
+    if g_y.shape != h1.shape or a1.shape != (b, n, f):
+        raise ValueError(f"vit_block_tp_mlp_bwd: g {tuple(g_y.shape)} and a1 {tuple(a1.shape)} "
+                         f"do not match h1 {tuple(h1.shape)} and F={f}")
+    ws = [_f32(weights[k]) for k in ("ln2_s", "ln2_b", "w1", "w2")]
+    g_z2 = torch.empty_like(h1)
+    flat = h1.new_empty(2 * f * d + f + d)
+    grads = dict(zip(("w1", "w2", "b1", "b2"), flat.split([f * d, d * f, f, d])))
+    grads["w1"], grads["w2"] = grads["w1"].view(f, d), grads["w2"].view(d, f)
+    scratch = _tp_scratch(2, b, n, d, 0, f, cdt, h1.device)
+    _launch("vit_block_tp_mlp_bwd", h1, _lib().s3f_vit_block_tp_mlp_bwd, g_y.data_ptr(),
+            h1.data_ptr(), a1.data_ptr(), g_z2.data_ptr(), _flags(h1, cdt)[1], b, n, d, f,
+            _pointers(ws), _pointers(grads[k] for k in ("w1", "b1", "w2", "b2")),
+            scratch.data_ptr())
+    vit_block_tp_mlp_bwd.launches += 1
+    return g_z2, grads
+
+
+def vit_block_tp_attn_bwd(x: torch.Tensor, g_h1: torch.Tensor, residuals: dict, weights: dict,
+                          heads: int, head_dim: int, cdt: torch.dtype | None = None):
+    """Backward of the attention half: (partial g_z1 f32 [B, N, D], f32
+    gradients of wqkv, bqkv, wproj, bproj)."""
+    cdt = cdt or x.dtype
+    if _device_of(x, "vit_block_tp_attn_bwd") == "cpu":
+        return vit_block_tp_attn_bwd_reference(x, g_h1, residuals, weights, heads, head_dim, cdt)
+    b, n, d = x.shape
+    dl = heads * head_dim
+    _tp_gate("vit_block_tp_attn_bwd", n, heads, head_dim)
+    x, g_h1 = _f32(x), _f32(g_h1)
+    _tp_check("vit_block_tp_attn_bwd", x, dict(ln1_s=(d,), ln1_b=(d,), wqkv=(3 * dl, d),
+                                              wproj=(d, dl)), weights)
+    res = [_f32(residuals[k]) for k in TP_ATTN_RES]
+    want = dict(qkv=(b, n, 3 * dl), o=(b, n, dl), probs=(b, heads, n, n))
+    for k, t in zip(TP_ATTN_RES, res):
+        if tuple(t.shape) != want[k] or t.device != x.device:
+            raise ValueError(f"vit_block_tp_attn_bwd: residual {k} must be {want[k]} on {x.device}")
+    ws = [_f32(weights[k]) for k in ("ln1_s", "ln1_b", "wqkv", "wproj")]
+    g_z1 = torch.empty_like(x)
+    sizes = [3 * dl * d, 3 * dl, d * dl, d]
+    grads = dict(zip(("wqkv", "bqkv", "wproj", "bproj"), x.new_empty(sum(sizes)).split(sizes)))
+    grads["wqkv"], grads["wproj"] = grads["wqkv"].view(3 * dl, d), grads["wproj"].view(d, dl)
+    scratch = _tp_scratch(3, b, n, d, heads, dl, cdt, x.device)
+    _launch("vit_block_tp_attn_bwd", x, _lib().s3f_vit_block_tp_attn_bwd, x.data_ptr(),
+            g_h1.data_ptr(), *(t.data_ptr() for t in res), g_z1.data_ptr(),
+            _flags(x, cdt)[1], b, n, d, heads, head_dim, _pointers(ws),
+            _pointers(grads[k] for k in ("wqkv", "bqkv", "wproj", "bproj")), scratch.data_ptr())
+    vit_block_tp_attn_bwd.launches += 1
+    return g_z1, grads
+
+
+def vit_block_tp_ln_bwd(g_z: torch.Tensor, x: torch.Tensor, ln_s: torch.Tensor,
+                        res: torch.Tensor):
+    """res + LN'(g_z) for the LayerNorm of x, f32, and the LayerNorm's weight
+    gradients {"s", "b"}: the row kernel after a summed partial."""
+    if _device_of(x, "vit_block_tp_ln_bwd") == "cpu":
+        return vit_block_tp_ln_bwd_reference(g_z, x, ln_s, res)
+    g_z, x, ln_s, res = _f32(g_z), _f32(x), _f32(ln_s), _f32(res)
+    d = x.shape[-1]
+    m = x.numel() // d
+    if g_z.shape != x.shape or res.shape != x.shape or tuple(ln_s.shape) != (d,):
+        raise ValueError(f"vit_block_tp_ln_bwd: shapes {tuple(g_z.shape)}, {tuple(x.shape)}, "
+                         f"{tuple(res.shape)}, {tuple(ln_s.shape)} do not match")
+    out = torch.empty_like(x)
+    gs, gb = x.new_empty(2 * d).split([d, d])
+    scratch = _tp_scratch(4, m, 1, d, 0, 0, torch.float32, x.device)
+    _launch("vit_block_tp_ln_bwd", x, _lib().s3f_vit_block_tp_ln_bwd, g_z.data_ptr(),
+            x.data_ptr(), ln_s.data_ptr(), res.data_ptr(), out.data_ptr(), gs.data_ptr(),
+            gb.data_ptr(), m, d, scratch.data_ptr())
+    vit_block_tp_ln_bwd.launches += 1
+    return out, {"s": gs, "b": gb}
+
+
+TP_HALVES = (vit_block_tp_attn_fwd, vit_block_tp_mlp_fwd, vit_block_tp_mlp_bwd,
+             vit_block_tp_attn_bwd, vit_block_tp_ln_bwd)
+
 fused_vit_block.launches = 0
 fused_vit_block_bwd.launches = 0
 fused_vit_block_train_fwd.launches = 0
 fused_vit_block_train_bwd.launches = 0
+for _half in TP_HALVES:
+    _half.launches = 0

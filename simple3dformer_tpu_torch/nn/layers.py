@@ -33,7 +33,7 @@ from torch import nn
 
 from ..core import rng
 from ..core.rng import DeviceGenerators
-from ..parallel.mesh import all_reduce_sum, current_split
+from ..parallel.mesh import all_reduce_sum, batch_stats_reduction
 from ..kernels import mhsa as mhsa_kernel
 from ..kernels.vit_block import (fused_vit_block, fused_vit_block_train, records_grad,
                                  unsupported)
@@ -271,7 +271,9 @@ class Block(nn.Module):
       is the ``mhsa`` kernels where their gate takes the call and the plain
       products elsewhere (see ``Attention``).
 
-    On a CPU tensor the block runs the plain modules.
+    On a CPU tensor the block runs the plain modules. A block split over
+    model ranks (parallel/tp.py sets ``tp``) runs the same two routes on its
+    shards, on either device (the fused route's plain versions on the CPU).
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -290,6 +292,7 @@ class Block(nn.Module):
         self.drop_path = DropPath(drop_path, drop_path_seed)
         self.norm2 = LayerNorm(dim, eps=norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, **kw)
+        self.tp = None  # parallel/tp.TPBlock once the block is split over model ranks
 
     def fused_weights(self) -> dict[str, torch.Tensor]:
         """The kernel's twelve weights (kernels/vit_block.WNAMES), no copies."""
@@ -323,6 +326,8 @@ class Block(nn.Module):
         return "layered" if self.fused_unsupported(x, seg_len) else "fused"
 
     def forward(self, x, seg_len: int | None = None):
+        if self.tp is not None:
+            return self.tp(self, x, seg_len)
         if x.is_cuda and self.route(x, seg_len) == "fused":
             weights = self.fused_weights()
             if self.training and records_grad(x, weights):
@@ -374,11 +379,11 @@ class AMSoftmaxLayer(nn.Module):
         return (x / x_norm) @ (self.W / w_norm).to(x.dtype) * self.s
 
 
-def _global_moments(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean and flax's fast variance over every rank's [rows, C] f32."""
+def _global_moments(rows: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and flax's fast variance over the [rows, C] f32 of every rank of ``group``."""
     c = rows.shape[-1]
     stats = all_reduce_sum(torch.cat([rows.sum(0), (rows * rows).sum(0),
-                                      rows.new_full((1,), rows.shape[0])]))
+                                      rows.new_full((1,), rows.shape[0])]), group)
     mean = stats[:c] / stats[-1]
     return mean, torch.clamp_min(stats[c:2 * c] / stats[-1] - mean * mean, 0.0)
 
@@ -404,7 +409,9 @@ class BatchNorm(nn.Module):
     flax computes them on a sharded array: the f32 sum, the sum of squares
     and the count go through one differentiable all-reduce, then the same
     fast variance. Every rank gets the same numbers, so the running
-    statistics stay bit-equal across ranks.
+    statistics stay bit-equal across ranks. Under a ``seq`` layout
+    (parallel/sp.py) the sums run over data x seq: each rank holds part of
+    every cloud's points.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
@@ -423,8 +430,9 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             xf = x.float()
-            if current_split()[0] > 1:
-                mean, var = _global_moments(xf.reshape(-1, xf.shape[-1]))
+            group, ranks = batch_stats_reduction()
+            if ranks > 1:
+                mean, var = _global_moments(xf.reshape(-1, xf.shape[-1]), group)
             else:
                 axes = tuple(range(x.ndim - 1))
                 mean = xf.mean(axes)

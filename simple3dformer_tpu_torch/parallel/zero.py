@@ -31,7 +31,7 @@ import torch
 
 from ..kernels.adam import B1, B2, EPS, fused_adam
 from ..train.optim import Adam, scale_by_adam_bf16_nu
-from .mesh import all_gather_flat, rank, world_size
+from .mesh import all_gather_flat, data_rank, data_size
 
 
 class Zero1Adam(Adam):
@@ -52,9 +52,9 @@ class Zero1Adam(Adam):
                 raise TypeError(f"parameter {k} is {self.params[k].dtype}; Adam takes f32")
         self.sizes = [self.params[k].numel() for k in self.names]
         self.total = sum(self.sizes)
-        self.parts = world_size()
+        self.parts = data_size()
         self.shard = -(-self.total // self.parts)
-        self.lo = min(rank() * self.shard, self.total)
+        self.lo = min(data_rank() * self.shard, self.total)
         self.hi = min(self.lo + self.shard, self.total)
         # (name, a, b, offset): leaf elements a..b are part elements offset..
         self.pieces = []

@@ -42,8 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import (all_reduce_mean, all_reduce_sum, average_gradients,
-                             current_split, data_split, fetch_global, is_distributed,
-                             rank_columns)
+                             current_split, data_group, data_split, fetch_global,
+                             is_distributed, rank_columns)
 from .optim import SGD, Adam
 
 
@@ -83,7 +83,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     w = class_weights[labels.long()]
     parts = current_split()[0]
     if parts > 1:
-        return (w * ce).sum() * parts / all_reduce_sum(w.sum().detach())
+        return (w * ce).sum() * parts / all_reduce_sum(w.sum().detach(), data_group())
     return (w * ce).sum() / w.sum()
 
 

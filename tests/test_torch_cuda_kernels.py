@@ -15,11 +15,12 @@ import torch
 
 from chip_smoke import (FPS_SHAPES, GATHER_BWD_REL, GATHER_SHAPES, GRAD_REL, GROUP_BLOCK_SHAPES,
                         KERNEL_SHAPES, KNN_SHAPES, LWF_BLOCK_SHAPES, MHSA_REL, MHSA_SHAPES, TOL,
-                        TRAIN_SHAPES, VA_REL, VA_SHAPES,
+                        TP_HALVES, TRAIN_SHAPES, VA_REL, VA_SHAPES,
                         VAG_REL, VAG_RESID_REL, VAG_SHAPES, block_cdt_check, block_inputs,
                         errors, gather_check,
-                        gather_inputs, knn_check, knn_inputs, mhsa_inputs, rel_err, unit_cloud,
-                        va_err, va_inputs, vag_check, vag_inputs)
+                        gather_inputs, knn_check, knn_inputs, mhsa_inputs, rel_err,
+                        tp_halves_check, tp_rank_weights, unit_cloud, va_err, va_inputs,
+                        vag_check, vag_inputs)
 from simple3dformer_tpu_torch.kernels import mhsa as mk
 from simple3dformer_tpu_torch.kernels import vector_attention as va
 from simple3dformer_tpu_torch.kernels import vit_block as vb
@@ -575,3 +576,30 @@ def test_vip3d_train_step_on_the_card_matches_the_cpu(device, dtype):
     near = torch.cat([((updates["cuda"][k] - u).abs() <= lr / 10).flatten()
                       for k, u in updates["cpu"].items()])
     assert float(near.float().mean()) >= 0.99, float(near.float().mean())
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tp_halves_match_plain_and_repeat_bit_for_bit(device, n_model, dtype):
+    """The tensor-parallel halves of the block (attention and MLP forward and
+    backward, the LayerNorm backward after a sum) at the flagship's D=384 with
+    its 6 heads split 3, 3 and 2, 2, 1, 1, on every rank's shard, against their
+    plain versions at the block's tolerances, each twice bit-equal (the check
+    raises otherwise)."""
+    errs = tp_halves_check(torch, 32, 26, 384, 6, n_model, dtype, seed=n_model, device=device)
+    assert set(errs) == set(TP_HALVES) and all(len(e) == 2 for e in errs.values())
+
+
+def test_tp_halves_refuse_what_they_cannot_take(device):
+    """A rank with no heads (3 heads over 4) and a head_dim outside the
+    kernels' raise on the card; the plain version takes the empty rank."""
+    x, w = block_inputs(torch, 2, 26, 192, torch.float32, seed=0, device=device)
+    wr, h = tp_rank_weights(torch, w, 3, 4, 3)
+    assert h == 0
+    with pytest.raises(ValueError, match="at least one head"):
+        vb.vit_block_tp_attn_fwd(x, wr, h, 64)
+    part, _ = vb.vit_block_tp_attn_fwd(x.cpu(), {k: v.cpu() for k, v in wr.items()}, h, 64)
+    assert not part.any()
+    wr, h = tp_rank_weights(torch, w, 6, 2, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        vb.vit_block_tp_attn_fwd(x, wr, h, 32)

@@ -29,7 +29,9 @@ NEW_ENTRY_POINTS = ("models.vip3d", "cli.train_pure_mlp", "utils.attention_rollo
                     "cli.visualize_attention_map_voxel", "cli.visualize_point_cloud",
                     "utils.profiling", "core.logging_utils",
                     # data parallelism and ZeRO-1 over torch.distributed
-                    "parallel.mesh", "parallel.zero")
+                    "parallel.mesh", "parallel.zero",
+                    # tensor, pipeline and sequence parallelism
+                    "parallel.tp", "parallel.pp", "parallel.sp")
 
 
 def test_port_imports_no_jax():
