@@ -60,7 +60,8 @@ Phases, one line each (and a line per kernel shape):
               yardstick), and the kernels' TFLOP/s
  10. S3DIS    the 3DViT_s3dis semantic-segmentation model (deit_base, 3 heads,
               N=4096 points -> 1025 tokens, 13 classes, B=4, f32, SGD): the block
-              routes; 3 steps on the card against the CPU's plain path; the S3DIS
+              routes; 3 steps on the card against the CPU's plain path at
+              B=1; the S3DIS
               CLI on its synthetic stream (finite losses, epoch and eval lines,
               launch counts of every kernel of the path, no fused block); a
               learnability run (labels a function of the points); ms per step,
@@ -74,7 +75,7 @@ Phases, one line each (and a line per kernel shape):
               weight-gradient GEMMs) with TFLOP/s, every GEMM on the tensor-core
               core in 3-pass TF32
  12. Hengshuang  the Point Transformer cls model (D=512, 4 blocks, 16
-              neighbours, N=1024 with normals, 40 classes, f32, SGD): 3 steps on
+              neighbours, N=1024 with normals, 40 classes, f32, SGD): 2 steps on
               the card against the CPU's plain path at B=4; the train_cls CLI on
               its synthetic stream at B=64 (epoch and eval lines, a checkpoint, the
               resume, launch counts of every kernel of the path); a learnability
@@ -88,7 +89,7 @@ Phases, one line each (and a line per kernel shape):
               each call's device time by GEMM (the forwards' pos, hg, logits; the
               backwards' by kind) with TFLOP/s, every GEMM on the tensor-core
               core in bf16
- 14. Hengshuang bf16  the same model at dtype=bf16 (parameters f32): 3 steps on
+ 14. Hengshuang bf16  the same model at dtype=bf16 (parameters f32): 2 steps on
               the card against the CPU's plain path at B=4; the train_cls CLI at
               dtype=bf16 (its lines, a checkpoint, the resume, launch counts: the
               residual-saving pair in training, the forward in eval); a
@@ -101,14 +102,14 @@ Phases, one line each (and a line per kernel shape):
               launch counts of every kernel of the path
  17. Hengshuang segmentation  PointTransformerSeg (D=512, 4 blocks, 16
               neighbours) through the partseg CLI (B=16, N=1024) and the S3DIS
-              CLI (B=4, N=4096), each in f32 and at dtype=bf16: 3 steps on the
-              card against the CPU's plain path (B=2 and B=1), the CLI with the
+              CLI (B=4, N=4096), each in f32 and at dtype=bf16: 3 and 2 steps on
+              the card against the CPU's plain path (B=2 and B=1), the CLI with the
               launch counts of each vector-attention kernel, kNN, FPS and the
               gathers, ms a step and a profile by kernel and by kind
  18. 3DViT bf16  the fused block kernels on an f32 residual stream with bf16
               matmuls against their plain versions; partseg (fused bf16 blocks)
               and S3DIS (the mhsa kernels on bf16 q, k, v, no plain attention) at
-              dtype=bf16: 3 steps card vs CPU, the CLI with its launch counts, ms
+              dtype=bf16: 3 and 2 steps card vs CPU, the CLI with its launch counts, ms
               a step and a profile; the bf16 mhsa pair's device time a call
               beside scaled_dot_product_attention's at the S3DIS shape
  19. flagship bf16  the voxel CLI at --dtype bf16 with Adam's second moment
@@ -121,14 +122,14 @@ Phases, one line each (and a line per kernel shape):
               TransformerEncoderLayer and the device time by kernel, the
               attention's beside its bound and SDPA's; the device crop against
               the CPU's from the same boxes; train_partseg_lwf at full width (deit_small
-              3DViT_1_layer, B=32, N=1024, M=64 synthetic images): 3 steps card
+              3DViT_1_layer, B=32, N=1024, M=64 synthetic images): 2 steps card
               vs CPU, the CLI (the loss falls over 40 steps, a DeiT file loaded,
               launch counts a step from the model), ms a step and a profile;
               train_cls_voxel --lwf --pretrained at the flagship width (a DeiT
               file the phase writes loaded, the 2D leaves unchanged, launch
               counts, ms a step); the LwF student at dtype=bf16: its block calls
               (bf16 images, f32 points, bf16 matmuls) against their plain
-              versions, 3 steps card vs CPU, the CLI (the loss falls, launch
+              versions, 2 steps card vs CPU, the CLI (the loss falls, launch
               counts); model=3DViT_lwf (deit_base with 3 heads, 65 point tokens,
               a deit_base teacher) through the CLI in f32 and bf16 (launch
               counts); ms a step, samples/s, busy share and peak memory of the
@@ -142,14 +143,14 @@ Phases, one line each (and a line per kernel shape):
               SDPA's; the CLI in f32 and bf16 (epoch lines, launch counts, no
               plain attention); ms a step, samples/s, a profile, the device
               time by part (tokenizer, group encoder, stage 1 by kind, stage
-              2, Adam) and the peak memory; 3 steps card vs CPU at B=2 in each
+              2, Adam) and the peak memory; 2 steps card vs CPU at B=2 in each
               dtype, the group dropout off; a loss-falls run through the CLI
               on binvox grids with half the pillars empty; weight_sharing
               (ModelNet40, deit_small, bf16) and VoxelEmbed_Hybrid (128^3,
               deit_small) through the CLI for an epoch with launch counts
  22. ViP-3D and the visualizers  vip3d_s7 (VoxelEmbed_m40_vip_s7: ModelNet40's
               30^3 grids padded to 32^3, 40 classes, B=32, Adam, drop path 0.1)
-              in f32 and bf16: 3 steps card vs CPU with drop path off,
+              in f32 and bf16: 2 steps card vs CPU with drop path off,
               train_pure_mlp on a synthetic corpus on the card (the loss falls
               over 40 steps, the Adam kernel once a step), ms a step and
               samples/s over 50 steps, the busy share, the device time by kind,
@@ -180,7 +181,18 @@ Phases, one line each (and a line per kernel shape):
               within its tolerances of world 1 (times are gloo over host
               copies); (c) where the machine shows several cards,
               train_cls_voxel --zero1 with one NCCL rank a card
-Then a JSON line of the kernels, the nvidia-smi line, and as the last line
+ 25. model parallel  the TP halves of the block kernels against their plain
+              versions; TP, PP and SP on gloo ranks of the one card against
+              world 1; (d) TP and PP over NCCL where several cards show
+ 26. legacy voxel model and point modules  FeatureVoxel2DViT (32^3, deit_base
+              with 12 heads, 10 classes) behind Predictor and ModelServer,
+              logits against the CPU's plain path; 3 Adam steps card vs CPU
+              (losses, parameters, BatchNorm running statistics); ms a step at
+              B=32 with the device time by part; the two-layer head, bf16 and
+              128^3 routes; PointNet++ MSG (ball and kNN, k up to 128), RelPos
+              and PointEmbed forward and backward card vs CPU, launch counts
+Each phase ends with a line "phase <name>: <seconds> s". Then a JSON line of
+the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
 line. Without a card, or outside a checkout, it exits non-zero at once.
 """
@@ -1087,7 +1099,8 @@ FPS_SHAPES = [("partseg TD1", PB, PN, PN // 4), ("B=1", 1, PN, PN // 4),
               ("S3DIS 4096 -> 1024", 4, 4096, 1024), ("Hengshuang 1024 -> 256", 64, 1024, 256),
               ("Hengshuang 256 -> 64", 64, 256, 64), ("Hengshuang 64 -> 16", 64, 64, 16),
               ("Hengshuang 16 -> 4", 64, 16, 4), ("N=100", 3, 100, 40), ("N=2048", 2, 2048, 512),
-              ("N=8192", 1, 8192, 128), ("N=16384", 1, 16384, 64)]
+              ("N=8192", 1, 8192, 128), ("N=16384", 1, 16384, 64),
+              ("MSG and RelPos 1024 -> 512", PB, PN, 512)]  # phase 26
 FPS_TIMED = {"partseg TD1": 50, "S3DIS 4096 -> 1024": 5, "Hengshuang 1024 -> 256": 10}  # calls
 # (label, B, S queries, N points, k, duplicated points)
 KNN_SHAPES = [("TD0 k=16", PB, PN, PN, 16, False), ("TD1 k=16", PB, PN // 4, PN, 16, False),
@@ -1107,6 +1120,10 @@ KNN_SHAPES = [("TD0 k=16", PB, PN, PN, 16, False), ("TD1 k=16", PB, PN // 4, PN,
               ("S3DIS TU0 3-NN", 4, 4096, 1024, 3, False),
               ("S3DIS TU1 3-NN", 4, 4096, 4096, 3, False),
               ("k=32 N=3000", 2, 100, 3000, 32, False),
+              # past a warp's list (the sorting kernel): PointNet++ MSG's k=128
+              # (phase 26), with ties, k=33, and k=1024 over two buffer rounds
+              ("MSG k=128", PB, 512, PN, 128, False), ("ties k=128", 4, 512, PN, 128, True),
+              ("k=33 N=40", 2, 10, 40, 33, False), ("k=1024 N=5000", 2, 8, 5000, 1024, False),
               # Hengshuang segmentation: partseg (B=16, 1024 -> 4) and S3DIS
               # (B=4, 4096 -> 16) levels, transition-downs and 3-NN transition-ups
               # that the shapes above do not cover
@@ -1119,7 +1136,7 @@ KNN_SHAPES = [("TD0 k=16", PB, PN, PN, 16, False), ("TD1 k=16", PB, PN // 4, PN,
               ("S3DIS seg level 4 k=16", 4, 16, 16, 16, False),
               ("S3DIS seg TU 1024 <- 256", 4, 1024, 256, 3, False),
               ("S3DIS seg TU 64 <- 16", 4, 64, 16, 3, False)]
-KNN_TIMED = ("TD0 k=16", "S3DIS TD0 k=16", "Hengshuang level 0 k=16")
+KNN_TIMED = ("TD0 k=16", "S3DIS TD0 k=16", "Hengshuang level 0 k=16", "MSG k=128")
 # (label, B, N, R, C, dtype name, every row naming one point)
 GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32", False),
                  ("TD0 points C=48", PB, PN, PN * 16, 48, "float32", False),
@@ -1136,7 +1153,10 @@ GATHER_SHAPES = [("xyz C=3", PB, PN, PN * 16, 3, "float32", False),
                  ("partseg seg level 0 k/v C=512", PB, PN, PN * 16, 512, "float32", False),
                  ("S3DIS seg level 0 k/v C=512", 4, 4096, 4096 * 16, 512, "float32", False),
                  ("S3DIS seg TU 4096 <- 1024 C=32", 4, 1024, 4096 * 3, 32, "float32", False),
-                 ("partseg seg TU bf16 C=64", PB, 64, 256 * 3, 64, "bfloat16", False)]
+                 ("partseg seg TU bf16 C=64", PB, 64, 256 * 3, 64, "bfloat16", False),
+                 # phase 26: MSG's 128-neighbour normals, PointEmbed's 32-neighbour features
+                 ("MSG K=128 normals C=3", PB, PN, 512 * 128, 3, "float32", False),
+                 ("PointEmbed K=32 C=64", PB, PN, 512 * 32, 64, "float32", False)]
 # "one point named by every row" has gradients that are multiples of 2**-6, so
 # that its sums are exact in any order: the card's plain version adds by float
 # atomics in an order that changes from run to run, which with 16384 rows on
@@ -1625,6 +1645,14 @@ def phase_partseg(torch):
 # S3DIS semantic segmentation: the slice's main path (configs/semseg.yaml: 3DViT_s3dis on
 # deit_base with 3 heads, 4096 points of 9 features, 13 classes, batch 4, SGD at lr 0.5)
 SB, SN = 4, 4096
+# card-vs-CPU steps of the Hengshuang cls, LwF, group_embed and ViP-3D checks:
+# 2 (the step at equal weights and the one after an update), not 3; with
+# phase 10's B=1 and the S3DIS-shaped segmentation steps below, the depth
+# given up for phase 26 (their CPU sides took 5-25 s a step)
+CPU_PARITY_STEPS = 2
+# the card-vs-CPU steps at B=1, as phase 18's bf16 S3DIS steps (B=4 took 61 s
+# of the CPU: the depth given up for phase 26)
+S3DIS_PARITY_B = 1
 S3DIS_SAMPLES, S3DIS_EPOCHS = 16, 2  # 4 train steps and 4 eval batches an epoch
 # learnability: labels a function of the points (13 height bins of feature 2),
 # SGD at this lr (not the config's 0.5; see PERF.md)
@@ -1677,17 +1705,18 @@ def phase_s3dis(torch):
         raise AssertionError(f"block routes {routes}")
 
     # 3 steps on the card and on the CPU's plain path, same weights and batches
-    (xs, ys), _ = ts.load_arrays(s3dis_config(synthetic=3 * SB))
+    pb = S3DIS_PARITY_B
+    (xs, ys), _ = ts.load_arrays(s3dis_config(synthetic=3 * pb))
     losses, seconds = {}, {}
     for device in ("cuda", "cpu"):
         step = make_train_step(s3dis_trainer(torch, device), seg_cross_entropy)
         t0 = time.perf_counter()
-        losses[device] = [float(step({"x": torch.from_numpy(xs[i * SB:(i + 1) * SB]).to(device),
-                                      "y": torch.from_numpy(ys[i * SB:(i + 1) * SB]).to(device)},
+        losses[device] = [float(step({"x": torch.from_numpy(xs[i * pb:(i + 1) * pb]).to(device),
+                                      "y": torch.from_numpy(ys[i * pb:(i + 1) * pb]).to(device)},
                                      lr)["loss"]) for i in range(3)]
         seconds[device] = time.perf_counter() - t0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
-    print(f"S3DIS training: 3 steps at B={SB}, N={SN}, deit_base, lr {lr}: losses on the card "
+    print(f"S3DIS training: 3 steps at B={pb}, N={SN}, deit_base, lr {lr}: losses on the card "
           f"{losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol 1e-3); "
           f"{seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
 
@@ -2045,7 +2074,7 @@ def phase_hengshuang(torch, bf16=False):
 
     label, dtype = ("Hengshuang bf16", torch.bfloat16) if bf16 else ("Hengshuang", None)
     lr = 0.01  # the recipe's hard-coded SGD lr
-    # 3 steps on the card and on the CPU's plain path, same weights and batches
+    # steps on the card and on the CPU's plain path, same weights and batches
     xs, ys = synthetic_points(3 * H_PARITY_B, HN, 6, 40, seed=9)
     losses, seconds, logits = {}, {}, {}
     for device in ("cuda", "cpu"):
@@ -2059,9 +2088,11 @@ def phase_hengshuang(torch, bf16=False):
         losses[device] = [float(step({"x": torch.from_numpy(xs[i * H_PARITY_B:(i + 1) * H_PARITY_B])
                                       .to(device),
                                       "y": torch.from_numpy(ys[i * H_PARITY_B:(i + 1) * H_PARITY_B])
-                                      .to(device)}, lr)["loss"]) for i in range(3)]
+                                      .to(device)}, lr)["loss"])
+                          for i in range(CPU_PARITY_STEPS)]
         seconds[device] = time.perf_counter() - t0
-    print(f"{label} training: 3 steps at B={H_PARITY_B}, N={HN}, D=512, lr {lr}: losses on "
+    print(f"{label} training: {CPU_PARITY_STEPS} steps at B={H_PARITY_B}, N={HN}, D=512, "
+          f"lr {lr}: losses on "
           f"the card {losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol "
           f"{H_LOSS_RTOL[bf16]}); {seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s "
           "on the CPU")
@@ -2442,6 +2473,9 @@ def phase_scanobjectnn(torch):
 HSEG = {"partseg": dict(task="partseg", b=16, n=1024, in_dim=22, classes=50, parity_b=2,
                         samples=32),
         "s3dis": dict(task="semseg", b=4, n=4096, in_dim=9, classes=13, parity_b=1, samples=8)}
+# the card-vs-CPU steps of the S3DIS-shaped segmentation models (N=4096):
+# 2, not 3 (20-30 s of the CPU a run at 3: the depth given up for phase 26)
+S3DIS_SEG_PARITY_STEPS = 2
 
 
 def hseg_launches(steps, evals, bf16) -> dict:
@@ -2505,9 +2539,9 @@ def seg_arrays(task, n_samples, seed=9):
 SEG_LOSS_RTOL = {False: 1e-3, True: 2e-3}
 
 
-def seg_parity(torch, label, make_state, xs, ys, parity_b, lr, bf16):
-    """3 train steps on the card and on the CPU's plain path from the same
-    weights and batches; the losses within SEG_LOSS_RTOL."""
+def seg_parity(torch, label, make_state, xs, ys, parity_b, lr, bf16, steps=3):
+    """``steps`` train steps on the card and on the CPU's plain path from the
+    same weights and batches; the losses within SEG_LOSS_RTOL."""
     from simple3dformer_tpu_torch.train.loop import make_train_step, seg_cross_entropy
 
     losses, seconds = {}, {}
@@ -2517,9 +2551,10 @@ def seg_parity(torch, label, make_state, xs, ys, parity_b, lr, bf16):
         losses[device] = [float(step({"x": torch.from_numpy(xs[i * parity_b:(i + 1) * parity_b])
                                       .to(device),
                                       "y": torch.from_numpy(ys[i * parity_b:(i + 1) * parity_b])
-                                      .to(device)}, lr)["loss"]) for i in range(3)]
+                                      .to(device)}, lr)["loss"]) for i in range(steps)]
         seconds[device] = time.perf_counter() - t0
-    print(f"{label}: 3 steps at B={parity_b}, lr {lr}: losses on the card {losses['cuda']} vs the "
+    print(f"{label}: {steps} steps at B={parity_b}, lr {lr}: losses on the card {losses['cuda']} "
+          f"vs the "
           f"CPU's plain path {losses['cpu']} (rtol {SEG_LOSS_RTOL[bf16]}); "
           f"{seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=SEG_LOSS_RTOL[bf16])
@@ -2545,7 +2580,8 @@ def phase_hengshuang_seg(torch, which, bf16=False):
                            s["in_dim"], device, dtype)
 
     xs, ys = seg_arrays(which, 3 * s["parity_b"])
-    seg_parity(torch, label, make_state, xs, ys, s["parity_b"], lr, bf16)
+    seg_parity(torch, label, make_state, xs, ys, s["parity_b"], lr, bf16,
+               S3DIS_SEG_PARITY_STEPS if which == "s3dis" else 3)
 
     main = tp.main if which == "partseg" else ts.main
     argv = ["model=Hengshuang", *(["dtype=bf16"] if bf16 else []), f"synthetic={s['samples']}",
@@ -2669,7 +2705,8 @@ def phase_point_vit_bf16(torch):
             return seg_trainer(torch, seg_config(task), classes, in_dim, device, torch.bfloat16)
 
         xs, ys = seg_arrays(which.lower(), 3 * parity_b)
-        seg_parity(torch, label, make_state, xs, ys, parity_b, lr, True)
+        seg_parity(torch, label, make_state, xs, ys, parity_b, lr, True,
+                   S3DIS_SEG_PARITY_STEPS if which == "S3DIS" else 3)
         plain_before = Attention.plain_calls
         _, lines, launches, saved = run_cli(
             tp.main if which == "partseg" else ts.main,
@@ -3088,7 +3125,7 @@ def phase_lwf(torch):
                                generator=generator(lwf.TEACHER_SEED)).to(device)
         return TrainState(model, opt), teacher, lr
 
-    # 3 steps on the card and on the CPU's plain path in f32 and at dtype=bf16:
+    # steps on the card and on the CPU's plain path in f32 and at dtype=bf16:
     # the same weights, batches and 224^2 images, the augmentations off (their
     # draws differ by device)
     (xs, cats, segs), _ = load_arrays(cfg)
@@ -3101,7 +3138,7 @@ def phase_lwf(torch):
             step = lwf.make_lwf_train_step(state, teacher, task_loss_fn=seg_cross_entropy,
                                            prepare_fn=prepare)
             t1, out = time.perf_counter(), []
-            for i in range(3):
+            for i in range(CPU_PARITY_STEPS):
                 sl, il = slice(i * LWF_PARITY_B, (i + 1) * LWF_PARITY_B), \
                     slice(i * LWF_PARITY_M, (i + 1) * LWF_PARITY_M)
                 batch = {k: torch.from_numpy(v[sl]).to(device)
@@ -3109,7 +3146,8 @@ def phase_lwf(torch):
                 metrics = step(batch, torch.from_numpy(images[il]).to(device), lr)
                 out.append([float(metrics[k]) for k in ("loss", "task_loss", "lwf_loss")])
             losses[device], seconds[device] = out, time.perf_counter() - t1
-        print(f"LwF partseg {dtype or 'f32'}: 3 steps at B={LWF_PARITY_B}, M={LWF_PARITY_M}, lr "
+        print(f"LwF partseg {dtype or 'f32'}: {CPU_PARITY_STEPS} steps at B={LWF_PARITY_B}, "
+              f"M={LWF_PARITY_M}, lr "
               f"{lr} (loss, task, lwf): on the card {losses['cuda']} vs the CPU's plain path "
               f"{losses['cpu']} (rtol {LWF_LOSS_RTOL[dtype]}); {seconds['cuda']:.1f} s on the "
               f"card, {seconds['cpu']:.1f} s on the CPU")
@@ -3351,14 +3389,15 @@ def group_parity(torch, bf16):
                              trainable_mask=frozen_mask(model, False), bf16_nu=bf16)
         step = make_train_step(TrainState(model, opt))
         t0, out = time.perf_counter(), []
-        for i in range(3):
+        for i in range(CPU_PARITY_STEPS):
             sl = slice(i * GROUP_PARITY_B, (i + 1) * GROUP_PARITY_B)
             batch = {"x": torch.from_numpy(grids[sl]).float().to(device),
                      "y": torch.from_numpy(labels[sl]).to(device)}
             out.append(float(step(batch, 1e-4)["loss"]))
         losses[device], seconds[device] = out, time.perf_counter() - t0
     label = "bf16" if bf16 else "f32"
-    print(f"group_embed {label}: 3 steps at B={GROUP_PARITY_B}, {depth} blocks (half the "
+    print(f"group_embed {label}: {CPU_PARITY_STEPS} steps at B={GROUP_PARITY_B}, {depth} blocks "
+          f"(half the "
           f"pillars empty, group dropout off), lr 1e-4: on the card {losses['cuda']} vs the CPU's "
           f"plain path {losses['cpu']} (rtol {GROUP_LOSS_RTOL[bf16]}); {seconds['cuda']:.1f} s "
           f"on the card, {seconds['cpu']:.1f} s on the CPU")
@@ -3570,7 +3609,7 @@ def vip_parity(torch, bf16):
         step = make_train_step(TrainState(model, make_optimizer(dict(model.named_parameters()),
                                                                 "Adam")))
         t0, out = time.perf_counter(), []
-        for i in range(3):
+        for i in range(CPU_PARITY_STEPS):
             sl = slice(i * VIP_B, (i + 1) * VIP_B)
             out.append(float(step({"x": torch.from_numpy(x[sl]).float().to(device),
                                    "y": torch.from_numpy(y[sl]).to(device)}, 1e-4)["loss"]))
@@ -3582,7 +3621,8 @@ def vip_parity(torch, bf16):
     label = "bf16" if bf16 else "f32"
     print(f"ViP-3D {label}: {VIP_MODEL} at B={VIP_B}, drop path off: gradients card vs the CPU's "
           f"plain path within {grad_err:.3e} of each leaf's largest, at {worst} (tolerance "
-          f"{VIP_GRAD_REL[bf16]}); 3 steps at lr 1e-4, losses on the card {losses['cuda']} vs "
+          f"{VIP_GRAD_REL[bf16]}); {CPU_PARITY_STEPS} steps at lr 1e-4, losses on the card "
+          f"{losses['cuda']} vs "
           f"the CPU's {losses['cpu']} (rtol {VIP_LOSS_RTOL[bf16]}); {seconds['cuda']:.1f} s on "
           f"the card, {seconds['cpu']:.1f} s on the CPU")
     if not grad_err <= VIP_GRAD_REL[bf16]:
@@ -5054,6 +5094,378 @@ def mp_cards(torch, n: int) -> None:
           f"{ranks[0]['tp']['launches']}; PP outputs and gradients within the sequential "
           f"stack's bounds; PP launches by stage {[r['pp']['launches'] for r in ranks]}")
 
+# phase 26: the modules no CLI reaches. The legacy voxel-to-image model at
+# full width (deit_base, D=768, 12 heads, 197 tokens of a synthesized 224^2
+# image, ModelNet10's 10 classes), and PointNet++'s MSG first layer (the
+# reference's pointnet2_cls_msg), a RelPos set abstraction and PointEmbed
+LEGACY_B, LEGACY_PARITY_B, LEGACY_CLASSES = 32, 8, 10
+LEGACY_BACKBONE = "deit_base_patch16_224"
+LEGACY_LR = 1e-4
+LEGACY_ADAM_TOL = dict(rtol=0, atol=2 * 3 * LEGACY_LR)  # Adam moves a weight about lr a step
+# the BatchNorm running statistics card vs CPU, of each leaf's largest: after
+# the first step (the one forward both sides run with equal weights: every
+# BatchNorm sits before the ViT, f32 sums in another order), and after the
+# third, where Adam has moved each weight by about lr whatever the sign of a
+# gradient that is all rounding (the parameters' bound) and the batch means
+# follow (seen 3.1e-3 in fc_bn)
+LEGACY_STAT_REL = {"first": 1e-4, "third": 1e-2}
+LEGACY_BF16_REL = 5e-2  # bf16 logits against the f32 forward, of the largest (H_LOGIT_REL's)
+LEGACY_TIMED_STEPS = 20
+SA_B, SA_N = 16, 1024
+MSG_CFG = dict(npoint=512, radius_list=(0.1, 0.2, 0.4), nsample_list=(16, 32, 128),
+               mlp_list=((32, 32, 64), (64, 64, 128), (64, 96, 128)))
+SA_OUT_REL = 1e-4  # outputs card vs CPU, of the largest: f32 sums in another order
+# gradients card vs CPU, relative L2 a leaf: a BatchNorm'd ReLU or a max over
+# up to 128 neighbours within rounding of its runner-up can fall the other way
+# on the card and send an element's gradient to another (seen 3.0e-3 at MSG's
+# bn_blocks.2.1.weight, a sum over 1M rows; the outputs agree within 2.2e-6)
+SA_GRAD_L2 = 1e-2
+SA_ZERO_GRAD = re.compile(r"(mlp_convs\.\d+|conv_blocks\.\d+\.\d+|pos_embeds\.\d+\.fc2)\.bias$")
+
+
+def legacy_model(torch, device, dtype=None, drop=True, two_layer_head=False, voxel_size=32):
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.models.legacy_voxel import FeatureVoxel2DViT
+
+    rates = {} if drop else dict(drop1=0.0, drop2=0.0)
+    return FeatureVoxel2DViT(LEGACY_CLASSES, voxel_size, LEGACY_BACKBONE, two_layer_head,
+                             generator=generator(DEFAULT_SEED + 26), dtype=dtype,
+                             **rates).to(device)
+
+
+def legacy_grids(n, seed, voxel_size=32):
+    from simple3dformer_tpu_torch.data.synthetic import synthetic_voxels
+
+    return synthetic_voxels(n, voxel_size, LEGACY_CLASSES, seed=seed)
+
+
+def legacy_serving(torch, counters) -> dict:
+    """The model behind Predictor (batch 32) and ModelServer: real HTTP
+    requests, logits against the CPU's plain path at B=8, launches."""
+    from simple3dformer_tpu_torch.serve.predictor import Predictor
+    from simple3dformer_tpu_torch.serve.server import ModelServer
+
+    model = legacy_model(torch, "cpu")
+    cpu_model = copy.deepcopy(model).eval()
+    predictor = Predictor(model, (32,) * 3, device="cuda", batch_size=LEGACY_B)
+    server = ModelServer(predictor, host="127.0.0.1", port=0)
+    port = server.start_background()
+    sizes = [1, 40, LEGACY_PARITY_B]
+    grids, _ = legacy_grids(sum(sizes) + LEGACY_B, 261)
+    grids = grids.astype(np.float32)
+    try:
+        for fn in counters.values():
+            fn.launches = 0  # the main path starts here
+        outs, start, chunks = [], 0, 0
+        for n in sizes:
+            x = grids[start:start + n]
+            start += n
+            status, body = post(port, json.dumps({"inputs": x.tolist()}))
+            logits = np.asarray(body.get("logits", []), np.float32) if status == 200 else None
+            if logits is None or logits.shape != (n, LEGACY_CLASSES) or \
+                    not np.isfinite(logits).all():
+                raise AssertionError(f"legacy POST /predict of {n}: {status} {body}")
+            outs.append((x, logits))
+            chunks += -(-n // LEGACY_B)
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            predictor(grids[start:start + LEGACY_B])
+            lat.append(time.perf_counter() - t0)
+            chunks += 1
+        launches = {k: fn.launches for k, fn in counters.items()}  # the main path ends here
+    finally:
+        server.shutdown()
+    x, logits = outs[-1]
+    with torch.no_grad():
+        want = cpu_model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(logits, want, **LOGIT_TOL)
+    if launches != voxel_launches(1, 0, chunks, False):
+        raise AssertionError(f"legacy serving launches {launches} for {chunks} chunks")
+    lat_ms = np.asarray(lat) * 1e3
+    print(f"legacy serving: FeatureVoxel2DViT (32^3, deit_base 12 heads, {LEGACY_CLASSES} "
+          f"classes) behind Predictor and ModelServer, {len(sizes)} POST /predict ({sizes}); "
+          f"logits at B={LEGACY_PARITY_B} max abs err vs the CPU's plain path "
+          f"{float(np.abs(logits - want).max()):.3e} (tolerance {LOGIT_TOL}); launches "
+          f"{launches} = 12 x {chunks} chunks; Predictor at batch {LEGACY_B}: p50 "
+          f"{np.percentile(lat_ms, 50):.3f} ms, p95 {np.percentile(lat_ms, 95):.3f} ms, "
+          f"{LEGACY_B / np.median(lat_ms) * 1e3:.1f} samples/s (host clock, 20 calls)")
+    return launches
+
+
+def legacy_parity(torch, counters) -> dict:
+    """3 Adam steps at B=8 on the card and on the CPU's plain path from the same
+    weights and batches, the dropouts off; the card's launches."""
+    from simple3dformer_tpu_torch.train.loop import TrainState, make_train_step
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    x, y = legacy_grids(3 * LEGACY_PARITY_B, 262)
+    losses, states, seconds, first = {}, {}, {}, {}
+    for device in ("cuda", "cpu"):
+        model = legacy_model(torch, device, drop=False)
+        step = make_train_step(TrainState(model, make_optimizer(dict(model.named_parameters()),
+                                                                "Adam")))
+        for fn in counters.values():
+            fn.launches = 0
+        t0, out = time.perf_counter(), []
+        for i in range(3):
+            sl = slice(i * LEGACY_PARITY_B, (i + 1) * LEGACY_PARITY_B)
+            out.append(float(step({"x": torch.from_numpy(x[sl]).float().to(device),
+                                   "y": torch.from_numpy(y[sl]).to(device)}, LEGACY_LR)["loss"]))
+            if i == 0:  # the statistics of the one forward both sides run with equal weights
+                first[device] = {k: v.detach().cpu().clone()
+                                 for k, v in model.state_dict().items() if "running_" in k}
+        if device == "cuda":
+            launches = {k: fn.launches for k, fn in counters.items()}
+        losses[device], seconds[device] = out, time.perf_counter() - t0
+        states[device] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    param_err = max(float((states["cuda"][k] - v).abs().max()) for k, v in states["cpu"].items()
+                    if v.is_floating_point() and "running_" not in k)
+    stats = [k for k in states["cpu"] if "running_" in k]
+    worst = {}
+    for when, got, want in (("first", first["cuda"], first["cpu"]),
+                            ("third", states["cuda"], states["cpu"])):
+        errs = {k: float((got[k] - want[k]).abs().max()) / float(want[k].abs().max())
+                for k in stats}
+        k = max(errs, key=errs.get)
+        worst[when] = (errs[k], k)
+        if not errs[k] <= LEGACY_STAT_REL[when]:
+            raise AssertionError(f"legacy {k} after the {when} step differs from the CPU's: "
+                                 f"{errs[k]}")
+    if not param_err <= LEGACY_ADAM_TOL["atol"]:
+        raise AssertionError(f"legacy parameters differ from the CPU's by {param_err}")
+    if launches != voxel_launches(1, 3, 0, True):
+        raise AssertionError(f"legacy train launches {launches}")
+    print(f"legacy training: 3 Adam steps at B={LEGACY_PARITY_B}, lr {LEGACY_LR}, dropouts off: "
+          f"losses on the card {losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol "
+          f"1e-3); parameters within {param_err:.3e} (tolerance {LEGACY_ADAM_TOL['atol']:.0e}); "
+          f"{len(stats)} BatchNorm running statistics (momentum 0.99), of each leaf's largest, "
+          f"within {worst['first'][0]:.3e} after the first step ({worst['first'][1]}; "
+          f"tolerance {LEGACY_STAT_REL['first']}) and {worst['third'][0]:.3e} after the third "
+          f"({worst['third'][1]}; tolerance {LEGACY_STAT_REL['third']}); launches {launches}; "
+          f"{seconds['cuda']:.1f} s on the card, "
+          f"{seconds['cpu']:.1f} s on the CPU")
+    return launches
+
+
+def legacy_split(torch, model, x) -> tuple[dict, dict]:
+    """ms (CUDA events) and device ms (torch.profiler) of one train step's parts,
+    each part's forward and backward run alone at B=32: the 3D convolutions, the
+    decoder (FC, BatchNorm, the four Up stages), the ViT's 12 blocks with the
+    patch embedding and final norm, the head, Adam."""
+    model.train()
+    vit = model.transformer
+    feats = model.convs(x).detach()
+    img = model.decode(feats).detach().requires_grad_()
+    cls = vit.forward_features(img)[:, 0].detach().requires_grad_()
+    feats.requires_grad_()
+    conv_p = [p for n, p in model.named_parameters() if n.startswith("conv3d_")]
+    dec_p = [p for n, p in model.named_parameters() if n.startswith(("fc1", "fc_bn", "deconv"))]
+    head_p = list(model.head.parameters())
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    opt = make_optimizer(dict(model.named_parameters()), "Adam")
+    grads = {k: torch.zeros_like(p) for k, p in opt.params.items()}
+    g_feats, g_img, g_cls = torch.randn_like(feats), torch.randn_like(img), torch.randn_like(cls)
+    parts = {
+        "3D convolutions": lambda: torch.autograd.grad(model.convs(x), conv_p, g_feats),
+        "decoder": lambda: torch.autograd.grad(model.decode(feats), [feats, *dec_p], g_img),
+        "ViT blocks": lambda: torch.autograd.grad(vit.forward_features(img)[:, 0],
+                                                  [img, *vit.parameters()], g_cls),
+        "head": lambda: torch.autograd.grad(model.head(cls).sum(), [cls, *head_p]),
+        "Adam": lambda: opt.step(grads, 0.0),
+    }
+    ms = {name: time_ms(torch, fn, 3) for name, fn in parts.items()}
+    device = {name: sum(t * n for t, n in device_split(torch, fn, iters=3).values()) / 3
+              for name, fn in parts.items()}
+    return ms, device
+
+
+def legacy_timed(torch, counters) -> dict:
+    """ms a train step at B=32 with the dropouts on (corpus on the card), a
+    profile, the device time by part; the launches of the timed steps."""
+    from simple3dformer_tpu_torch.data.pipeline import DeviceResidentDataset
+    from simple3dformer_tpu_torch.train.loop import TrainState, make_scanned_train_steps
+    from simple3dformer_tpu_torch.train.optim import make_optimizer
+
+    model = legacy_model(torch, "cuda")
+    state = TrainState(model, make_optimizer(dict(model.named_parameters()), "Adam"))
+    n = LEGACY_TIMED_STEPS + 4
+    corpus, labels = legacy_grids(n * LEGACY_B, 263)
+    ds = DeviceResidentDataset({"x": corpus, "y": labels}, "cuda")
+    run = make_scanned_train_steps(state, ds)
+    idx = ds.put_indices(np.arange(n * LEGACY_B).reshape(n, LEGACY_B))
+    for fn in counters.values():
+        fn.launches = 0
+    ms_step = timed_steps(torch, run, idx, LEGACY_LR, LEGACY_TIMED_STEPS, "legacy FeatureVoxel2DViT",
+                          LEGACY_B)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = 1 + LEGACY_TIMED_STEPS + 3  # warm-up, timed, profiled
+    if launches != voxel_launches(1, steps, 0, True):
+        raise AssertionError(f"legacy timed launches {launches} for {steps} steps")
+    ms, device = legacy_split(torch, model, torch.from_numpy(corpus[:LEGACY_B]).float().cuda())
+    total = sum(device.values())
+    print(f"legacy step by part at B={LEGACY_B} (each part's forward and backward alone; CUDA "
+          f"events ms / device ms by torch.profiler): " + ", ".join(
+              f"{k} {ms[k]:.3f} / {device[k]:.3f}" for k in ms)
+          + f"; device sum {total:.3f} ms against the {ms_step:.3f} ms step; launches of the "
+          f"{steps} timed steps {launches}")
+    return dict(launches=launches, ms_step=ms_step, device=device)
+
+
+def legacy_routes(torch, counters) -> None:
+    """The two-layer head card vs CPU, the bf16 forward against the f32 forward
+    on the card, one forward of the 128^3 stack at B=2 card vs CPU."""
+    x, _ = legacy_grids(LEGACY_PARITY_B, 264)
+    xt = torch.from_numpy(x).float()
+    with torch.no_grad():
+        two = legacy_model(torch, "cpu", two_layer_head=True).eval()
+        want = two(xt)
+        got = two.cuda()(xt.cuda()).cpu()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **LOGIT_TOL)
+        two_err = float((got - want).abs().max())
+        f32 = legacy_model(torch, "cuda").eval()(xt.cuda())
+        for fn in counters.values():
+            fn.launches = 0
+        bf16 = legacy_model(torch, "cuda", dtype=torch.bfloat16).eval()(xt.cuda())
+        bf16_launches = counters["fused_vit_block"].launches
+        bf16_err = float((bf16.float() - f32).abs().max() / f32.abs().max())
+        x128, _ = legacy_grids(2, 265, 128)
+        x128 = torch.from_numpy(x128).float()
+        big = legacy_model(torch, "cpu", voxel_size=128).eval()
+        want128 = big(x128)
+        got128 = big.cuda()(x128.cuda()).cpu()
+        np.testing.assert_allclose(got128.numpy(), want128.numpy(), **LOGIT_TOL)
+    if bf16.dtype != torch.bfloat16 or not bf16_err <= LEGACY_BF16_REL or bf16_launches != 12:
+        raise AssertionError(f"legacy bf16 forward: {bf16.dtype}, error {bf16_err}, "
+                             f"{bf16_launches} block launches")
+    print(f"legacy routes: two-layer head at B={LEGACY_PARITY_B} max abs err vs the CPU "
+          f"{two_err:.3e} (tolerance {LOGIT_TOL}); bf16 forward against the f32 forward "
+          f"{bf16_err:.3e} of the largest logit (tolerance {LEGACY_BF16_REL}), 12 fused block "
+          f"launches; 128^3 stack at B=2 max abs err vs the CPU "
+          f"{float((got128 - want128).abs().max()):.3e}")
+
+
+def sa_inputs(torch, seed):
+    """B=16 clouds of N=1024 points on a 1/64 grid in [0, 1)^3 (every squared
+    distance exact in f32, so the ball, kNN and FPS choices are the same on the
+    card and the CPU whatever the order of the sums) and unit normals."""
+    rs = np.random.RandomState(seed)
+    xyz = (rs.randint(0, 64, (SA_B, SA_N, 3)) / 64.0).astype(np.float32)
+    normals = rs.randn(SA_B, SA_N, 3)
+    normals = (normals / np.linalg.norm(normals, axis=-1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(xyz), torch.from_numpy(normals)
+
+
+def sa_check(torch, label, make, args, counters, **kw) -> dict:
+    """One point module in train mode on the card and on the CPU's plain path
+    from the same weights and FPS starts: outputs, the gradients of sum(out *
+    cot) for the features and every parameter, the launches of one card call;
+    the card's ms a forward and backward."""
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED
+
+    base, res = make(), {}  # one init, copied to each device
+    for device in ("cuda", "cpu"):
+        mod = copy.deepcopy(base).to(device).train()
+        xs = [a.to(device) for a in args]
+        xs[-1].requires_grad_(True)
+        cot = None
+
+        def call():
+            nonlocal cot
+            new_xyz, out = mod(*xs, sample_generator=torch.Generator().manual_seed(DEFAULT_SEED),
+                               **kw)
+            if cot is None:
+                cot = torch.from_numpy(np.random.RandomState(7).randn(*out.shape)
+                                       .astype(np.float32)).to(device)
+            names, leaves = zip(*[(n, p) for n, p in mod.named_parameters()])
+            grads = torch.autograd.grad((out * cot).sum(), [xs[-1], *leaves])
+            return new_xyz, out, dict(zip(("features", *names), grads))
+
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = call()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        res[device] = ([t.detach().cpu() for t in got[:2]],
+                       {k: g.cpu() for k, g in got[2].items()}, time.perf_counter() - t0)
+        if device == "cuda":
+            card_ms = time_ms(torch, call, 5)
+    (xyz_c, out_c), g_c, _ = res["cuda"]
+    (xyz_p, out_p), g_p, cpu_s = res["cpu"]
+    if not torch.equal(xyz_c, xyz_p):
+        raise AssertionError(f"{label}: the sampled centres differ on the card")
+    out_err = float((out_c - out_p).abs().max() / out_p.abs().max())
+    # a per-channel constant just ahead of a train-mode BatchNorm has a zero
+    # gradient in exact arithmetic (both sides hold rounding): those leaves are
+    # held against the module's largest gradient norm
+    top = max(float(g.norm()) for g in g_p.values())
+    l2 = {k: float((g_c[k] - g).norm() / (top if SA_ZERO_GRAD.search(k) else
+                                          max(float(g.norm()), 1e-30)))
+          for k, g in g_p.items()}
+    worst = max(l2, key=lambda k: (np.isnan(l2[k]), l2[k]))
+    print(f"{label}: output {tuple(out_c.shape)} card vs the CPU's plain path {out_err:.3e} of "
+          f"the largest (tolerance {SA_OUT_REL}); gradients relative L2 at most {l2[worst]:.3e} "
+          f"({worst}; tolerance {SA_GRAD_L2}), the features' {l2['features']:.3e}; launches of "
+          f"one forward and backward {launches}; {card_ms:.3f} ms on the card (CUDA events, 5 "
+          f"calls), {cpu_s:.2f} s on the CPU")
+    if not out_err <= SA_OUT_REL or not l2[worst] <= SA_GRAD_L2:
+        raise AssertionError(f"{label}: output {out_err}, gradient {worst} {l2[worst]}")
+    return dict(launches=launches, ms=card_ms)
+
+
+def phase_legacy_points(torch) -> dict:
+    """Phase 26. Returns the launches of the kernels of its paths."""
+    from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
+    from simple3dformer_tpu_torch.nn.point_embed import PointEmbed
+    from simple3dformer_tpu_torch.nn.set_abstraction import (PointNetSetAbstractionMsg,
+                                                             PointNetSetAbstractionRelPos)
+
+    t0 = time.perf_counter()
+    vc = voxel_counters()
+    launches = collections.Counter(legacy_serving(torch, vc))
+    launches.update(legacy_parity(torch, vc))
+    launches.update(legacy_timed(torch, vc)["launches"])
+    legacy_routes(torch, vc)
+    pc = {k: fn for k, fn in point_counters().items() if k in ("fps", "knn", "gather_fwd",
+                                                             "gather_bwd")}
+    xyz, normals = sa_inputs(torch, 266)
+    for knn in (False, True):
+        launches.update(sa_check(
+            torch, f"PointNetSetAbstractionMsg ({'kNN' if knn else 'ball'}; B={SA_B}, N={SA_N}, "
+            f"npoint 512, radii 0.1/0.2/0.4, nsample 16/32/128)",
+            lambda: PointNetSetAbstractionMsg(MSG_CFG["npoint"], MSG_CFG["radius_list"],
+                                              MSG_CFG["nsample_list"], 3, MSG_CFG["mlp_list"],
+                                              knn=knn, generator=generator(DEFAULT_SEED)),
+            (xyz, normals), pc)["launches"])
+    launches.update(sa_check(
+        torch, "PointNetSetAbstractionRelPos (kNN; npoint 512, nsample 32, mlp 64/64/128)",
+        lambda: PointNetSetAbstractionRelPos(512, 0.2, 32, 6, [64, 64, 128], knn=True,
+                                             generator=generator(DEFAULT_SEED)),
+        (xyz, normals), pc)["launches"])
+    launches.update(sa_check(
+        torch, "PointEmbed (embed_dim 384, npoint 512, nsample 32, N=1024, xyz)",
+        lambda: PointEmbed(384, 3, npoint=512, nsample=32, generator=generator(DEFAULT_SEED)),
+        (xyz,), pc)["launches"])
+    for k in ("fused_vit_block", "fused_vit_block_train_fwd", "fused_vit_block_train_bwd",
+              "fused_adam", "fps", "knn", "gather_fwd", "gather_bwd"):
+        if not launches[k]:
+            raise AssertionError(f"phase 26: {k} never launched")
+    print(f"phase 26 launches {dict(launches)}; {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
+def run_phase(name, fn, *args):
+    """``fn(*args)``, its wall time printed (the script's time budget is read from these)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
 
 def main() -> int:
     try:
@@ -5076,32 +5488,35 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-        phase_build()
-        report = phase_kernels(torch)
-        launches = phase_serving(torch)
-        train_report = phase_train_kernels(torch)
-        train_launches, _ = phase_training(torch)
-        point_report = phase_point_kernels(torch)
-        partseg_launches = phase_partseg(torch)
-        mhsa_report = phase_mhsa_kernels(torch)
-        s3dis_launches = phase_s3dis(torch)
-        va_report = phase_va_kernels(torch)
-        hengshuang_launches, _ = phase_hengshuang(torch)
-        vag_report = phase_vag_kernels(torch)
-        bf16_launches, recompute_launches = phase_hengshuang(torch, bf16=True)
-        phase_attention_route(torch)
-        phase_scanobjectnn(torch)
+        run_phase("build", phase_build)
+        report = run_phase("kernels", phase_kernels, torch)
+        launches = run_phase("serving", phase_serving, torch)
+        train_report = run_phase("train_kernels", phase_train_kernels, torch)
+        train_launches, _ = run_phase("training", phase_training, torch)
+        point_report = run_phase("point_kernels", phase_point_kernels, torch)
+        partseg_launches = run_phase("partseg", phase_partseg, torch)
+        mhsa_report = run_phase("mhsa_kernels", phase_mhsa_kernels, torch)
+        s3dis_launches = run_phase("s3dis", phase_s3dis, torch)
+        va_report = run_phase("va_kernels", phase_va_kernels, torch)
+        hengshuang_launches, _ = run_phase("hengshuang", phase_hengshuang, torch)
+        vag_report = run_phase("vag_kernels", phase_vag_kernels, torch)
+        bf16_launches, recompute_launches = run_phase("hengshuang bf16", phase_hengshuang,
+                                                      torch, True)
+        run_phase("attention_route", phase_attention_route, torch)
+        run_phase("scanobjectnn", phase_scanobjectnn, torch)
         for which in HSEG:
             for bf16 in (False, True):
-                phase_hengshuang_seg(torch, which, bf16)
-        phase_point_vit_bf16(torch)
-        phase_flagship_bf16(torch)
-        phase_lwf(torch)
-        phase_group_embed(torch)
-        phase_vip3d(torch)
-        export_launches = phase_export(torch)
-        phase_data_parallel(torch)
-        mp_report = phase_model_parallel(torch)
+                run_phase(f"hengshuang_seg {which}{' bf16' if bf16 else ''}",
+                          phase_hengshuang_seg, torch, which, bf16)
+        run_phase("point_vit_bf16", phase_point_vit_bf16, torch)
+        run_phase("flagship_bf16", phase_flagship_bf16, torch)
+        run_phase("lwf", phase_lwf, torch)
+        run_phase("group_embed", phase_group_embed, torch)
+        run_phase("vip3d", phase_vip3d, torch)
+        export_launches = run_phase("export", phase_export, torch)
+        run_phase("data_parallel", phase_data_parallel, torch)
+        mp_report = run_phase("model_parallel", phase_model_parallel, torch)
+        legacy_launches = run_phase("legacy_points", phase_legacy_points, torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -5115,10 +5530,12 @@ def main() -> int:
     block_src = "simple3dformer_tpu_torch/csrc/vit_block.cu"
     # the forward is the op s3f::vit_block_fwd: the serving phase's launches and
     # those of the exported flagship's run (phase 23), each counted inside the op
+    # rows 1, 3-5 and 8-11 add phase 26's launches (the legacy model served and
+    # trained, the set abstractions and PointEmbed)
     kernels = [dict(name="fused_vit_block", route="cuda", source=block_src,
                     replaces="simple3dformer_tpu/kernels/vit_block.py:264",
-                    launches=launches + export_launches, bound_ms=bound_ms, bound_by=bound_by,
-                    **report)]
+                    launches=launches + export_launches + legacy_launches["fused_vit_block"],
+                    bound_ms=bound_ms, bound_by=bound_by, **report)]
     for name, replaces, source in [
             ("fused_vit_block_bwd", "simple3dformer_tpu/kernels/vit_block.py:290", block_src),
             ("fused_vit_block_train_fwd", "simple3dformer_tpu/kernels/vit_block.py:366",
@@ -5128,7 +5545,8 @@ def main() -> int:
             ("fused_adam", "simple3dformer_tpu/kernels/adam.py:76",
              "simple3dformer_tpu_torch/csrc/adam.cu")]:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=train_launches[name], **train_report[name]))
+                            launches=train_launches[name] + legacy_launches.get(name, 0),
+                            **train_report[name]))
     for name, replaces, source in [
             ("fps", "simple3dformer_tpu/kernels/fps.py:79", "fps.cu"),
             ("knn", "simple3dformer_tpu/kernels/knn.py:74", "knn.cu"),
@@ -5136,7 +5554,8 @@ def main() -> int:
             ("gather_bwd", "simple3dformer_tpu/kernels/gather.py:109", "gather.cu")]:
         kernels.append(dict(name=name, route="cuda",
                             source=f"simple3dformer_tpu_torch/csrc/{source}", replaces=replaces,
-                            launches=partseg_launches[name], **point_report[name]))
+                            launches=partseg_launches[name] + legacy_launches[name],
+                            **point_report[name]))
     for name, line in (("mhsa_fwd", 120), ("mhsa_bwd", 144)):
         kernels.append(dict(name=name, route="cuda", source="simple3dformer_tpu_torch/csrc/mhsa.cu",
                             replaces=f"simple3dformer_tpu/kernels/mhsa.py:{line}",

@@ -76,3 +76,9 @@ def randint(low: int, high: int, shape, generator: torch.Generator, device=None,
     device = generator.device if device is None else device
     return _rank_part(lambda s: torch.randint(low, high, s, generator=generator, device=device),
                       shape, axis)
+
+
+def randn(shape, generator: torch.Generator, device=None, axis: int = 0) -> torch.Tensor:
+    """``torch.randn(shape)`` for this rank's rows, as ``rand``."""
+    device = generator.device if device is None else device
+    return _rank_part(lambda s: torch.randn(s, generator=generator, device=device), shape, axis)

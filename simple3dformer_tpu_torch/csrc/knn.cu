@@ -42,6 +42,15 @@
 // a ragged last chunk carry an infinite distance, which never enters; lanes
 // at k and above hold no entry.
 //
+// Past 32 (a list longer than a warp: PointNet++'s MSG groups 128), a second
+// kernel takes the call, one block a query: the candidates' (distance, index)
+// pairs, computed in the same operations, fill a shared-memory buffer of M
+// pairs (a power of two, at most kSortMax), a bitonic network sorts it by the
+// same total order, and its first k are the list; for N above the buffer the
+// list's k entries stay at its front and each round fills the rest with the
+// next candidates. A total order gives one result however the candidates are
+// grouped, so it too is bit for bit the exact-order plain version.
+//
 // Every entry returns the first CUDA error of its launches (0 on success).
 
 #include <cuda_runtime.h>
@@ -201,19 +210,92 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
   }
 }
 
+constexpr int kSortThreads = 256;
+constexpr int kSortMax = 4096;  // pairs a buffer: 32 KB
+constexpr int kSortMaxK = 1024;
+
+// k > 32: one block a query; d, i: the shared buffer of M pairs.
+__global__ void __launch_bounds__(kSortThreads)
+knn_sort_kernel(const float* __restrict__ query, const float* __restrict__ points,
+                int* __restrict__ out_idx, float* __restrict__ out_dist, int S, int N, int k,
+                int M) {
+  extern __shared__ float buf[];
+  float* d = buf;
+  int* i = reinterpret_cast<int*>(buf + M);
+  const int b = blockIdx.y, s = blockIdx.x;
+  const float* q = query + (static_cast<size_t>(b) * S + s) * 3;
+  const float qx = q[0], qy = q[1], qz = q[2];
+  const float qq = norm2(qx, qy, qz);
+  const float* p = points + static_cast<size_t>(b) * N * 3;
+  int have = 0;  // the list's entries at the buffer's front
+  for (int next = 0; next < N;) {
+    const int cnt = min(M - have, N - next);
+    for (int j = threadIdx.x; j < M - have; j += kSortThreads) {
+      float dj = CUDART_INF_F;
+      int ij = kNoIndex;
+      if (j < cnt) {
+        const float* v = p + 3 * static_cast<size_t>(next + j);
+        const float x = v[0], y = v[1], z = v[2];
+        const float cross =
+            __fadd_rn(__fadd_rn(__fmul_rn(qx, x), __fmul_rn(qy, y)), __fmul_rn(qz, z));
+        dj = fmaxf(__fsub_rn(__fadd_rn(qq, norm2(x, y, z)), __fmul_rn(2.f, cross)), 0.f);
+        ij = next + j;
+      }
+      d[have + j] = dj;
+      i[have + j] = ij;
+    }
+    __syncthreads();
+    for (int size = 2; size <= M; size *= 2) {
+      for (int stride = size / 2; stride > 0; stride /= 2) {
+        for (int a = threadIdx.x; a < M; a += kSortThreads) {
+          const int c = a ^ stride;
+          if (c > a) {
+            const bool up = (a & size) == 0;  // this pair's half sorts ascending
+            if (before(d[c], i[c], d[a], i[a]) == up) {
+              const float td = d[a];
+              const int ti = i[a];
+              d[a] = d[c];
+              i[a] = i[c];
+              d[c] = td;
+              i[c] = ti;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    next += cnt;
+    have = k;
+  }
+  for (int j = threadIdx.x; j < k; j += kSortThreads) {
+    const size_t o = (static_cast<size_t>(b) * S + s) * k + j;
+    out_idx[o] = i[j];
+    out_dist[o] = d[j];
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// The largest k one launch takes: one list entry a lane.
-int s3f_knn_max_k() { return 32; }
+// The largest k one launch takes: a warp's list up to 32, the sorting kernel past it.
+int s3f_knn_max_k() { return kSortMaxK; }
 
 // query: [B, S, 3] f32, points: [B, N, 3] f32, both contiguous; idx: [B, S, k]
 // int32, dist: [B, S, k] f32. 1 <= k <= min(N, s3f_knn_max_k()), B <= 65535.
 int s3f_knn(const void* query, const void* points, void* idx, void* dist, int B, int S, int N,
             int k, void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || N < 1 || k < 1 || k > N || k > 32)
+  if (B < 1 || B > 65535 || S < 1 || N < 1 || k < 1 || k > N || k > kSortMaxK)
     return cudaErrorInvalidValue;
+  if (k > 32) {
+    int m = 64;
+    while (m < N && m < kSortMax) m *= 2;
+    knn_sort_kernel<<<dim3(S, B), kSortThreads, static_cast<size_t>(m) * 8,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(query), static_cast<const float*>(points),
+        static_cast<int*>(idx), static_cast<float*>(dist), S, N, k, m);
+    return cudaGetLastError();
+  }
   const dim3 grid((S + kWarps - 1) / kWarps, B);
   const size_t smem = static_cast<size_t>(N < kTile ? N : kTile) * sizeof(float4);
   knn_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -10,9 +10,14 @@ Under data parallelism every rank holds the whole split on its own card, as
 the JAX package replicates the corpus over the mesh, and ``gather`` takes the
 rank's columns of each row of the index matrix (parallel/mesh.rank_columns,
 applied by the train and eval runners).
+
+``host_batches`` and ``collate`` are the host-side batching of a
+__getitem__ / __len__ dataset, for corpora that do not fit on the card.
 """
 
 from __future__ import annotations
+
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -58,3 +63,26 @@ class DeviceResidentDataset:
             pad = (-len(order)) % batch_size
             order = np.concatenate([order, order[:pad]])
         return order.reshape(-1, batch_size).astype(np.int32)
+
+
+def host_batches(
+    dataset, batch_size: int, rng: np.random.RandomState | None = None,
+    shuffle: bool = True, drop_last: bool = False,
+) -> Iterator[list]:
+    """Simple host-side batch iterator over a __getitem__/__len__ dataset."""
+    n = len(dataset)
+    order = rng.permutation(n) if (shuffle and rng is not None) else np.arange(n)
+    for start in range(0, n, batch_size):
+        idx = order[start : start + batch_size]
+        if drop_last and len(idx) < batch_size:
+            return
+        yield [dataset[int(i)] for i in idx]
+
+
+def collate(samples: list, keys: tuple[str, ...] | None = None):
+    """Stack a list of dict or tuple samples into batched numpy arrays."""
+    if isinstance(samples[0], dict):
+        keys = keys or tuple(samples[0].keys())
+        return {k: np.stack([s[k] for s in samples]) for k in keys}
+    n_fields = len(samples[0])
+    return tuple(np.stack([s[i] for s in samples]) for i in range(n_fields))

@@ -101,7 +101,8 @@ def fused_adam(leaves, lr: float, count: int, b1: float = B1, b2: float = B2, ep
     """Adam over ``leaves``, a list of (p, m, v, g) f32 tensors; p, m and v in place.
 
     ``count`` is the step count after the increment; ``g`` may be None for a
-    leaf the loss does not reach (a zero gradient).
+    leaf the loss does not reach (a zero gradient), and may be strided (it is
+    copied to a contiguous tensor on the card; p, m and v must be contiguous).
     """
     leaves = [leaf for leaf in leaves if leaf[0].numel()]
     if not leaves:
@@ -117,6 +118,10 @@ def fused_adam(leaves, lr: float, count: int, b1: float = B1, b2: float = B2, ep
         return
     if device.type != "cuda":
         raise ValueError(f"fused_adam runs on cpu or cuda, not {device}")
+    # a gradient is only read: one that autograd returns as a strided view (a
+    # weight used through a permute) is copied to the contiguous layout the kernel reads
+    leaves = [(p, m, v, g if g is None or g.is_contiguous() else g.contiguous())
+              for p, m, v, g in leaves]
     _check_cuda_leaves(leaves, device)
     lib = _lib()
     chunk = lib.s3f_adam_chunk()

@@ -20,7 +20,11 @@ pass through shared memory once per block; lanes take 32 candidates at a
 time, a ballot finds those nearer than the list's last entry, and each is
 inserted at a popcount, the tail shifted up a lane, or, where 8 or more
 enter at once and k is at least 8, they are sorted and merged with the list
-by a bitonic network. No [B, S, N] distance tensor is written.
+by a bitonic network. No [B, S, N] distance tensor is written. Past k = 32
+(PointNet++'s MSG groups 128) a second kernel takes the call, one block a
+query: every candidate's (distance, index) pair sorted by a bitonic network
+in shared memory, in rounds of at most 4096 pairs that keep the list at the
+front, up to k = 1024.
 
 The kernel rounds every operation in a fixed order, (|q|^2 + |p|^2) - 2 q.p
 with q.p = (qx px + qy py) + qz pz, and ``knn_reference_exact`` repeats that

@@ -117,17 +117,21 @@ class ViT2D(ViTCore):
     distilled model returns the mean of ``head`` on token 0 and ``head_dist`` on
     token 1 (DeiT's inference mode). Parameter names are timm's, so a DeiT
     state dict loads as it is (utils/torch_convert.maybe_load_deit).
+    ``dtype`` is the compute dtype of the patch embedding, every block and the
+    heads (the JAX ViT2D's ``dtype``): at bf16 the tokens are bf16 from the
+    patch embedding on, and the final norm returns f32.
     """
 
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, patch_size: int = 16,
                  num_classes: int = 1000, img_size: int = 224, distilled: bool = False,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__(embed_dim, depth, num_heads, mlp_ratio, qkv_bias, generator=generator,
-                         device=device)
+                         device=device, dtype=dtype)
         self.distilled = distilled
         n_tokens = (img_size // patch_size) ** 2 + (2 if distilled else 1)
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.patch_embed = PatchEmbed2D(patch_size, 3, embed_dim, **kw)
         self.cls_token = nn.Parameter(trunc_normal((1, 1, embed_dim), 0.02, generator).to(device))
         if distilled:

@@ -25,7 +25,17 @@ models' the names ``reference_hengshuang_to_jax_tree`` reads:
 (``ni`` counts the stages and the downsamples before them, ``bj`` skips the
 PEG after block 0), ``stage{i}_peg`` is ``network.{ni}.1.proj.0`` (DHWIO ->
 [C, 1, 3, 3, 3]) and ``downsample{i}/proj/kernel`` [p^3 Ci, Co] is
-``network.{ni + 1}.proj.weight`` [Co, Ci, p, p, p]. flax BatchNorm
+``network.{ni + 1}.proj.weight`` [Co, Ci, p, p, p]. The other set
+abstractions: RelPos's ``pos_embed_{i}`` is ``pos_embeds.{i}`` (its ``fc1`` /
+``fc2`` Linears), MSG's ``branch{i}_mlp{j}/conv`` and ``/bn`` are
+``conv_blocks.{i}.{j}`` and ``bn_blocks.{i}.{j}``; ``PointEmbed`` keeps the
+JAX names (``conv1.conv.weight`` [64, C, 1], ``conv1.bn``). The legacy voxel
+model (``FeatureVoxel2DViT``) keeps the JAX names too: ``conv3d_{i}_kernel``
+(DHWIO) is ``conv3d_{i}.weight`` [out, in, k, k, k], the decoder's flax Conv
+kernels (HWIO) Conv2d weights [out, in, 3, 3], its ConvTranspose kernel
+[2, 2, in, out] the ConvTranspose2d weight [in, out, 2, 2] with both spatial
+axes flipped, and ``transformer/...`` a ViT2D's leaves under ``transformer.``.
+flax BatchNorm
 ``scale`` / ``bias`` become ``weight`` / ``bias``, and the ``batch_stats``
 tree's ``mean`` / ``var`` the ``running_mean`` / ``running_var`` buffers.
 Leaves may be numpy or jax arrays; nothing here imports jax.
@@ -71,11 +81,15 @@ def _point_parts(parts: list[str], like: Mapping[str, torch.Tensor]) -> list[str
         p = re.sub(r"^(transition_downs|transition_ups|transformers)_(\d+)$", r"\1.\2", p)
         p = re.sub(r"^up_transformers_(\d+)$", r"transformers.\1", p)  # Hengshuang seg
         p = {"fc1_1": "fc1.0", "fc1_2": "fc1.2"}.get(p, p)  # the Hengshuang stem
+        p = re.sub(r"^pos_embed_(\d+)$", r"pos_embeds.\1", p)  # RelPos set abstraction
         m = re.match(r"^mlp_(\d+)$", p)
+        msg = re.match(r"^branch(\d+)_mlp(\d+)$", p)  # MSG set abstraction
         head = re.match(r"^fc(\d+)$", p) if i == 1 and prev in ("fc2", "fc3") else None
         if m and nxt in ("conv", "bn"):  # a shared MLP layer: the conv and BN lists
             p = f"mlp_{'convs' if nxt == 'conv' else 'bns'}.{m.group(1)}"
-        elif p in ("conv", "bn") and prev.startswith("mlp_"):
+        elif msg and nxt in ("conv", "bn"):
+            p = f"{nxt}_blocks.{msg.group(1)}.{msg.group(2)}"
+        elif p in ("conv", "bn") and re.match(r"^(mlp_\d+|branch\d+_mlp\d+)$", prev):
             continue
         elif p in ("fc", "bn") and prev in ("fc1", "fc2"):  # LinearBNReLU: Sequential 0, 2
             p = "0" if p == "fc" else "2"
@@ -123,8 +137,42 @@ def _vip3d_name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.T
     return ".".join([*parts, leaf]), v.T if path[-1] == "kernel" else v
 
 
+def _legacy_name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.Tensor]):
+    """A FeatureVoxel2DViT leaf that the shared rules do not cover -> (key,
+    array), else None: the 3D convs (DHWIO -> Conv3d [out, in, k, k, k]) and
+    the ViT, whose leaves are converted as a ViT2D's under ``transformer.``."""
+    m = re.fullmatch(r"(conv3d_\d+)_(kernel|bias)", path[0])
+    if m:
+        if m.group(2) == "bias":
+            return f"{m.group(1)}.bias", v
+        return f"{m.group(1)}.weight", v.transpose(4, 3, 0, 1, 2)
+    if path[0] == "transformer":
+        sub = {k[len("transformer."):]: t for k, t in like.items()
+               if k.startswith("transformer.")}
+        key, v = _name_and_value(path[1:], v, sub)
+        return f"transformer.{key}", v
+    return None
+
+
+def _conv2d_name_and_value(path: tuple, v: np.ndarray):
+    """A flax 2D conv kernel (the legacy model's decoder): HWIO -> Conv2d
+    [out, in, 3, 3]; the ConvTranspose's [2, 2, in, out] -> ConvTranspose2d
+    [in, out, 2, 2] with both spatial axes flipped, since flax puts x[i] K[1 - a]
+    at output 2i + a and torch x[i] w[a]."""
+    key = ".".join([*path[:-1], "weight"])
+    if path[-2] == "deconv":
+        return key, v.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    return key, v.transpose(3, 2, 0, 1)
+
+
 def _name_and_value(path: tuple, v: np.ndarray, like: Mapping[str, torch.Tensor]):
     """One JAX leaf -> (state-dict key, array in the port's layout)."""
+    if "fc_bn.running_mean" in like:  # the legacy voxel model
+        legacy = _legacy_name_and_value(path, v, like)
+        if legacy is not None:
+            return legacy
+    if path[-1] == "kernel" and v.ndim == 4:
+        return _conv2d_name_and_value(path, v)
     vip = _vip3d_name_and_value(path, v, like)
     if vip is not None:
         return vip

@@ -147,6 +147,21 @@ def test_adam_kernel_matches_plain(device):
             assert torch.equal(a, b)
 
 
+def test_adam_kernel_takes_a_strided_gradient(device):
+    """A gradient that autograd returns as a transposed view (a weight used
+    through a permute, as ViT2D's patch embedding uses its Conv2d weight)."""
+    rs = torch.Generator().manual_seed(3)
+    p, g = torch.randn(64, 48, generator=rs).to(device), torch.randn(48, 64, generator=rs)
+    g = g.to(device).t()
+    assert not g.is_contiguous()
+    leaf = (p, torch.zeros_like(p), torch.zeros_like(p), g)
+    want = adam_reference(*leaf, 1e-3, 1)
+    fused_adam([leaf], 1e-3, 1)
+    torch.cuda.synchronize()
+    for a, b in zip(leaf[:3], want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("label,b,n,npoint", FPS_SHAPES, ids=[s[0] for s in FPS_SHAPES])
 def test_fps_kernel_matches_plain(device, label, b, n, npoint):
     import numpy as np

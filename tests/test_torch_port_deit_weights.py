@@ -27,6 +27,8 @@ from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbed
 from simple3dformer_tpu_torch.utils import convert
 from simple3dformer_tpu_torch.utils import torch_convert as ptc
 
+from _torch_port_numpy_init import numpy_variables
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -72,27 +74,24 @@ def jax_and_port(kind):
         distilled = "distilled" in kind
         img = 48 if "48" in kind else 32
         jm = jvit.ViT2D(**SMALL, img_size=img, distilled=distilled)
-        params = jm.init(jax.random.key(0), jnp.zeros((1, img, img, 3)))["params"]
+        params, _ = numpy_variables(jm, jnp.zeros((1, img, img, 3)))
         pm = pvit.ViT2D(SMALL["embed_dim"], SMALL["depth"], SMALL["num_heads"], img_size=img,
                         distilled=distilled)
     elif kind in ("3DViT", "3DViT_1_layer"):
         jm = jpv.PointViT(variant=kind, task="seg", num_point=32, num_class=50, input_dim=22,
                           nneighbor=4, img_size=32)
         x = jnp.zeros((2, 32, 22))
-        init = (jm.init if kind == "3DViT" else
-                lambda k, a: jm.init(k, a, rs_img, method=jm.init_all))
-        variables = jax.jit(init)(jax.random.key(0), x)
-        params = variables["params"]
+        params, stats = (numpy_variables(jm, x) if kind == "3DViT" else
+                         numpy_variables(jm, x, rs_img, method=jm.init_all))
         pm = ppv.PointViT(kind, "seg", 32, 50, input_dim=22, nneighbor=4, img_size=32)
-        convert.load_jax_params(pm, jax.device_get(params), jax.device_get(
-            variables["batch_stats"]))
-        return jax.device_get(params), pm
+        convert.load_jax_params(pm, params, stats)
+        return params, pm
     else:
         emb = JaxVoxelEmbed(voxel_size=12, cell_size=4, patch_size=3, embed_dim=192)
         jm = JaxVoxelViT(voxel_embed=emb, n_classes=5,
                          transformer_backbone="deit_tiny_patch16_224", img_size=32)
-        params = jm.init(jax.random.key(0), jnp.zeros((2, 12, 12, 12)), rs_img,
-                         method=JaxVoxelViT.init_all)["params"]
+        params, _ = numpy_variables(jm, jnp.zeros((2, 12, 12, 12)), rs_img,
+                                    method=JaxVoxelViT.init_all)
         pm = VoxelViT(VoxelEmbed(voxel_size=12, cell_size=4, patch_size=3, embed_dim=192),
                       n_classes=5, transformer_backbone="deit_tiny_patch16_224", img_size=32)
     params = jax.device_get(params)

@@ -43,6 +43,7 @@ from simple3dformer_tpu_torch.serve.predictor import Predictor
 from simple3dformer_tpu_torch.utils.convert import load_jax_params
 
 import _torch_parallel_worker as W
+from _torch_port_numpy_init import numpy_variables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, N, K = 2, 64, 8
@@ -127,19 +128,6 @@ def test_fake_implementations_need_no_data():
         fps.fps(torch.zeros(B, N, 3), 4, torch.tensor([0, N], dtype=torch.int32))
 
 
-def _perturbed(tree, seed, scale):
-    rs = np.random.RandomState(seed)
-    return jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32) + scale * rs.randn(*np.shape(a)).astype(np.float32),
-        jax.device_get(tree))
-
-
-def _positive_stats(tree, seed):
-    rs = np.random.RandomState(seed)
-    return jax.tree_util.tree_map(
-        lambda a: (0.5 + rs.rand(*np.shape(a))).astype(np.float32), jax.device_get(tree))
-
-
 def _clouds(seed, c):
     rs = np.random.RandomState(seed)
     x = rs.randn(B, N, c).astype(np.float32)
@@ -148,8 +136,7 @@ def _clouds(seed, c):
 
 
 def _pointvit(variant, task, num_class, in_dim):
-    """A 3DViT variant on a two-block, 96-wide backbone (the JAX init compiles
-    in a few seconds)."""
+    """A 3DViT variant on a two-block, 96-wide backbone."""
     W.register_tiny()
     jax_vit.BACKBONES.setdefault("dp_tiny", W.TINY)
     kw = dict(num_point=N, num_class=num_class, input_dim=in_dim, nneighbor=K,
@@ -218,9 +205,7 @@ def exported(tmp_path_factory):
         for i, (name, (make, in_dim, _, _)) in enumerate(CASES.items()):
             jm, pm = make()
             x = _clouds(10 + i, in_dim)
-            variables = jax.jit(jm.init)(jax.random.key(i), jnp.zeros((B, N, in_dim)))
-            params = _perturbed(variables["params"], 20 + i, 0.02)
-            stats = _positive_stats(variables.get("batch_stats", {}), 30 + i)
+            params, stats = numpy_variables(jm, jnp.zeros((B, N, in_dim)), seed=20 + i)
             load_jax_params(pm, params, stats)
             want = np.asarray(jax.jit(jm.apply)({"params": params, "batch_stats": stats},
                                                 jnp.asarray(x)), np.float32)

@@ -31,7 +31,9 @@ NEW_ENTRY_POINTS = ("models.vip3d", "cli.train_pure_mlp", "utils.attention_rollo
                     # data parallelism and ZeRO-1 over torch.distributed
                     "parallel.mesh", "parallel.zero",
                     # tensor, pipeline and sequence parallelism
-                    "parallel.tp", "parallel.pp", "parallel.sp")
+                    "parallel.tp", "parallel.pp", "parallel.sp",
+                    # the modules no CLI reaches
+                    "models.legacy_voxel", "nn.point_embed", "data.voxel_augment", "data.cad")
 
 
 def test_port_imports_no_jax():

@@ -19,6 +19,8 @@ from simple3dformer_tpu_torch.models.voxel_vit import VoxelViT
 from simple3dformer_tpu_torch.nn.voxel_embed import VoxelEmbed
 from simple3dformer_tpu_torch.utils.convert import jax_to_state_dict, load_jax_params
 
+from _torch_port_numpy_init import numpy_variables
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -92,9 +94,8 @@ def test_voxelvit_matches_jax(head, pos_embedding, tree):
 def test_converter_matches_refbridge_export():
     jm = jax_model()
     x = jnp.zeros((2, V, V, V))
-    variables = jm.init(jax.random.key(3), x, jnp.zeros((1, IMG, IMG, 3)),
-                        method=JaxVoxelViT.init_all)
-    params = perturbed(variables["params"], seed=4)
+    params, _ = numpy_variables(jm, x, jnp.zeros((1, IMG, IMG, 3)), seed=4,
+                                method=JaxVoxelViT.init_all)
     want = _refbridge().export_voxelvit_state_dict(params, cell_size=CELL)
     pm = port_model()
     got = jax_to_state_dict(params, pm.state_dict())

@@ -22,6 +22,8 @@ from simple3dformer_tpu_torch.nn.set_abstraction import (PointNetFeaturePropagat
                                                          PointNetSetAbstraction)
 from simple3dformer_tpu_torch.utils.convert import jax_to_state_dict, load_jax_params
 
+from _torch_port_numpy_init import numpy_variables
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -184,9 +186,7 @@ def point_models():
                               input_dim=IN_DIM, nneighbor=K)
             pm = ppv.PointViT(variant, task, N, 50, input_dim=IN_DIM, nneighbor=K)
             x = cloud(seed, B, N, IN_DIM)
-            variables = jax.jit(jm.init)(jax.random.key(seed), jnp.asarray(x))
-            params = perturbed(variables["params"], seed + 1, 0.02)
-            stats = positive_stats(variables.get("batch_stats", {}), seed + 2)
+            params, stats = numpy_variables(jm, jnp.asarray(x), seed=seed + 1)
             built[variant, task] = jm, pm, x, params, stats
         jm, pm, x, params, stats = built[variant, task]
         missing = load_jax_params(pm, params, stats)
@@ -224,9 +224,8 @@ def test_other_variants_match_jax_in_eval(point_models, variant):
     assert "new_head.weight" in pm.state_dict() and "head.weight" in pm.state_dict()
     # the 2D pathway (LwF): a JAX tree with it, the image logits in eval mode
     images = cloud(5, 1, 224, 224, 3)
-    variables = jax.jit(lambda k, a, b: jm.init(k, a, b, method=jm.init_all))(
-        jax.random.key(4), jnp.asarray(x), jnp.asarray(images))
-    full = perturbed(variables["params"], 6, 0.02)
+    full, _ = numpy_variables(jm, jnp.asarray(x), jnp.asarray(images), seed=6,
+                              method=jm.init_all)
     load_jax_params(pm, full, stats)
     with torch.no_grad():
         got = pm.eval().forward_images(torch.from_numpy(images)).numpy()

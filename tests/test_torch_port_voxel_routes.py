@@ -40,6 +40,8 @@ from simple3dformer_tpu_torch.train.loop import TrainState, make_train_step
 from simple3dformer_tpu_torch.utils import convert
 from simple3dformer_tpu_torch.utils.convert import jax_to_state_dict, load_jax_params
 
+from _torch_port_numpy_init import numpy_variables
+
 BF = torch.bfloat16
 # 27^3 grids, cell 9 -> a 3 x 3 x 3 token grid: group_embed runs 9 pillars of
 # 3 + 1 tokens a sample, weight_sharing 3 z-slices of 9 + 1
@@ -249,9 +251,8 @@ def _refbridge():
 
 def test_converter_matches_refbridge_export_for_group_embed():
     jm = jax_model("group_embed")
-    variables = jm.init(jax.random.key(3), jnp.zeros((B, V, V, V)),
-                        jnp.zeros((1, IMG, IMG, 3)), method=JaxVoxelViT.init_all)
-    params = perturbed(variables["params"], seed=4)
+    params, _ = numpy_variables(jm, jnp.zeros((B, V, V, V)), jnp.zeros((1, IMG, IMG, 3)), seed=4,
+                                method=JaxVoxelViT.init_all)
     want = _refbridge().export_voxelvit_state_dict(params, cell_size=CELL)
     pm = port_model("group_embed")
     got = jax_to_state_dict(params, pm.state_dict())
@@ -276,7 +277,8 @@ def test_converter_refuses_mismatched_group_and_hybrid_trees():
     with pytest.raises(KeyError, match="no such parameter"):
         jax_to_state_dict({"group_embed": {"linear3": {"bias": np.zeros(D, np.float32)}}}, like)
     with pytest.raises(KeyError, match="lacks"):
-        load_jax_params(pm, jax_params(jax_model("weight_sharing")))  # no group leaves
+        load_jax_params(pm, numpy_variables(jax_model("weight_sharing"),
+                                            jnp.zeros((B, V, V, V)))[0])  # no group leaves
     hybrid = {f"voxel_embed.{k}": v for k, v in VoxelEmbedHybrid(32, 1, 64).state_dict().items()}
     with pytest.raises(ValueError, match="voxel_embed.conv1.weight: shape"):
         jax_to_state_dict({"voxel_embed": {"conv1_kernel": np.zeros((3, 3, 3, 1, 32),
@@ -287,9 +289,8 @@ def test_pretrained_mask_keeps_the_group_parameters_trainable():
     """``--pretrained`` freezes the 2D head, pos embed and patch embed only: the
     group encoder and its embeddings train, as the JAX package's mask says."""
     jm = jax_model("group_embed")
-    variables = jm.init(jax.random.key(3), jnp.zeros((B, V, V, V)),
-                        jnp.zeros((1, IMG, IMG, 3)), method=JaxVoxelViT.init_all)
-    params = jax.device_get(variables["params"])
+    params, _ = numpy_variables(jm, jnp.zeros((B, V, V, V)), jnp.zeros((1, IMG, IMG, 3)),
+                                method=JaxVoxelViT.init_all)
     pm = port_model("group_embed")
     ours, like = frozen_mask(pm, True), pm.state_dict()
     jmask = jax_frozen_mask(params, True)
