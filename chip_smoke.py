@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with a Hopper card and nvcc:
 
 Phases, one line each (and a line per kernel shape):
   1. device   the card's name and power limit; TF32 off for the plain versions
-  2. build    every csrc/*.cu with nvcc (all started together), seconds; the
+  2. build    every csrc/*.cu with nvcc and the three host C++ libraries
+              (the binvox ingest, the voxelizer, the viewer) with g++, all
+              started together, seconds; the
               registers and spills of each instantiation of the tensor-core GEMM
               core (tc_gemm_kernel): the vector-attention forwards' and
               backwards', and the ViT block's (by GEMM and route); and of
@@ -60,8 +62,8 @@ Phases, one line each (and a line per kernel shape):
               yardstick), and the kernels' TFLOP/s
  10. S3DIS    the 3DViT_s3dis semantic-segmentation model (deit_base, 3 heads,
               N=4096 points -> 1025 tokens, 13 classes, B=4, f32, SGD): the block
-              routes; 3 steps on the card against the CPU's plain path at
-              B=1; the S3DIS
+              routes; 2 steps on the card against the CPU's plain path at
+              B=1 through 4 of the 12 blocks; the S3DIS
               CLI on its synthetic stream (finite losses, epoch and eval lines,
               launch counts of every kernel of the path, no fused block); a
               learnability run (labels a function of the points); ms per step,
@@ -110,7 +112,8 @@ Phases, one line each (and a line per kernel shape):
               matmuls against their plain versions; partseg (fused bf16 blocks)
               and S3DIS (the mhsa kernels on bf16 q, k, v, no plain attention) at
               dtype=bf16: 3 and 2 steps card vs CPU, the CLI with its launch counts, ms
-              a step and a profile; the bf16 mhsa pair's device time a call
+              a step and a profile (S3DIS's card-vs-CPU steps through 4 of the
+              12 blocks); the bf16 mhsa pair's device time a call
               beside scaled_dot_product_attention's at the S3DIS shape
  19. flagship bf16  the voxel CLI at --dtype bf16 with Adam's second moment
               in bf16: the loss falls over 40 steps, launch counts; ms a step
@@ -191,6 +194,12 @@ Phases, one line each (and a line per kernel shape):
               B=32 with the device time by part; the two-layer head, bf16 and
               128^3 routes; PointNet++ MSG (ball and kNN, k up to 128), RelPos
               and PointEmbed forward and backward card vs CPU, launch counts
+ 27. data tools -> flagship  procedural OFF and OBJ meshes (box, octahedron,
+              pyramid, cylinder as four ModelNet40 classes, 64 train and 16
+              test each) -> binvox at 30^3 by tools.voxelize -> the native
+              ingest (bit-equal to the numpy codec, the mixed-dims IOError,
+              files/s at 128^3) -> train_cls_voxel at the flagship's width for
+              5 epochs (the loss falls, launch counts) -> the viewer's render
 Each phase ends with a line "phase <name>: <seconds> s". Then a JSON line of
 the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that
@@ -200,6 +209,7 @@ line. Without a card, or outside a checkout, it exits non-zero at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import http.client
 import json
@@ -252,13 +262,23 @@ def nvidia_smi() -> str:
 
 
 def phase_build():
+    from simple3dformer_tpu_torch.core import host_build
+    from simple3dformer_tpu_torch.data import native_ingest
     from simple3dformer_tpu_torch.kernels.build import CSRC, build
+    from simple3dformer_tpu_torch.tools import view_voxels, voxelize
 
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    hosts = [("ingest", native_ingest.SOURCE, host_build.INGEST_FLAGS),
+             ("voxelizer", voxelize.SOURCE, host_build.VOXELIZER_FLAGS),
+             ("viewer", view_voxels.SOURCE, host_build.VIEWER_FLAGS)]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+    with ThreadPoolExecutor(max_workers=len(names) + len(hosts)) as pool:
+        host_results = [pool.submit(host_build.build, src, flags) for _, src, flags in hosts]
         results = dict(zip(names, pool.map(build, names)))
+        host_results = [r.result() for r in host_results]
     wall = time.perf_counter() - t0
+    for (name, _, flags), (path, seconds, _) in zip(hosts, host_results):
+        print(f"build host {name}: {seconds:.1f} s g++ {' '.join(flags)}, {path.name}")
     for name, (path, seconds, log) in results.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
@@ -272,7 +292,7 @@ def phase_build():
             elif name in ("fps", "knn") or any(k in kernel for k in ATTENTION_GROUPS):
                 print(f"build {name}: {template_label(kernel)}: {nregs} registers, "
                       f"{nspill} bytes spill stores")
-    print(f"build: {len(names)} sources in {wall:.1f} s")
+    print(f"build: {len(names)} CUDA and {len(hosts)} host sources in {wall:.1f} s")
 
 
 def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
@@ -1653,6 +1673,10 @@ CPU_PARITY_STEPS = 2
 # the card-vs-CPU steps at B=1, as phase 18's bf16 S3DIS steps (B=4 took 61 s
 # of the CPU: the depth given up for phase 26)
 S3DIS_PARITY_B = 1
+# and through 4 of the 12 blocks, as phase 21's group_embed steps, here at
+# CPU_PARITY_STEPS steps, not 3 (all 12 blocks took 18.3 s of the CPU here at 3
+# steps and 23.3 s in phase 18 at 2: the depth given up for phase 27)
+S3DIS_PARITY_DEPTH = 4
 S3DIS_SAMPLES, S3DIS_EPOCHS = 16, 2  # 4 train steps and 4 eval batches an epoch
 # learnability: labels a function of the points (13 height bins of feature 2),
 # SGD at this lr (not the config's 0.5; see PERF.md)
@@ -1669,13 +1693,16 @@ def s3dis_config(**overrides):
     return cfg
 
 
-def s3dis_trainer(torch, device):
+def s3dis_trainer(torch, device, depth=None):
+    """3DViT_s3dis with SGD; ``depth``: only the first blocks."""
     from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
     from simple3dformer_tpu_torch.models.registry import make_point_model
     from simple3dformer_tpu_torch.train.loop import TrainState
     from simple3dformer_tpu_torch.train.optim import make_optimizer
 
     model = make_point_model(s3dis_config(), "seg", generator=generator(DEFAULT_SEED)).to(device)
+    if depth is not None:
+        model.blocks = model.blocks[:depth]
     return TrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"))
 
 
@@ -1704,19 +1731,21 @@ def phase_s3dis(torch):
     if routes != {"flagship": "fused", "partseg": "fused", "S3DIS": "layered"}:
         raise AssertionError(f"block routes {routes}")
 
-    # 3 steps on the card and on the CPU's plain path, same weights and batches
-    pb = S3DIS_PARITY_B
-    (xs, ys), _ = ts.load_arrays(s3dis_config(synthetic=3 * pb))
+    # CPU_PARITY_STEPS steps on the card and on the CPU's plain path, same
+    # weights and batches
+    pb, depth, n_steps = S3DIS_PARITY_B, S3DIS_PARITY_DEPTH, CPU_PARITY_STEPS
+    (xs, ys), _ = ts.load_arrays(s3dis_config(synthetic=n_steps * pb))
     losses, seconds = {}, {}
     for device in ("cuda", "cpu"):
-        step = make_train_step(s3dis_trainer(torch, device), seg_cross_entropy)
+        step = make_train_step(s3dis_trainer(torch, device, depth), seg_cross_entropy)
         t0 = time.perf_counter()
         losses[device] = [float(step({"x": torch.from_numpy(xs[i * pb:(i + 1) * pb]).to(device),
                                       "y": torch.from_numpy(ys[i * pb:(i + 1) * pb]).to(device)},
-                                     lr)["loss"]) for i in range(3)]
+                                     lr)["loss"]) for i in range(n_steps)]
         seconds[device] = time.perf_counter() - t0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
-    print(f"S3DIS training: 3 steps at B={pb}, N={SN}, deit_base, lr {lr}: losses on the card "
+    print(f"S3DIS training: {n_steps} steps at B={pb}, N={SN}, deit_base, {depth} of the 12 blocks, "
+          f"lr {lr}: losses on the card "
           f"{losses['cuda']} vs the CPU's plain path {losses['cpu']} (rtol 1e-3); "
           f"{seconds['cuda']:.1f} s on the card, {seconds['cpu']:.1f} s on the CPU")
 
@@ -2505,7 +2534,8 @@ def seg_config(task, **overrides):
     return load_task_config(task, [f"{k}={v}" for k, v in overrides.items()])
 
 
-def seg_trainer(torch, cfg, num_class, in_dim, device, dtype=None):
+def seg_trainer(torch, cfg, num_class, in_dim, device, dtype=None, depth=None):
+    """A segmentation model of ``cfg`` with SGD; ``depth``: a 3DViT's first blocks only."""
     from simple3dformer_tpu_torch.core.rng import DEFAULT_SEED, generator
     from simple3dformer_tpu_torch.models.registry import make_point_model
     from simple3dformer_tpu_torch.train.loop import TrainState
@@ -2514,6 +2544,8 @@ def seg_trainer(torch, cfg, num_class, in_dim, device, dtype=None):
     cfg.num_class, cfg.input_dim = num_class, in_dim
     model = make_point_model(cfg, "seg", dtype=dtype, generator=generator(DEFAULT_SEED))
     model = model.to(device)
+    if depth is not None:
+        model.blocks = model.blocks[:depth]
     return TrainState(model, make_optimizer(dict(model.named_parameters()), "SGD"))
 
 
@@ -2701,12 +2733,17 @@ def phase_point_vit_bf16(torch):
         label = f"3DViT {which} bf16"
         lr = float(seg_config(task).learning_rate)
 
-        def make_state(device, task=task, classes=classes, in_dim=in_dim):
-            return seg_trainer(torch, seg_config(task), classes, in_dim, device, torch.bfloat16)
+        def make_state(device, task=task, classes=classes, in_dim=in_dim, depth=None):
+            return seg_trainer(torch, seg_config(task), classes, in_dim, device, torch.bfloat16,
+                               depth)
 
         xs, ys = seg_arrays(which.lower(), 3 * parity_b)
-        seg_parity(torch, label, make_state, xs, ys, parity_b, lr, True,
-                   S3DIS_SEG_PARITY_STEPS if which == "S3DIS" else 3)
+        if which == "S3DIS":  # 4 of the 12 blocks, as phase 10's steps
+            seg_parity(torch, f"{label} ({S3DIS_PARITY_DEPTH} of the 12 blocks)",
+                       lambda device: make_state(device, depth=S3DIS_PARITY_DEPTH), xs, ys,
+                       parity_b, lr, True, S3DIS_SEG_PARITY_STEPS)
+        else:
+            seg_parity(torch, label, make_state, xs, ys, parity_b, lr, True)
         plain_before = Attention.plain_calls
         _, lines, launches, saved = run_cli(
             tp.main if which == "partseg" else ts.main,
@@ -5459,6 +5496,216 @@ def phase_legacy_points(torch) -> dict:
     return dict(launches)
 
 
+# phase 27: four ModelNet40 classes of procedural solids, 64 train and 16 test
+# meshes each, voxelized at the flagship's 30^3 (cli/train_cls_voxel.py:143);
+# the ingest timed on 256 files of 128^3 (ShapeNetV2's grid)
+TOOL_CLASSES = {"dresser": "box", "vase": "octahedron", "tent": "pyramid", "bottle": "cylinder"}
+TOOL_SPLITS, TOOL_DIM, TOOL_EPOCHS = {"train": 64, "test": 16}, 30, 5
+INGEST_FILES, INGEST_DIM, INGEST_MESHES = 256, 128, 16
+
+
+def solid_mesh(kind, rs):
+    """A closed polyhedron ``kind`` at a random scale on each axis and a random
+    rotation: (verts [V, 3], faces as vertex lists)."""
+    if kind == "box":
+        verts = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)], float)
+        faces = [[0, 1, 3, 2], [4, 6, 7, 5], [0, 4, 5, 1], [2, 3, 7, 6], [0, 2, 6, 4],
+                 [1, 5, 7, 3]]
+    elif kind == "octahedron":
+        verts = np.concatenate([np.eye(3), -np.eye(3)])
+        faces = [[0, 1, 2], [1, 3, 2], [3, 4, 2], [4, 0, 2], [1, 0, 5], [3, 1, 5], [4, 3, 5],
+                 [0, 4, 5]]
+    elif kind == "pyramid":
+        verts = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0], [0, 0, 1.5]], float)
+        faces = [[3, 2, 1, 0], [0, 1, 4], [1, 2, 4], [2, 3, 4], [3, 0, 4]]
+    else:  # a cylinder: a 24-gon prism
+        a = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+        ring = np.stack([np.cos(a), np.sin(a)], 1)
+        verts = np.concatenate([np.c_[ring, -np.ones(24)], np.c_[ring, np.ones(24)]])
+        faces = [list(range(23, -1, -1)), list(range(24, 48))]
+        faces += [[i, (i + 1) % 24, 24 + (i + 1) % 24, 24 + i] for i in range(24)]
+    q, _ = np.linalg.qr(rs.randn(3, 3))
+    return (verts * rs.uniform(0.6, 1.4, 3)) @ q.T + rs.randn(3), faces
+
+
+def write_mesh(path, verts, faces):
+    """An OFF or an OBJ file, by the path's extension."""
+    with open(path, "w") as f:
+        if path.endswith(".off"):
+            f.write(f"OFF\n{len(verts)} {len(faces)} 0\n")
+            f.writelines(f"{x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in verts)
+            f.writelines(f"{len(fc)} {' '.join(map(str, fc))}\n" for fc in faces)
+        else:
+            f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in verts)
+            f.writelines(f"f {' '.join(str(i + 1) for i in fc)}\n" for fc in faces)
+
+
+def write_mesh_tree(root, seed):
+    """The ModelNet40 tree of procedural meshes, <class>/<split>/<class>_<n>.off
+    (even n) or .obj (odd n); -> the number of meshes."""
+    import os
+
+    rs, n = np.random.RandomState(seed), 0
+    for cls, kind in TOOL_CLASSES.items():
+        for split, count in TOOL_SPLITS.items():
+            os.makedirs(os.path.join(root, cls, split))
+            for i in range(count):
+                write_mesh(os.path.join(root, cls, split, f"{cls}_{i:04d}.{'obj' if i % 2 else 'off'}"),
+                           *solid_mesh(kind, rs))
+                n += 1
+    return n
+
+
+@contextlib.contextmanager
+def ingest_route(native):
+    """The native ingest (``native``) or, under S3F_NATIVE_INGEST=0, the numpy codec."""
+    import os
+
+    os.environ["S3F_NATIVE_INGEST"] = "1" if native else "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("S3F_NATIVE_INGEST")
+
+
+def ingest_timing(directory):
+    """materialize of INGEST_FILES binvox files of INGEST_DIM^3 (tool-made from
+    INGEST_MESHES meshes, each file copied to fill the count; warm in the page
+    cache) at threads=None, threads=1 and through the numpy codec: files/s,
+    the three arrays bit-equal."""
+    import os
+    import shutil
+
+    from simple3dformer_tpu_torch.data import native_ingest
+    from simple3dformer_tpu_torch.tools import voxelize
+
+    rs, made = np.random.RandomState(271), []
+    for i in range(INGEST_MESHES):
+        mesh = os.path.join(directory, f"m{i}.off")
+        write_mesh(mesh, *solid_mesh(list(TOOL_CLASSES.values())[i % 4], rs))
+        made.append(voxelize.mesh_to_binvox(mesh, dim=INGEST_DIM))
+    paths = []
+    for i in range(INGEST_FILES):
+        paths.append(os.path.join(directory, f"g{i:04d}.binvox"))
+        shutil.copyfile(made[i % INGEST_MESHES], paths[-1])
+    mib = os.path.getsize(paths[0]) * INGEST_FILES / 2**20
+    out, rates = {}, {}
+    for label, threads, native in (("threads=None", None, True), ("threads=1", 1, True),
+                                   ("numpy codec", None, False)):
+        with ingest_route(native):
+            t0 = time.perf_counter()
+            out[label] = native_ingest.materialize(paths, threads=threads)
+            rates[label] = INGEST_FILES / (time.perf_counter() - t0)
+    same = all(np.array_equal(out["numpy codec"], x) for x in out.values())
+    print(f"ingest: materialize of {INGEST_FILES} binvox files of {INGEST_DIM}^3 "
+          f"({out['numpy codec'].nbytes / 2**20:.0f} MiB dense, {mib:.1f} MiB of files, warm in "
+          f"the page cache) on the host, os.cpu_count() {os.cpu_count()}: "
+          + ", ".join(f"{k} {v:.1f} files/s" for k, v in rates.items())
+          + f"; the library {rates['threads=None'] / rates['numpy codec']:.2f}x the numpy codec "
+          f"on every CPU, {rates['threads=1'] / rates['numpy codec']:.2f}x on one; the three "
+          f"arrays bit-equal {same}")
+    if not same or not out["numpy codec"].any():
+        raise AssertionError("the ingest's arrays differ from the numpy codec's")
+    return rates
+
+
+def phase_tools(torch):
+    """Phase 27: meshes -> binvox with tools.voxelize -> the native ingest ->
+    the flagship trained on the card from the tool-made tree, and the viewer.
+    Returns the launches of the CLI run."""
+    import os
+    import shutil
+    import tempfile
+
+    from simple3dformer_tpu_torch.cli import train_cls_voxel
+    from simple3dformer_tpu_torch.data import datasets
+    from simple3dformer_tpu_torch.data.classmaps import CLASSES_ModelNet40
+    from simple3dformer_tpu_torch.tools import view_voxels, voxelize
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "ModelNet40")
+        n_meshes = write_mesh_tree(root, seed=27)
+        t1 = time.perf_counter()
+        binvox_paths = voxelize.convert_tree(root, dim=TOOL_DIM)
+        seconds = time.perf_counter() - t1
+        print(f"tools: {n_meshes} procedural meshes (OFF and OBJ; {', '.join(TOOL_CLASSES.values())} "
+              f"as {', '.join(TOOL_CLASSES)}) -> {len(binvox_paths)} binvox files of "
+              f"{TOOL_DIM}^3 by tools.voxelize.convert_tree in {seconds:.2f} s")
+        if len(binvox_paths) != n_meshes:
+            raise AssertionError(f"convert_tree converted {len(binvox_paths)} of {n_meshes}")
+
+        # (b) the ingest: bit-equal to the numpy codec, the JAX package's errors
+        train = datasets.ModelNetVoxelDataset(root, CLASSES_ModelNet40, "train")
+        x, y = train.materialize()
+        with ingest_route(native=False):
+            x_np, y_np = train.materialize()
+        occupancy = {CLASSES_ModelNet40[c]: float(x[y == c].mean()) for c in np.unique(y)}
+        print(f"ingest: the train split {x.shape} {x.dtype} through the library, bit-equal to "
+              f"the numpy codec {np.array_equal(x, x_np) and np.array_equal(y, y_np)}; "
+              f"occupancy by class {occupancy}")
+        if x.shape != (len(TOOL_CLASSES) * TOOL_SPLITS["train"],) + (TOOL_DIM,) * 3 \
+                or not np.array_equal(x, x_np) or not np.array_equal(y, y_np) \
+                or min(occupancy.values()) <= 0:
+            raise AssertionError("the ingest's train split differs from the numpy codec's")
+        mixed = os.path.join(work, "mixed")
+        os.makedirs(os.path.join(mixed, "tent", "train"))
+        odd = os.path.join(mixed, "tent", "train", "tent_0001.binvox")
+        voxelize.mesh_to_binvox(os.path.join(root, "tent", "train", "tent_0000.off"), odd, dim=32)
+        shutil.copyfile(train.samples[0], os.path.join(mixed, "tent", "train", "tent_0000.binvox"))
+        want = f"{odd}: grid dims do not match the expected dims"
+        for native in (True, False):
+            with ingest_route(native):
+                try:
+                    datasets.ModelNetVoxelDataset(mixed, CLASSES_ModelNet40, "train").materialize()
+                except OSError as e:
+                    if str(e) != want:
+                        raise AssertionError(f"mixed dims raised {e!r}, want {want!r}") from e
+                else:
+                    raise AssertionError("a split of mixed dims did not raise")
+        print(f"ingest: a split with one {32}^3 file among {TOOL_DIM}^3 raises OSError "
+              f"'{want[len(odd) + 2:]}' naming the file, through the library and the numpy codec")
+        ingest_dir = os.path.join(work, "ingest")
+        os.makedirs(ingest_dir)
+        ingest_timing(ingest_dir)
+
+        # (c) the flagship on the tool-made tree, through the CLI
+        argv = ["--dataset", "ModelNet40", "--data-root", root, "--transformer-name", BACKBONE,
+                "--cell-size", str(CELL), "--patch-size", str(PATCH), "--batchSize", str(BATCH),
+                "--epochs", str(TOOL_EPOCHS)]
+        _, lines, launches, saved = run_cli(train_cls_voxel.main, lambda d: [*argv, "--outf", d],
+                                            voxel_counters())
+        steps = TOOL_EPOCHS * (len(TOOL_CLASSES) * TOOL_SPLITS["train"] // BATCH)
+        evals = TOOL_EPOCHS * -(-len(TOOL_CLASSES) * TOOL_SPLITS["test"] // BATCH)
+        want_launches = voxel_launches(1, steps, evals, adam=True)
+        epoch_losses = [float(line.split()[3]) for line in lines if line.startswith("Epoch ")]
+        sizes = next((line for line in lines if line.startswith("train ")), "no sizes line")
+        print(f"tools -> flagship CLI (ModelNet40 tree of tool-made binvox, {BACKBONE}, cell "
+              f"{CELL}, patch {PATCH}, B={BATCH}, the default lr): {sizes}; {steps} steps, "
+              f"{evals} eval batches; epoch losses {epoch_losses}; {lines[-1]}; checkpoints at "
+              f"epochs {saved}; launches {launches} (want {want_launches})")
+        if len(epoch_losses) != TOOL_EPOCHS or not epoch_losses[-1] < 0.75 * epoch_losses[0]:
+            raise AssertionError(f"the loss on tool-made data did not fall: {epoch_losses}")
+        if launches != want_launches or not saved:
+            raise AssertionError(f"launch counts {launches}, want {want_launches}")
+
+        # (d) the viewer on a converted grid
+        grid = x[0]
+        images = [view_voxels.render(grid, width=256, height=256) for _ in range(2)]
+        shell = view_voxels.hollow(grid)
+        covered = float((images[0] != 255).any(-1).mean())
+        ppm = view_voxels.save_image(images[0], os.path.join(work, "view.ppm"))
+        print(f"viewer: render of {train.samples[0].split(os.sep)[-1]} at 256x256 twice "
+              f"bit-equal {np.array_equal(*images)}, {covered:.1%} of the pixels covered; "
+              f"hollow keeps {int(shell.sum())} of {int(grid.sum())} voxels; "
+              f"{os.path.basename(ppm)} {os.path.getsize(ppm)} bytes")
+        if not np.array_equal(*images) or not 0.01 < covered < 1 \
+                or not 0 < shell.sum() < grid.sum():
+            raise AssertionError("the viewer's render is not repeatable or is blank")
+    print(f"phase 27 launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run_phase(name, fn, *args):
     """``fn(*args)``, its wall time printed (the script's time budget is read from these)."""
     t0 = time.perf_counter()
@@ -5517,6 +5764,7 @@ def main() -> int:
         run_phase("data_parallel", phase_data_parallel, torch)
         mp_report = run_phase("model_parallel", phase_model_parallel, torch)
         legacy_launches = run_phase("legacy_points", phase_legacy_points, torch)
+        tools_launches = run_phase("tools", phase_tools, torch)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "simple3dformer_tpu"))
         if leaked:
@@ -5531,10 +5779,12 @@ def main() -> int:
     # the forward is the op s3f::vit_block_fwd: the serving phase's launches and
     # those of the exported flagship's run (phase 23), each counted inside the op
     # rows 1, 3-5 and 8-11 add phase 26's launches (the legacy model served and
-    # trained, the set abstractions and PointEmbed)
+    # trained, the set abstractions and PointEmbed), rows 1 and 3-5 phase 27's
+    # (the flagship trained on tool-made binvox files)
     kernels = [dict(name="fused_vit_block", route="cuda", source=block_src,
                     replaces="simple3dformer_tpu/kernels/vit_block.py:264",
-                    launches=launches + export_launches + legacy_launches["fused_vit_block"],
+                    launches=launches + export_launches + legacy_launches["fused_vit_block"]
+                    + tools_launches["fused_vit_block"],
                     bound_ms=bound_ms, bound_by=bound_by, **report)]
     for name, replaces, source in [
             ("fused_vit_block_bwd", "simple3dformer_tpu/kernels/vit_block.py:290", block_src),
@@ -5545,7 +5795,8 @@ def main() -> int:
             ("fused_adam", "simple3dformer_tpu/kernels/adam.py:76",
              "simple3dformer_tpu_torch/csrc/adam.cu")]:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=train_launches[name] + legacy_launches.get(name, 0),
+                            launches=train_launches[name] + legacy_launches.get(name, 0)
+                            + tools_launches.get(name, 0),
                             **train_report[name]))
     for name, replaces, source in [
             ("fps", "simple3dformer_tpu/kernels/fps.py:79", "fps.cu"),

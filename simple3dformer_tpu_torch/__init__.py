@@ -5,7 +5,8 @@ counterpart at the same path there, and the tests hold the two against each
 other. This package imports torch and never jax.
 
 Layout (mirrors simple3dformer_tpu):
-  core/      rng (seed 9), checkpointing over torch.save, task configs
+  core/      rng (seed 9), checkpointing over torch.save, task configs; host_build.py
+             compiles the host C++ libraries with g++ at first use
   nn/        ViT layers, BatchNorm, backbone tables, voxel tokenizers,
              set abstraction and feature propagation, vector attention
   kernels/   hand-written CUDA kernels for Hopper, each beside its plain
@@ -21,5 +22,7 @@ Layout (mirrors simple3dformer_tpu):
   utils/     JAX parameter trees -> the port's state dicts
   data/      synthetic inputs, binvox, voxel, ModelNet40 point, ShapeNetPart and
              S3DIS readers, class maps, point augmentations, the
-             device-resident dataset
+             device-resident dataset; native_ingest/, the C++ bulk binvox decode
+  tools/     host data tools: mesh -> binvox voxelizer, voxel viewer, fixed-view
+             renders, the S3DIS collector and block/sample/export helpers
 """

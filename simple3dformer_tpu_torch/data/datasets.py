@@ -1,13 +1,14 @@
-"""Dataset readers (port of simple3dformer_tpu/data/datasets.py, numpy path:
-every reader and helper of that module but its synthetic_voxels, which is
-data/synthetic.py here, and the native ingest library, which the port does
-not keep).
+"""Dataset readers (port of simple3dformer_tpu/data/datasets.py: every
+reader and helper of that module but its synthetic_voxels, which is
+data/synthetic.py here).
 
 Python classes with __len__/__getitem__ mirroring the reference's torch
 Datasets (data/modelnet40.py, modelnet10.py, shapenet_v2.py); samples come
 back as numpy. Training does not read per item: ``materialize`` decodes a
-split into one uint8 array, which data/pipeline.DeviceResidentDataset puts
-on the device once.
+split into one uint8 array through the multithreaded C++ binvox ingest
+(data/native_ingest, built with g++ on first use; ``S3F_NATIVE_INGEST=0``
+chooses the numpy codec), which data/pipeline.DeviceResidentDataset puts on
+the device once.
 
 Every reader that draws (the contrastive augmentations, the resampling
 readers, the whole-scene blocks, the h5 epoch samplers, BatchPointCloudLoader)
@@ -27,15 +28,20 @@ import numpy as np
 from . import binvox
 
 
-def _materialize_binvox(samples, labels, indices=None):
-    """Decode ``indices`` of (samples, labels) into (x uint8 [n, X, Y, Z], y int32)."""
-    idx = np.arange(len(samples)) if indices is None else np.asarray(list(map(int, indices)))
-    grids = []
-    for i in idx:
-        with open(samples[i], "rb") as f:
-            grids.append(binvox.read_as_3d_array(f).data.astype(np.uint8))
-    x = np.stack(grids) if grids else np.zeros((0, 0, 0, 0), np.uint8)
-    return x, np.asarray(labels[idx], np.int32)
+def _materialize_binvox(samples, labels, indices=None, threads=None):
+    """Decode ``indices`` of (samples, labels) into (x uint8 [n, X, Y, Z], y int32)
+    through data/native_ingest: an empty selection raises ValueError, a file
+    whose dims differ from the first file's IOError."""
+    from . import native_ingest
+
+    if indices is None:
+        paths, y = samples, labels
+    else:
+        idx = np.asarray(list(map(int, indices)))
+        paths = [samples[i] for i in idx]
+        y = labels[idx]
+    x = native_ingest.materialize(paths, threads=threads)
+    return x, np.asarray(y, np.int32)
 
 
 def _class_weight(labels, n_classes: int) -> np.ndarray:
@@ -75,9 +81,10 @@ class ModelNetVoxelDataset:
     def class_weight(self) -> np.ndarray:
         return _class_weight(self.labels(), len(self.cls2idx))
 
-    def materialize(self, indices=None):
-        """Decode (a subset of) the split into ``(x uint8, y int32)``."""
-        return _materialize_binvox(self.samples, self.labels(), indices)
+    def materialize(self, indices=None, threads=None):
+        """Decode (a subset of) the split into ``(x uint8, y int32)`` through
+        the native ingest on ``threads`` threads (default: every CPU)."""
+        return _materialize_binvox(self.samples, self.labels(), indices, threads)
 
 
 class ModelNetVoxelContrastive(ModelNetVoxelDataset):
@@ -133,9 +140,9 @@ class ShapeNetV2VoxelDataset:
     def class_weight(self) -> np.ndarray:
         return _class_weight(self.labels(), len(self.cls2idx))
 
-    def materialize(self, indices=None):
+    def materialize(self, indices=None, threads=None):
         """Decode into ``(x uint8, y int32)``; see ModelNetVoxelDataset.materialize."""
-        return _materialize_binvox(self.samples, self.labels(), indices)
+        return _materialize_binvox(self.samples, self.labels(), indices, threads)
 
     def split_train_test(self, frac: float = 0.8, seed: int = 9):
         """The 80/20 random split of the reference's train_cls_voxel.py:112-114."""
